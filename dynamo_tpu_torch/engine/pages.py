@@ -1,0 +1,259 @@
+"""KV page allocator with prefix-cache reuse and LRU eviction.
+
+This is the worker-side half of the KV-cache story: physical pages of the
+paged KV cache (``dynamo_tpu_torch.models.llama.make_pages``) are handed out here,
+completed pages are registered under their chained block hash
+(``dynamo_tpu_torch.tokens``) so later requests with a shared prefix reuse them, and
+unreferenced pages park in an LRU from which they are either revived (prefix
+hit) or evicted (capacity).
+
+Every state change that the KV router cares about is emitted as a
+``KvCacheEvent`` (stored / removed), giving the router's radix tree an exact
+mirror of this allocator — capability parity with the reference's engine-side
+cache + event publisher (``lib/llm/src/kv_router/publisher.rs``,
+``lib/llm/src/mocker/kv_manager.rs:57-290``), re-designed for the TPU engine:
+pages are slots in one stacked device array, page 0 is a reserved garbage page
+for padded writes, and the allocator itself is pure host metadata (the device
+never sees it).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from dynamo_tpu_torch.protocols.events import KvCacheEvent, KvCacheStoredBlock
+
+
+@dataclass
+class _PageInfo:
+    refcount: int = 0
+    block_hash: Optional[int] = None  # set once the page holds a complete block
+    local_hash: int = 0
+    parent_hash: Optional[int] = None
+
+
+@dataclass
+class PrefixMatch:
+    """Result of a prefix-cache lookup: pages already holding the prompt head."""
+
+    page_ids: List[int] = field(default_factory=list)
+    block_hashes: List[int] = field(default_factory=list)
+
+    @property
+    def num_pages(self) -> int:
+        return len(self.page_ids)
+
+
+class OutOfPages(Exception):
+    """Raised when an allocation cannot be satisfied even after eviction."""
+
+
+class PageAllocator:
+    """Tracks ownership of the physical KV pages of one device cache.
+
+    Page ids run ``1..num_pages-1`` — page 0 is the reserved garbage page that
+    padded token positions write to (see ``ops/attention.write_kv``) and is
+    never allocated.
+
+    Lifecycle of a page:
+      free -> allocated (refcount 1, no hash) -> committed (hash registered)
+      -> released (refcount 0) -> LRU-cached -> revived (prefix hit) | evicted
+    """
+
+    def __init__(self, num_pages: int, page_size: int):
+        if num_pages < 2:
+            raise ValueError("need at least 2 pages (page 0 is reserved)")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))  # pop() -> low ids first
+        self._info: Dict[int, _PageInfo] = {}
+        # block_hash -> page_id for refcount-0 complete pages (insertion order = LRU)
+        self._lru: "OrderedDict[int, int]" = OrderedDict()
+        # block_hash -> page_id for ALL committed pages (active or cached)
+        self._by_hash: Dict[int, int] = {}
+        self._events: List[KvCacheEvent] = []
+        self._event_id = 0
+        # counters for metrics / tests
+        self.hits = 0
+        self.misses = 0
+        # KVBM hook: called as on_evict([(block_hash, page_id, _PageInfo)...])
+        # BEFORE the pages are handed out for reuse, so a tier manager can
+        # copy the block contents out (offload G1 -> G2)
+        self.on_evict = None
+
+    # -- observers ---------------------------------------------------------
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free) + len(self._lru)
+
+    @property
+    def num_active(self) -> int:
+        return len(self._info) - len(self._lru)
+
+    def usage(self) -> float:
+        usable = self.num_pages - 1
+        return (usable - self.num_free) / usable if usable else 0.0
+
+    # -- events ------------------------------------------------------------
+
+    def _emit(self, stored: Optional[List[KvCacheStoredBlock]] = None,
+              parent: Optional[int] = None,
+              removed: Optional[List[int]] = None,
+              cleared: bool = False) -> None:
+        self._events.append(KvCacheEvent(
+            event_id=self._event_id,
+            stored_blocks=stored or [],
+            stored_parent_hash=parent,
+            removed_block_hashes=removed or [],
+            all_blocks_cleared=cleared,
+        ))
+        self._event_id += 1
+
+    def drain_events(self) -> List[KvCacheEvent]:
+        """Take all pending cache events (for the KV event publisher)."""
+        out, self._events = self._events, []
+        return out
+
+    # -- prefix cache ------------------------------------------------------
+
+    def match_prefix(self, block_hashes: List[int]) -> PrefixMatch:
+        """Walk the prompt's chained block hashes; claim every leading page
+        already resident. Claimed pages get +1 refcount (revived from LRU if
+        parked there)."""
+        match = PrefixMatch()
+        for h in block_hashes:
+            page = self._by_hash.get(h)
+            if page is None:
+                break
+            info = self._info[page]
+            if info.refcount == 0:
+                self._lru.pop(h, None)
+            info.refcount += 1
+            match.page_ids.append(page)
+            match.block_hashes.append(h)
+        return match
+
+    def claim_blocks(self, block_hashes: List[int]) -> List[int]:
+        """Incref every resident page of the leading chain of
+        ``block_hashes`` (stops at the first miss — later blocks are
+        useless without their parents). Returns the claimed page ids; the
+        caller owns one reference per page and must ``release`` them.
+        This is the pin primitive for KV export leases
+        (``engine/transfer.ExportLeaseManager``): a pinned page can be
+        neither evicted nor reused until the lease is acked or reclaimed."""
+        pages: List[int] = []
+        for h in block_hashes:
+            page = self._by_hash.get(h)
+            if page is None:
+                break
+            self.incref(page)
+            pages.append(page)
+        return pages
+
+    def peek_prefix(self, block_hashes: List[int]) -> int:
+        """How many leading blocks are resident — no claim, no state change."""
+        n = 0
+        for h in block_hashes:
+            if h not in self._by_hash:
+                break
+            n += 1
+        return n
+
+    def count_lookup(self, hits: int, misses: int) -> None:
+        """Record one prefix lookup's outcome. Kept separate from
+        ``match_prefix`` so failed-admission retries (which claim and release
+        the same pages every few ms while the cache is full) don't pollute the
+        cache-hit-rate metric."""
+        self.hits += hits
+        self.misses += misses
+
+    # -- allocation --------------------------------------------------------
+
+    def allocate(self, n: int) -> List[int]:
+        """Allocate ``n`` fresh pages (refcount 1, no hash), evicting LRU
+        cached pages as needed. Raises ``OutOfPages`` if impossible; on
+        failure nothing is allocated."""
+        if n > self.num_free:
+            raise OutOfPages(f"need {n} pages, have {self.num_free}")
+        out: List[int] = []
+        removed: List[int] = []
+        evicted: List[tuple] = []
+        for _ in range(n):
+            if self._free:
+                page = self._free.pop()
+            else:
+                h, page = self._lru.popitem(last=False)  # oldest first
+                evicted.append((h, page, self._info[page]))
+                del self._by_hash[h]
+                del self._info[page]
+                removed.append(h)
+            self._info[page] = _PageInfo(refcount=1)
+            out.append(page)
+        if evicted and self.on_evict is not None:
+            # offload hook runs before the caller can overwrite the pages
+            self.on_evict(evicted)
+        if removed:
+            self._emit(removed=removed)
+        return out
+
+    def commit(self, page_id: int, block_hash: int, local_hash: int,
+               parent_hash: Optional[int]) -> None:
+        """Mark a page as holding a complete token block. Registers the hash
+        (emitting a ``stored`` event) unless another page already holds it."""
+        info = self._info[page_id]
+        if info.block_hash is not None:
+            return
+        info.block_hash = block_hash
+        info.local_hash = local_hash
+        info.parent_hash = parent_hash
+        if block_hash not in self._by_hash:
+            self._by_hash[block_hash] = page_id
+            self._emit(stored=[KvCacheStoredBlock(block_hash=block_hash,
+                                                  tokens_hash=local_hash)],
+                       parent=parent_hash)
+
+    def incref(self, page_id: int) -> None:
+        info = self._info[page_id]
+        if info.refcount == 0 and info.block_hash is not None:
+            self._lru.pop(info.block_hash, None)
+        info.refcount += 1
+
+    def release(self, page_ids: List[int]) -> None:
+        """Drop one reference from each page. Refcount-0 complete pages park
+        in the LRU (still matchable); incomplete ones free immediately."""
+        for page in page_ids:
+            info = self._info[page]
+            info.refcount -= 1
+            if info.refcount > 0:
+                continue
+            h = info.block_hash
+            if h is not None and self._by_hash.get(h) == page:
+                self._lru[h] = page
+            else:
+                # duplicate block or never completed: no registry entry to keep
+                del self._info[page]
+                self._free.append(page)
+
+    def clear(self) -> None:
+        """Evict every cached (refcount-0) page — ``/clear_kv_blocks``."""
+        for h, page in list(self._lru.items()):
+            del self._by_hash[h]
+            del self._info[page]
+            self._free.append(page)
+        self._lru.clear()
+        self._emit(cleared=True)
+        # `cleared` wipes the router's whole view of this worker, but
+        # refcount>0 committed pages survive and stay matchable — re-advertise
+        # them (registry insertion order = commit order, so parents precede
+        # children and the indexer's chain walk stays valid)
+        for h, page in self._by_hash.items():
+            info = self._info[page]
+            self._emit(stored=[KvCacheStoredBlock(block_hash=h,
+                                                  tokens_hash=info.local_hash)],
+                       parent=info.parent_hash)
+
+
+__all__ = ["PageAllocator", "PrefixMatch", "OutOfPages"]

@@ -1,0 +1,1122 @@
+"""Continuous-batching scheduler for the TPU serving engine.
+
+Request lifecycle (capability parity with the reference's engine-internal
+schedulers — vLLM/SGLang on CUDA, and the rust mocker's chunked scheduler
+``lib/llm/src/mocker/scheduler.rs:249-520`` — re-designed for a jit-compiled
+engine):
+
+  WAITING --admit (prefix-match + allocate pages)--> PREFILL
+  PREFILL --chunked prefill steps--> RUNNING (first token sampled)
+  RUNNING --decode steps, page-by-page growth--> FINISHED
+  RUNNING --page pressure--> PREEMPTED (pages released) --> WAITING (re-admit,
+           prefix cache usually revives the computed prefix)
+
+The scheduler is pure host-side bookkeeping: it never touches device arrays.
+Each call to :meth:`schedule` returns ONE step plan — a prefill batch
+(up to ``max_prefill_seqs`` sequences sharing the ``max_prefill_chunk`` token
+budget, one [B, S] step), a decode batch over all running sequences, or —
+with ``mixed_batch`` on (the default) — a :class:`MixedStepBatch` packing
+the prefill chunks AND the decode rows into that same [B, S] step (each
+decode row is a ragged length-1 chunk) — and the engine turns the plan
+into padded/bucketed device arrays. Mixed steps alternate with pure decode
+plans (the half the engine fuses into multi-step blocks); with
+``mixed_batch`` off, prefill and decode alternate when both are runnable,
+bounded by the ``decode_progress_every`` guarantee.
+
+Token accounting: ``num_computed`` counts positions whose KV is written to the
+cache. A decode step feeds the single newest token (position ``len-1``),
+samples the next, appends it. A prefill chunk feeds prompt positions
+``[num_computed, num_computed+chunk)``; the final chunk's logits produce the
+first generated token. Pages whose every position is computed are committed to
+the allocator under their chained block hash (``block_size == page_size``),
+which both enables prefix reuse and emits the router-facing ``stored`` events.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Callable, Deque, Dict, List, Optional, Union
+
+import numpy as np
+
+from dynamo_tpu_torch.engine.pages import OutOfPages, PageAllocator
+from dynamo_tpu_torch.engine.spec import propose_ngram
+from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+from dynamo_tpu_torch.protocols.events import (
+    ForwardPassMetrics,
+    KvStats,
+    SpecDecodeStats,
+    WorkerStats,
+)
+from dynamo_tpu_torch.tokens import TokenBlockSequence
+
+
+class Phase(Enum):
+    WAITING = "waiting"
+    PREFILL = "prefill"
+    RUNNING = "running"
+    FINISHED = "finished"
+
+
+class Sequence:
+    """Host-side state of one in-flight request."""
+
+    __slots__ = ("request", "tokens", "page_ids", "committed_pages",
+                 "num_computed", "cached_tokens", "num_prompt", "generated",
+                 "phase", "cancelled", "arrival", "salt_hash",
+                 "enqueued_unix", "admitted_unix", "timings_sent",
+                 "decode_steps", "decode_dispatches", "table_version",
+                 "multistep_fallbacks", "compile_ms", "compile_events")
+
+    def __init__(self, request: PreprocessedRequest, page_size: int,
+                 salt_hash: int = 0):
+        self.request = request
+        self.salt_hash = salt_hash
+        self.tokens = TokenBlockSequence(request.token_ids,
+                                         block_size=page_size,
+                                         salt_hash=salt_hash)
+        self.num_prompt = len(request.token_ids)
+        self.page_ids: List[int] = []
+        self.committed_pages = 0
+        self.num_computed = 0
+        self.cached_tokens = 0
+        self.generated: List[int] = []
+        self.phase = Phase.WAITING
+        self.cancelled = False
+        self.arrival = time.monotonic()
+        # wall-clock stage boundaries for the tracing layer (utils/tracing):
+        # queue = enqueued -> first admission, prefill = admission -> first
+        # emitted frame; the engine loop ships them on the first frame
+        self.enqueued_unix = time.time()
+        self.admitted_unix: Optional[float] = None
+        self.timings_sent = False
+        # decode-stage accounting for the trace layer: tokens produced by
+        # decode-family steps and the number of jitted dispatches that
+        # produced them (a fused multi-step block is ONE dispatch) — shipped
+        # on the final frame so the decode span carries steps/dispatches
+        self.decode_steps = 0
+        self.decode_dispatches = 0
+        # bumped whenever ``page_ids`` changes (allocation, growth, adopt,
+        # preemption, release): the engine's device-resident page-table
+        # cache keys on it instead of hashing/rebuilding the padded table
+        # host-side every step
+        self.table_version = 0
+        # fused-decode refusals that touched this sequence (the trace
+        # layer ships the count as a decode-span attr)
+        self.multistep_fallbacks = 0
+        # jit compiles this sequence waited behind (fresh-bucket first
+        # calls, engine/steptrace.py): shipped on the first frame that
+        # follows (or the final frame for post-first-token compiles) so
+        # the request trace carries an xla_compile event
+        self.compile_ms = 0.0
+        self.compile_events = 0
+
+    def pages_changed(self) -> None:
+        self.table_version += 1
+
+    def __len__(self) -> int:
+        return len(self.tokens)
+
+
+@dataclass
+class PrefillChunk:
+    seq: Sequence
+    start: int      # first position fed this step (== seq.num_computed)
+    length: int     # real tokens in the chunk
+    is_last: bool   # final chunk => sample the first generated token
+
+
+@dataclass
+class PrefillBatch:
+    """One prefill step advancing several sequences at once ([B, S] on
+    device, one row per chunk). Concurrent arrivals share a step instead of
+    serializing, so decode cadence stays bounded under bursts — the role of
+    the reference mocker's token-budget chunked scheduler
+    (``lib/llm/src/mocker/scheduler.rs:249-520``).
+
+    ``ring=True`` marks a sequence-parallel long-prompt step: one chunk
+    covering the WHOLE prompt, executed via ring attention over the ``sp``
+    mesh axis (``parallel/ring_prefill.py``) instead of chunked paged
+    prefill. Only emitted when the engine enabled it (sp mesh present)."""
+
+    chunks: List[PrefillChunk]
+    ring: bool = False
+
+    @property
+    def seqs(self) -> List[Sequence]:
+        return [c.seq for c in self.chunks]
+
+
+@dataclass
+class DecodeBatch:
+    seqs: List[Sequence]
+
+
+@dataclass
+class SpecDecodeBatch:
+    """One speculative verify step over the running batch ([B, K+1] on
+    device): row i feeds its last context token plus ``drafts[i]`` and the
+    device verifies the drafts by exact rejection sampling
+    (``ops/sampling.spec_verify``). Emitted instead of a DecodeBatch when
+    speculation is enabled, every row is spec-eligible, and at least one
+    row produced a real n-gram draft (rows without a match carry padding
+    drafts — the step shape is uniform and their acceptance just stops
+    early)."""
+
+    seqs: List[Sequence]
+    drafts: np.ndarray          # [len(seqs), K] int32
+    has_draft: List[bool] = field(default_factory=list)  # real match per row
+
+
+@dataclass
+class MultiStepBatch:
+    """One FUSED decode dispatch: ``width`` decode steps for every row run
+    inside a single jitted program (``JaxEngine._multistep_impl``'s
+    ``lax.scan``) with on-device sampling and stop detection — one Python
+    round trip, one dispatch, one device->host fetch for ``width`` tokens.
+
+    ``start_lens[i]`` is row i's effective token count at BLOCK START
+    (``len(seq)`` plus the tokens of any still-in-flight previous block the
+    host has not appended yet): the block feeds the row's last token at
+    position ``start_lens[i] - 1`` and writes KV for positions
+    ``start_lens[i]-1 .. start_lens[i]+width-2``. Pages covering every
+    written position are allocated AT PLAN TIME, so the fused program never
+    needs mid-block page allocation.
+
+    ``budgets[i]``/``min_gates[i]`` are the remaining max-token budget and
+    the outstanding ``min_tokens`` requirement at block start — the device
+    stop check consumes them (rows past their stop are masked to no-ops so
+    finished sequences stop writing KV). ``chained`` marks a block whose
+    first input token/position/liveness come from the previous block's
+    on-device carry instead of host arrays."""
+
+    seqs: List[Sequence]
+    width: int
+    chained: bool = False
+    start_lens: List[int] = field(default_factory=list)
+    budgets: List[int] = field(default_factory=list)
+    min_gates: List[int] = field(default_factory=list)
+
+    # mirrors the other plan kinds' diagnostic slot (set by the engine)
+    _step_id: Optional[int] = None
+
+
+@dataclass
+class MixedStepBatch:
+    """ONE token-budgeted dispatch advancing prefill chunks AND decode
+    rows together — continuous batching at real occupancy instead of the
+    strict prefill-XOR-decode alternation (the Ragged Paged Attention
+    batch shape, PAPERS.md).
+
+    Rows 0..len(chunks)-1 are prefill chunks (the ``_prefill_plan``
+    packing, same token budget); the remaining rows are RUNNING sequences
+    each feeding their newest token at position ``len-1`` — a decode row
+    is just a ragged chunk of length 1 (``start == num_computed``,
+    ``is_last``), so the engine's [B, S] step program serves the whole
+    batch: per-row ``new_lens`` carries the raggedness, each row samples
+    at its last real token, and decode rows' sampling (seeds included:
+    they key on token position) matches the plain decode step exactly.
+    """
+
+    chunks: List[PrefillChunk]
+    decode_seqs: List[Sequence] = field(default_factory=list)
+
+    _step_id: Optional[int] = None
+
+    @property
+    def seqs(self) -> List[Sequence]:
+        return [c.seq for c in self.chunks] + list(self.decode_seqs)
+
+
+StepPlan = Union[PrefillBatch, DecodeBatch, SpecDecodeBatch, MultiStepBatch,
+                 MixedStepBatch]
+
+
+@dataclass
+class SchedulerConfig:
+    max_num_seqs: int = 64           # concurrent running+prefill sequences
+    max_prefill_chunk: int = 512     # prompt-token budget per prefill step
+    max_prefill_seqs: int = 8        # max sequences sharing one prefill step
+    watermark: float = 0.01          # keep this fraction of pages free at admit
+    max_queue: int = 4096
+    # prompts longer than this (and with no resident prefix) prefill in ONE
+    # sequence-parallel ring step instead of chunks; None disables (set by
+    # the engine only when an sp mesh exists)
+    ring_threshold: Optional[int] = None
+    # cap on concurrently-admitted ring-eligible sequences: ring steps run
+    # one at a time, so each extra admission pins its full prompt's pages
+    # idle across many steps — a burst of long prompts could otherwise
+    # starve decode growth and trigger preemption storms
+    max_ring_seqs: int = 2
+    # speculative decoding (engine/spec.py): drafts per verify step
+    # (0 = off) and the n-gram match sizes for the prompt-lookup proposer
+    spec_tokens: int = 0
+    spec_ngram_max: int = 4
+    spec_ngram_min: int = 2
+    # with speculation on, plain decode steps may still CHAIN (pipelined
+    # decode) when no draft matched — but a chain never consults the
+    # proposer, so it is broken after this many consecutive chained steps
+    # to give fresh context a chance to draft. 0 disables chaining while
+    # speculation is on.
+    spec_chain_break: int = 8
+    # fused decode: max decode steps per jitted dispatch (DYN_DECODE_MULTISTEP
+    # resolved by the engine; <=1 disables the fused path). The planner may
+    # narrow the width per batch — see plan_multistep.
+    decode_multistep: int = 1
+    # rows with detokenizer-level stop STRINGS cap the fuse width here: the
+    # host only learns of a string match after detokenizing, so a wide block
+    # can overshoot the stop by up to width-1 tokens per in-flight block.
+    # Small lookback bounds that waste while still amortizing the dispatch.
+    stop_str_lookback: int = 2
+    # mixed prefill+decode dispatch (DYN_MIXED_BATCH): pack decode rows
+    # into every prefill step as length-1 ragged chunks AND lift the fused
+    # multi-step gate so blocks keep running while arrivals onboard
+    # (plan_multistep no longer refuses on waiters/prefills; chained
+    # blocks still break at boundaries so admission proceeds). False
+    # restores the strict prefill-XOR-decode alternation and the
+    # "no waiters/prefills" fuse gate.
+    mixed_batch: bool = True
+    # decode-progress guarantee under sustained arrivals: while the
+    # waiting queue never drains, prefill-only steps may run at most
+    # K-1 in a row before a step that advances decode rows is forced
+    # (DYN_DECODE_PROGRESS). With mixed batching on, decode rows ride
+    # every prefill step and the guarantee is trivially met; it binds on
+    # the legacy alternation path, where bursts may prefer prefill for
+    # TTFT. 0 disables the guarantee (strict alternation).
+    decode_progress_every: int = 2
+    # device-side penalty ring buffer width per row (tokens tracked for
+    # repetition/presence/frequency penalties inside a fused block).
+    # 0 = no device window: penalized rows refuse fusion ("penalties"
+    # reason), as before. The serving engine sets this from its own
+    # config; the raw Scheduler default keeps host-only behavior.
+    penalty_window: int = 0
+    # set by the engine: returns True when a guided row's grammar has a
+    # device transition table (engine/guided.build_guided_table) so the
+    # row can ride the fused block. None = no device lowering available:
+    # guided rows refuse fusion ("guided" reason, as before); a False
+    # return means the grammar's table exceeded the byte cap and only
+    # that batch falls back, under the "guided_table" reason.
+    guided_fuse_check: Optional[Callable] = None
+
+
+class Scheduler:
+    """Chunked-prefill continuous batching over a :class:`PageAllocator`."""
+
+    def __init__(self, allocator: PageAllocator, config: SchedulerConfig):
+        self.alloc = allocator
+        self.cfg = config
+        self.page_size = allocator.page_size
+        self.waiting: Deque[Sequence] = deque()
+        self.active: Dict[str, Sequence] = {}  # request_id -> seq (prefill+running)
+        self._prefer_prefill = True
+        self.num_preemptions = 0
+        # set by the engine loop: the context ceiling used for the
+        # deterministic end-of-stream check in plan_chained
+        self.max_context_hint: Optional[int] = None
+        # engine-dp rank advertised in load metrics (reference
+        # WorkerStats.data_parallel_rank, kv_router/protocols.rs:52);
+        # set by the worker when serving one rank of a dp group
+        self.dp_rank: Optional[int] = None
+        # cancelled sequences reaped outside an engine step; the engine drains
+        # this to emit their CANCELLED frames (otherwise the caller's stream
+        # would never terminate)
+        self.reaped: List[Sequence] = []
+        # speculative-decode acceptance counters (reference surface:
+        # SpecDecodeStats in the metrics plane, protocols/events.py)
+        self.spec_stats = SpecDecodeStats()
+        # consecutive chained steps since the last schedule() (the
+        # spec_chain_break counter)
+        self._chain_run = 0
+        # blocks adopted mid-prefill from the prefix cache (injected by the
+        # KVBM prefetch scheduler or a concurrent request after THIS
+        # sequence was admitted) instead of being recomputed
+        self.adopted_blocks = 0
+        # why the fused multi-step path was refused, by reason (waiters,
+        # prefill, penalties, penalty_window, guided, guided_table, spec,
+        # budget, pages, multihost): the worker metrics layer surfaces these as
+        # dynamo_worker_multistep_fallback_total{reason=...} so the
+        # "fallback-reason near zero" roadmap criterion is measurable
+        self.multistep_fallbacks: Dict[str, int] = {}
+        # most recent fallback reason, consumed by the engine loop so the
+        # demoted dispatch's StepRecord carries WHY it left the fast path
+        self.last_fallback = ""
+        # consecutive scheduled steps that advanced NO decode row (the
+        # decode-progress guarantee counter)
+        self._steps_since_decode = 0
+        # mixed-dispatch diagnostics (the engine also counts dispatches)
+        self.mixed_plans = 0
+
+    def record_fallback(self, reason: str, seqs=()) -> None:
+        """Count one fused-path refusal; also stamp the sequences it
+        touched so the trace layer can attribute it."""
+        self.multistep_fallbacks[reason] = (
+            self.multistep_fallbacks.get(reason, 0) + 1)
+        self.last_fallback = reason
+        for seq in seqs:
+            seq.multistep_fallbacks += 1
+
+    def drain_reaped(self) -> List[Sequence]:
+        out, self.reaped = self.reaped, []
+        return out
+
+    # -- intake ------------------------------------------------------------
+
+    def add_request(self, request: PreprocessedRequest) -> Sequence:
+        if len(self.waiting) >= self.cfg.max_queue:
+            raise RuntimeError("scheduler queue full")
+        seq = Sequence(request, self.page_size)
+        self.waiting.append(seq)
+        return seq
+
+    def cancel(self, request_id: str) -> None:
+        seq = self.active.get(request_id)
+        if seq is not None:
+            seq.cancelled = True
+            return
+        for seq in self.waiting:
+            if seq.request.request_id == request_id:
+                seq.cancelled = True
+                self.waiting.remove(seq)
+                self.reaped.append(seq)
+                return
+
+    # -- admission ---------------------------------------------------------
+
+    def _watermark_pages(self) -> int:
+        return max(1, int(self.alloc.num_pages * self.cfg.watermark))
+
+    def _try_admit(self) -> Optional[Sequence]:
+        while self.waiting and self.waiting[0].cancelled:
+            self.reaped.append(self.waiting.popleft())
+        if not self.waiting:
+            return None
+        if len(self.active) >= self.cfg.max_num_seqs:
+            return None
+        seq = self.waiting[0]
+        hashes = seq.tokens.block_hashes()
+        # Prefix-cache hit: claim resident pages, but always leave >=1 token
+        # to compute so the final-chunk logits exist. (For a preempted
+        # sequence len(seq) includes generated tokens; the revive covers them
+        # too since its full pages were committed before release.)
+        match = self.alloc.match_prefix(hashes)
+        cached = min(match.num_pages * self.page_size, len(seq) - 1)
+        full_cached_pages = cached // self.page_size
+        if full_cached_pages < match.num_pages:
+            self.alloc.release(match.page_ids[full_cached_pages:])
+            match.page_ids = match.page_ids[:full_cached_pages]
+        cached = full_cached_pages * self.page_size
+        need = self._pages_needed(len(seq)) - len(match.page_ids)
+        if need > self.alloc.num_free - self._watermark_pages():
+            self.alloc.release(match.page_ids)
+            return None
+        try:
+            fresh = self.alloc.allocate(need) if need else []
+        except OutOfPages:
+            self.alloc.release(match.page_ids)
+            return None
+        self.alloc.count_lookup(hits=full_cached_pages,
+                                misses=len(hashes) - full_cached_pages)
+        self.waiting.popleft()
+        seq.page_ids = match.page_ids + fresh
+        seq.pages_changed()
+        seq.committed_pages = len(match.page_ids)
+        seq.num_computed = cached
+        if seq.admitted_unix is None:  # keep the FIRST admission (a
+            seq.admitted_unix = time.time()  # preemption revive re-admits)
+        if not seq.generated:  # first admission: report the prefix hit
+            seq.cached_tokens = cached
+        seq.phase = Phase.PREFILL
+        self.active[seq.request.request_id] = seq
+        return seq
+
+    def _pages_needed(self, num_tokens: int) -> int:
+        # positions [0, num_tokens-1] must be addressable
+        return (num_tokens + self.page_size - 1) // self.page_size
+
+    # -- per-step bookkeeping ---------------------------------------------
+
+    def _commit_full_pages(self, seq: Sequence) -> None:
+        full = seq.num_computed // self.page_size
+        blocks = seq.tokens.blocks
+        for i in range(seq.committed_pages, min(full, len(seq.page_ids))):
+            b = blocks[i]
+            self.alloc.commit(seq.page_ids[i], b.block_hash, b.local_hash,
+                              b.parent_hash if b.position > 0 else None)
+        seq.committed_pages = max(seq.committed_pages, full)
+
+    def finish(self, seq: Sequence) -> None:
+        """Release a sequence's resources (idempotent)."""
+        if seq.phase == Phase.FINISHED:
+            return
+        self._commit_full_pages(seq)
+        self.alloc.release(seq.page_ids)
+        seq.page_ids = []
+        seq.pages_changed()
+        seq.phase = Phase.FINISHED
+        self.active.pop(seq.request.request_id, None)
+
+    def _preempt_one(self) -> bool:
+        """Evict the newest running sequence back to the waiting queue."""
+        victims = [s for s in self.active.values() if s.phase == Phase.RUNNING]
+        if not victims:
+            return False
+        victim = max(victims, key=lambda s: s.arrival)
+        self._commit_full_pages(victim)
+        self.alloc.release(victim.page_ids)
+        victim.page_ids = []
+        victim.pages_changed()
+        victim.committed_pages = 0
+        victim.num_computed = 0
+        victim.phase = Phase.WAITING
+        self.active.pop(victim.request.request_id)
+        self.waiting.appendleft(victim)
+        self.num_preemptions += 1
+        return True
+
+    def _grow_for_decode(self, seq: Sequence) -> bool:
+        """Ensure the page for position ``len-1`` exists; may preempt others."""
+        need = self._pages_needed(len(seq)) - len(seq.page_ids)
+        while need > 0:
+            try:
+                seq.page_ids.extend(self.alloc.allocate(need))
+                seq.pages_changed()
+                return True
+            except OutOfPages:
+                if not self._preempt_one() or seq.phase != Phase.RUNNING:
+                    return False
+        return True
+
+    def _adopt_resident(self, seq: Sequence) -> int:
+        """Mid-prefill prefix adoption: swap upcoming fresh pages for blocks
+        that became resident AFTER this sequence was admitted.
+
+        Admission prefix-matches once; blocks injected later (the KVBM
+        prefetch scheduler streaming tier promotions ahead of the chunked
+        prefill cursor, a disagg pull, or a concurrent request committing
+        the same prefix) would be recomputed without this. At each prefill
+        planning pass, walk the chain from the cursor: while the next
+        block's hash is resident, claim the resident page, release the
+        fresh page allocated for that position, and advance
+        ``num_computed`` past it — the prefill chunk then starts where
+        residency ends. Committed pages are immutable, so sharing one with
+        its owner is the ordinary prefix-cache aliasing.
+
+        Only runs at page-aligned cursors (a partially computed page can't
+        be spliced) and always leaves >=1 token to compute so the final
+        chunk's logits exist (the admission rule)."""
+        if seq.num_computed % self.page_size:
+            return 0
+        blocks = seq.tokens.blocks
+        limit = min((len(seq) - 1) // self.page_size, len(seq.page_ids))
+        i = seq.num_computed // self.page_size
+        adopted = 0
+        while i < limit and i < len(blocks):
+            page = self.alloc._by_hash.get(blocks[i].block_hash)
+            if page is None or page == seq.page_ids[i]:
+                break
+            self.alloc.incref(page)
+            old = seq.page_ids[i]
+            seq.page_ids[i] = page
+            seq.pages_changed()
+            self.alloc.release([old])  # fresh + uncommitted: frees
+            seq.num_computed += self.page_size
+            seq.committed_pages = max(seq.committed_pages, i + 1)
+            adopted += 1
+            i += 1
+        if adopted:
+            self.adopted_blocks += adopted
+            if not seq.generated:  # still reporting the prefix hit
+                seq.cached_tokens += adopted * self.page_size
+        return adopted
+
+    # -- the step ----------------------------------------------------------
+
+    def _prefill_plan(self) -> Optional[PrefillBatch]:
+        """Admit waiting sequences (bounded by slots, pages, and batch
+        width), then pack up to ``max_prefill_seqs`` chunks into one step
+        under the ``max_prefill_chunk`` token budget, oldest first."""
+        # adopt blocks that became resident since admission (prefetch or
+        # disagg injects, concurrent requests committing a shared prefix)
+        # so each chunk starts where residency ends
+        for s in self.active.values():
+            if s.phase == Phase.PREFILL:
+                self._adopt_resident(s)
+        rt = self.cfg.ring_threshold
+
+        def ring_eligible(s: Sequence) -> bool:
+            # a resident prefix composes with the ring (cached pages are
+            # merged via blockwise partials) as long as it is page-aligned
+            # (prefix-cache hits always are — admission truncates to full
+            # pages); the REMAINING tokens must justify a ring step
+            return (rt is not None
+                    and s.num_computed % self.page_size == 0
+                    and len(s) - s.num_computed > rt)
+
+        # cap admission at the batch width so admitted pages don't sit idle
+        # across many steps waiting for a row; ring candidates run alone and
+        # are held out of packing, so they don't consume a row — but their
+        # admissions are capped separately (max_ring_seqs): each one pins
+        # its whole prompt's pages until its single ring step runs
+        n_prefill = sum(1 for s in self.active.values()
+                        if s.phase == Phase.PREFILL and not ring_eligible(s))
+        n_ring = sum(1 for s in self.active.values()
+                     if s.phase == Phase.PREFILL and ring_eligible(s))
+        while (n_prefill < self.cfg.max_prefill_seqs
+               and len(self.active) < self.cfg.max_num_seqs):
+            while self.waiting and self.waiting[0].cancelled:
+                self.reaped.append(self.waiting.popleft())
+            if rt is not None and self.waiting and n_ring >= self.cfg.max_ring_seqs:
+                head = self.waiting[0]
+                cached = (self.alloc.peek_prefix(head.tokens.block_hashes())
+                          * self.page_size)
+                if len(head) - cached > rt:
+                    # head would take the ring path (its REMAINING tokens
+                    # after any prefix hit exceed the threshold); hold it —
+                    # FIFO order forbids skipping ahead to shorter prompts
+                    break
+            seq = self._try_admit()
+            if seq is None:
+                break
+            if ring_eligible(seq):
+                n_ring += 1
+            else:
+                n_prefill += 1
+        prefilling = sorted(
+            (s for s in self.active.values() if s.phase == Phase.PREFILL),
+            key=lambda s: s.arrival)
+        if not prefilling:
+            return None
+        # Long prompts take the sequence-parallel ring path: the remaining
+        # tokens in ONE step, alone (compute already split sp ways). A
+        # page-aligned resident prefix rides along — the ring merges cached
+        # pages via blockwise online-softmax partials (ring_prefill.py).
+        # Oldest-first still governs: a ring step runs only when its sequence
+        # is the oldest prefilling one; until then ring candidates are held
+        # OUT of chunk packing (a single chunk would spoil eligibility), so
+        # neither path can starve the other.
+        if ring_eligible(prefilling[0]):
+            seq = prefilling[0]
+            return PrefillBatch(ring=True, chunks=[PrefillChunk(
+                seq=seq, start=seq.num_computed,
+                length=len(seq) - seq.num_computed, is_last=True)])
+        budget = self.cfg.max_prefill_chunk
+        chunks: List[PrefillChunk] = []
+        packable = [s for s in prefilling if not ring_eligible(s)]
+        for seq in packable[:self.cfg.max_prefill_seqs]:
+            if budget <= 0:
+                break
+            # len(seq), not num_prompt: a revived preempted sequence must
+            # also re-prefill the tokens it had generated before eviction
+            remaining = len(seq) - seq.num_computed
+            length = min(remaining, budget)
+            chunks.append(PrefillChunk(seq=seq, start=seq.num_computed,
+                                       length=length,
+                                       is_last=(length == remaining)))
+            budget -= length
+        return PrefillBatch(chunks=chunks) if chunks else None
+
+    def _grow_ready(self, decodable: List[Sequence]) -> List[Sequence]:
+        """Grow pages for the decode rows (may preempt newest RUNNING
+        sequences); returns the rows that survived with pages in place."""
+        ready: List[Sequence] = []
+        for seq in sorted(decodable, key=lambda s: s.arrival):
+            if seq.phase != Phase.RUNNING:
+                continue  # preempted by an earlier grow
+            if self._grow_for_decode(seq):
+                ready.append(seq)
+        return [s for s in ready if s.phase == Phase.RUNNING]
+
+    def schedule(self) -> Optional[StepPlan]:
+        """Pick the next engine step, or None if there is nothing to run.
+
+        With ``mixed_batch`` on (the default), prefill steps carry the
+        decode rows along as length-1 ragged chunks (MixedStepBatch) and
+        the ``_prefer_prefill`` alternation becomes mixed-vs-pure-decode —
+        the pure-decode half is what the loop upgrades to a fused
+        multi-step block, so fused decode stays active while arrivals
+        onboard. With it off, the legacy prefill-XOR-decode alternation
+        applies, except that a deep waiting queue may take up to
+        ``decode_progress_every - 1`` consecutive prefill steps (burst
+        TTFT) before a decode step is forced — the decode-progress
+        guarantee that bounds decode tail latency under sustained
+        arrivals."""
+        self._chain_run = 0
+        # drop cancelled active sequences
+        for seq in [s for s in self.active.values() if s.cancelled]:
+            self.finish(seq)
+            self.reaped.append(seq)
+
+        decodable = [s for s in self.active.values() if s.phase == Phase.RUNNING]
+
+        K = self.cfg.decode_progress_every
+        force_decode = bool(decodable and K > 0
+                            and self._steps_since_decode >= K - 1)
+        if not force_decode and (self._prefer_prefill or not decodable):
+            batch = self._prefill_plan()
+            if batch is not None:
+                if (self.cfg.mixed_batch and not batch.ring
+                        and self.cfg.spec_tokens == 0 and decodable):
+                    ready = self._grow_ready(decodable)
+                    # re-filter: growth may have preempted a planned chunk's
+                    # sequence back to WAITING — drop its chunk
+                    chunks = [c for c in batch.chunks
+                              if c.seq.phase is Phase.PREFILL]
+                    if ready and chunks:
+                        self._prefer_prefill = False
+                        self._steps_since_decode = 0
+                        self.mixed_plans += 1
+                        return MixedStepBatch(chunks=chunks,
+                                              decode_seqs=ready)
+                    if not chunks and not ready:
+                        return None
+                    if not chunks:
+                        batch = None  # fall through to the decode plan
+                    else:
+                        batch = PrefillBatch(chunks=chunks)
+                if batch is not None:
+                    # legacy (or decode-less) prefill step; under a deep
+                    # waiting queue keep preferring prefill up to the
+                    # decode-progress bound
+                    self._prefer_prefill = bool(
+                        self.waiting and K > 0
+                        and self._steps_since_decode + 1 < K - 1)
+                    if decodable:
+                        self._steps_since_decode += 1
+                    return batch
+        self._prefer_prefill = True
+        if not decodable:
+            return None
+        ready = self._grow_ready(decodable)
+        if not ready:
+            return None
+        self._steps_since_decode = 0
+        if self.cfg.spec_tokens > 0:
+            spec = self._spec_plan(ready)
+            if spec is not None:
+                return spec
+        return DecodeBatch(seqs=ready)
+
+    # -- speculative decoding ----------------------------------------------
+
+    @staticmethod
+    def _spec_eligible(seq: Sequence) -> bool:
+        """Rows whose sampling the verify step reproduces exactly.
+
+        Penalties / logit_bias mutate logits from host bookkeeping that
+        goes stale within a multi-token step; per-request seeds key their
+        randomness on a single token position. Any such row sends the
+        whole batch down the plain decode path (same rule as
+        ``plan_chained``). Top-logprobs requests ARE eligible (the verify
+        step packs per-position alternatives), and so are GUIDED rows —
+        the host walks the automaton along the known draft path and ships
+        one allow-mask per chunk slot (JaxEngine._guided_spec_masks), so
+        structured outputs keep their exactness under speculation."""
+        so = seq.request.sampling_options
+        rep_on = (so.repetition_penalty is not None
+                  and so.repetition_penalty > 0
+                  and so.repetition_penalty != 1.0)
+        return not (so.frequency_penalty or so.presence_penalty or rep_on
+                    or so.logit_bias or so.seed is not None or so.min_p)
+
+    def _spec_plan(self, ready: List[Sequence]) -> Optional[SpecDecodeBatch]:
+        """Try to upgrade this decode step to a [B, K+1] verify step."""
+        K = self.cfg.spec_tokens
+        if not all(self._spec_eligible(s) for s in ready):
+            return None
+        # context-ceiling guard (as plan_chained's): the verify step feeds
+        # positions len .. len+K-1 and needs pages/table slots for len+K
+        # tokens — a row within K of max_context would overrun the static
+        # page-table width (and the positions themselves). Those rows are
+        # about to finish; the plain decode step handles them.
+        if self.max_context_hint is not None and any(
+                len(s) + K >= self.max_context_hint for s in ready):
+            return None
+        drafts = np.zeros((len(ready), K), np.int32)
+        has = [False] * len(ready)
+        for i, seq in enumerate(ready):
+            toks = seq.tokens.tokens()  # one O(context) pass per row
+            d = propose_ngram(toks, K, max_n=self.cfg.spec_ngram_max,
+                              min_n=self.cfg.spec_ngram_min)
+            if d is not None:
+                drafts[i] = d
+                has[i] = True
+            else:
+                # no match: pad with the last context token — the row still
+                # gets its guaranteed one token from slot 0, and rejection
+                # costs nothing the step isn't already spending
+                drafts[i] = toks[-1]
+        if not any(has):
+            return None
+        # grow pages for the +K lookahead (positions len .. len+K-1). No
+        # preemption on this path — evicting a row already planned into
+        # this very batch would corrupt it; on pressure we just fall back
+        # to the plain decode step, which needs no extra pages. Pages
+        # allocated before the failure stay with their sequences (they are
+        # the very next pages those rows will use anyway).
+        for seq in ready:
+            need = self._pages_needed(len(seq) + K) - len(seq.page_ids)
+            if need > 0:
+                try:
+                    seq.page_ids.extend(self.alloc.allocate(need))
+                    seq.pages_changed()
+                except OutOfPages:
+                    return None
+        return SpecDecodeBatch(seqs=list(ready), drafts=drafts, has_draft=has)
+
+    def on_spec_done(self, plan: SpecDecodeBatch, advances: List[int],
+                     accepted: Optional[List[int]] = None) -> None:
+        """Advance accounting after a verify step.
+
+        ``advances[i]`` = 1 (the fed context token's KV at slot 0) + the
+        number of drafts row i actually APPENDED (accepted, then possibly
+        truncated by a stop). Slots past the advance hold rejected drafts'
+        KV — never committed (num_computed stops short), overwritten by the
+        next step that reaches those positions, and masked from attention
+        by true context length in between.
+
+        Advances accounting ONLY — page commits wait for
+        :meth:`commit_spec` AFTER the engine appended the accepted tokens:
+        committing here would index token blocks that do not exist yet
+        (``num_computed`` crosses a page boundary whose tokens are still
+        in the candidate list)."""
+        for seq, adv in zip(plan.seqs, advances):
+            seq.num_computed += adv
+        K = self.cfg.spec_tokens
+        self.spec_stats.num_spec_tokens = K
+        self.spec_stats.num_drafts += sum(1 for h in plan.has_draft if h)
+        self.spec_stats.num_draft_tokens += K * sum(
+            1 for h in plan.has_draft if h)
+        # acceptance counts what the DEVICE accepted (draft quality), not
+        # what survived stop truncation / cancellation — an operator tuning
+        # K against the acceptance rate should not be steered by
+        # short-completion workloads
+        acc = accepted if accepted is not None else [
+            max(0, a - 1) for a in advances]
+        self.spec_stats.num_accepted_tokens += sum(
+            a for a, h in zip(acc, plan.has_draft) if h)
+
+    def commit_spec(self, plan: SpecDecodeBatch) -> None:
+        """Commit full pages once the verify step's tokens are appended
+        (rows the appends finished are no-ops: ``finish`` already
+        committed and released their pages)."""
+        for seq in plan.seqs:
+            self._commit_full_pages(seq)
+
+    def plan_chained(self, prev: DecodeBatch) -> Optional[DecodeBatch]:
+        """Plan decode step N+1 while step N's results are still on device.
+
+        Called BEFORE ``on_step_done(prev)`` ran — sequence state still
+        excludes step N's token. Returns a DecodeBatch over exactly
+        ``prev.seqs`` (same order, so the device can index step N's sampled
+        tokens row-for-row), or None when chaining is unsafe:
+
+        - anything is waiting/prefilling (the normal schedule would prefer a
+          prefill step, and new rows would break row alignment),
+        - any prev sequence finished/was cancelled per host knowledge,
+        - any sequence deterministically finishes at step N (max_tokens /
+          max_context) — its N+1 row would be wasted work and the drain
+          boundary is cheap,
+        - page growth for the +1 lookahead fails (no preemption on this
+          path; the caller falls back to the drain-then-schedule flow).
+
+        Safety of the speculative row for a sequence that turns out to
+        finish at step N (EOS/stop): the device writes step N's token KV at
+        position ``len`` into a page that can never be committed (its last
+        position is not computed), so after release it returns to the free
+        list — a later owner overwrites before any masked read. The row's
+        sampled output is discarded at process time (phase != RUNNING).
+        """
+        if self.waiting:
+            return None
+        if self.cfg.spec_tokens > 0:
+            # chains never consult the draft proposer: break periodically
+            # so repetitive context gets its verify steps (the chain's
+            # readback-hiding covers the non-matching stretches)
+            if (self.cfg.spec_chain_break <= 0
+                    or self._chain_run >= self.cfg.spec_chain_break):
+                return None
+        for seq in prev.seqs:
+            if seq.phase is not Phase.RUNNING or seq.cancelled:
+                return None
+            so = seq.request.sampling_options
+            if (so.frequency_penalty or so.presence_penalty or so.guided
+                    or (so.repetition_penalty is not None
+                        and so.repetition_penalty > 0
+                        and so.repetition_penalty != 1.0)):
+                # penalty windows and guided-decoding masks are built from
+                # host bookkeeping, which at chain-planning time still
+                # excludes step N's token — a chained step would penalize
+                # one token stale / mask against a stale automaton state.
+                # Such traffic takes the fetch-then-plan flow; seeds alone
+                # are fine (their keys fold the token position, not host
+                # state).
+                return None
+            sc = seq.request.stop_conditions
+            max_new = sc.max_tokens if sc.max_tokens is not None else (
+                self.max_context_hint - seq.num_prompt
+                if self.max_context_hint else None)
+            # after step N the sequence has len+1 tokens / generated+1
+            if max_new is not None and len(seq.generated) + 1 >= max_new:
+                return None
+            if (self.max_context_hint is not None
+                    and len(seq) + 1 >= self.max_context_hint):
+                return None
+        if any(s.phase is Phase.PREFILL for s in self.active.values()):
+            return None
+        # +1 lookahead growth: step N+1 writes KV at position len(seq)
+        for seq in prev.seqs:
+            need = self._pages_needed(len(seq) + 1) - len(seq.page_ids)
+            if need > 0:
+                try:
+                    seq.page_ids.extend(self.alloc.allocate(need))
+                    seq.pages_changed()
+                except OutOfPages:
+                    return None
+        self._chain_run += 1
+        return DecodeBatch(seqs=list(prev.seqs))
+
+    # -- fused multi-step decode --------------------------------------------
+
+    def _fuse_gate(self, seq: Sequence, sl: int):
+        """Admit one row to the fused block, or name the refusal.
+
+        Returns ``(reason, width_cap)``: ``reason`` is a fallback-reason
+        string when the row cannot ride a block (None when it can), and
+        ``width_cap`` bounds the block width for rows whose device-side
+        penalty ring buffer could overflow mid-block.
+
+        Penalized / biased rows ride the block via the device penalty
+        window (``cfg.penalty_window`` slots per row): the fresh-block
+        carry seeds the window with the row's bias ids and distinct
+        generated tokens, and each scanned step may insert at most one
+        NEW distinct token — so a block of width w is exact iff
+        ``distinct + inflight + w <= W`` (``inflight`` = device-sampled
+        tokens a chained block hasn't fetched yet, each conservatively a
+        new distinct insert). Guided rows ride iff the engine lowered
+        their grammar to a device transition table
+        (``cfg.guided_fuse_check``); an oversized grammar refuses as
+        ``guided_table`` (per-batch, not per-deployment). Seeds and
+        ``min_p`` remain always eligible: both are static per request
+        and ship to the device (seeded draws key on token position, not
+        step)."""
+        so = seq.request.sampling_options
+        rep_on = (so.repetition_penalty is not None
+                  and so.repetition_penalty > 0
+                  and so.repetition_penalty != 1.0)
+        cap = 1 << 20
+        if so.frequency_penalty or so.presence_penalty or rep_on \
+                or so.logit_bias:
+            W = self.cfg.penalty_window
+            if W <= 0:
+                return "penalties", cap
+            distinct = set(so.logit_bias or ()) | set(seq.generated)
+            if (seq.request.resumed_tokens or 0) > 0:
+                # migration resume: the trailing resumed_tokens of the
+                # "prompt" are really prior-hop generations and count
+                # toward the window (JaxEngine._penalty_row)
+                toks = seq.tokens.tokens()
+                n_prompt = seq.num_prompt - min(
+                    seq.request.resumed_tokens, seq.num_prompt)
+                distinct |= set(toks[n_prompt:seq.num_prompt])
+            inflight = sl - len(seq)
+            cap = W - len(distinct) - inflight
+            if cap < 2:
+                return "penalty_window", cap
+        if so.guided:
+            if self.cfg.guided_fuse_check is None:
+                return "guided", cap
+            if not self.cfg.guided_fuse_check(seq):
+                return "guided_table", cap
+        return None, cap
+
+    def _grow_for_block(self, seqs: List[Sequence], start_lens: List[int],
+                        width: int) -> bool:
+        """Allocate every page a ``width``-step block will write
+        (positions ``sl-1 .. sl+width-2`` per row) up front. No preemption
+        on this path — the caller narrows the width instead; pages
+        allocated before a failure stay with their sequences (they are the
+        very next pages those rows use anyway, as ``_spec_plan``)."""
+        for seq, sl in zip(seqs, start_lens):
+            need = self._pages_needed(sl + width - 1) - len(seq.page_ids)
+            if need > 0:
+                try:
+                    seq.page_ids.extend(self.alloc.allocate(need))
+                    seq.pages_changed()
+                except OutOfPages:
+                    return False
+        return True
+
+    def _plan_block(self, seqs: List[Sequence], start_lens: List[int],
+                    chained: bool) -> Optional[MultiStepBatch]:
+        """Compute the safe fuse width for one block over ``seqs`` and
+        allocate its pages, or None to fall back to the per-step path.
+
+        The width is the min over rows of: the configured cap
+        (``decode_multistep``), the row's remaining token budget
+        (max_tokens / max_context — a row that deterministically finishes
+        in <2 steps isn't worth a block), and the stop-string lookback for
+        rows with detokenizer-level stop strings; then rounded DOWN to a
+        power of two (bounded compile count), then narrowed further if
+        page pressure refuses the up-front allocation — so the fused
+        program never needs mid-block page allocation. Penalized / biased
+        rows additionally cap the width by their remaining device
+        penalty-window capacity (``_fuse_gate``); spec-decode mode and
+        rows the gate cannot admit (no penalty window configured,
+        grammar without a device table) refuse entirely.
+        """
+        cap = self.cfg.decode_multistep
+        if cap < 2:
+            return None
+        if self.cfg.spec_tokens > 0:
+            self.record_fallback("spec", seqs)
+            return None
+        w = cap
+        budgets: List[int] = []
+        min_gates: List[int] = []
+        for seq, sl in zip(seqs, start_lens):
+            reason, row_cap = self._fuse_gate(seq, sl)
+            if reason is not None:
+                self.record_fallback(reason, seqs)
+                return None
+            w = min(w, row_cap)
+            sc = seq.request.stop_conditions
+            gen_eff = len(seq.generated) + (sl - len(seq))
+            max_new = sc.max_tokens if sc.max_tokens is not None else (
+                self.max_context_hint - seq.num_prompt
+                if self.max_context_hint else None)
+            rem = (max_new - gen_eff) if max_new is not None else 1 << 20
+            if self.max_context_hint is not None:
+                rem = min(rem, self.max_context_hint - sl)
+            if rem < 2:
+                self.record_fallback("budget", seqs)
+                return None
+            w = min(w, rem)
+            if sc.stop:
+                w = min(w, max(1, self.cfg.stop_str_lookback))
+            budgets.append(min(rem, 1 << 20))  # int32-safe device budget
+            min_gates.append(max(0, (sc.min_tokens or 0) - gen_eff))
+        w = 1 << (w.bit_length() - 1)
+        while w >= 2 and not self._grow_for_block(seqs, start_lens, w):
+            w //= 2
+        if w < 2:
+            self.record_fallback("pages", seqs)
+            return None
+        return MultiStepBatch(seqs=list(seqs), width=w, chained=chained,
+                              start_lens=list(start_lens), budgets=budgets,
+                              min_gates=min_gates)
+
+    def plan_multistep(self, batch: DecodeBatch) -> Optional[MultiStepBatch]:
+        """Try to upgrade a planned decode step into a fused block.
+
+        With ``mixed_batch`` on (the default), the "no waiters /
+        prefills" gate is LIFTED: arrivals onboard through the mixed
+        steps that alternate with the fused blocks, so fusing while they
+        wait no longer head-of-line blocks admission for more than one
+        block (chained blocks still break at boundaries —
+        ``plan_multistep_chained`` keeps the refusal). With it off, the
+        legacy gate applies and the refusal is recorded as a fallback
+        reason."""
+        if not self.cfg.mixed_batch:
+            if self.waiting:
+                self.record_fallback("waiters", batch.seqs)
+                return None
+            if any(s.phase is Phase.PREFILL for s in self.active.values()):
+                self.record_fallback("prefill", batch.seqs)
+                return None
+        return self._plan_block(batch.seqs, [len(s) for s in batch.seqs],
+                                chained=False)
+
+    def plan_multistep_chained(self, prev: MultiStepBatch
+                               ) -> Optional[MultiStepBatch]:
+        """Plan block k+1 while block k's results are still on device.
+
+        Host sequence state excludes block k's (unfetched) tokens, so the
+        effective row length is ``len(seq) + prev.width`` — positions and
+        budgets are computed from that offset, and the device carry
+        supplies the actual first token / liveness. Refused when the batch
+        may change (waiting/prefilling arrivals, any row finished or
+        cancelled per host knowledge). Unlike ``plan_multistep``, the
+        waiting/prefilling refusals survive the mixed-batch gate lift ON
+        PURPOSE: a chain break here is the block boundary where arrivals
+        get their admission/prefill (mixed) step — it is not a fallback
+        to per-step decode and is not counted as one."""
+        if self.waiting:
+            return None
+        for seq in prev.seqs:
+            if seq.phase is not Phase.RUNNING or seq.cancelled:
+                return None
+        if any(s.phase is Phase.PREFILL for s in self.active.values()):
+            return None
+        return self._plan_block(prev.seqs,
+                                [len(s) + prev.width for s in prev.seqs],
+                                chained=True)
+
+    def on_multistep_done(self, plan: MultiStepBatch,
+                          advances: List[int]) -> None:
+        """Advance accounting after a fused block resolved host-side.
+
+        ``advances[i]`` = KV positions the block actually wrote for row i
+        (== tokens appended): the device masks rows to no-ops after their
+        stop, and the host re-derives the same stop point from the same
+        rules. Slots past the advance hold dead-row KV — never committed,
+        overwritten by the next step that reaches those positions, masked
+        from attention by true context length in between (the ``on_spec_
+        done`` safety argument). Commits wait for :meth:`commit_block`
+        AFTER the engine appended the tokens (token blocks must exist)."""
+        for seq, adv in zip(plan.seqs, advances):
+            if adv:
+                seq.num_computed += adv
+
+    def commit_block(self, plan: MultiStepBatch) -> None:
+        """Commit full pages once the block's tokens are appended (rows
+        that finished are no-ops: ``finish`` already released them)."""
+        for seq in plan.seqs:
+            self._commit_full_pages(seq)
+
+    def on_step_done(self, plan: StepPlan) -> None:
+        """Advance accounting after the engine ran the planned step."""
+        if isinstance(plan, (PrefillBatch, MixedStepBatch)):
+            for chunk in plan.chunks:
+                seq = chunk.seq
+                seq.num_computed += chunk.length
+                if chunk.is_last:
+                    seq.phase = Phase.RUNNING
+                self._commit_full_pages(seq)
+            for seq in getattr(plan, "decode_seqs", ()):
+                seq.num_computed += 1
+                self._commit_full_pages(seq)
+        else:
+            for seq in plan.seqs:
+                seq.num_computed += 1
+                self._commit_full_pages(seq)
+
+    # -- metrics -----------------------------------------------------------
+
+    def metrics(self) -> ForwardPassMetrics:
+        total = self.alloc.num_pages - 1
+        hits = self.alloc.hits
+        lookups = hits + self.alloc.misses
+        return ForwardPassMetrics(
+            worker_stats=WorkerStats(
+                request_active_slots=len(self.active),
+                request_total_slots=self.cfg.max_num_seqs,
+                num_requests_waiting=len(self.waiting),
+                data_parallel_rank=self.dp_rank,
+            ),
+            kv_stats=KvStats(
+                kv_active_blocks=total - self.alloc.num_free,
+                kv_total_blocks=total,
+                gpu_cache_usage_perc=self.alloc.usage(),
+                gpu_prefix_cache_hit_rate=(hits / lookups) if lookups else 0.0,
+            ),
+            spec_decode_stats=(self.spec_stats
+                               if self.cfg.spec_tokens > 0 else None),
+        )
+
+
+__all__ = ["Scheduler", "SchedulerConfig", "Sequence", "Phase",
+           "PrefillChunk", "PrefillBatch", "DecodeBatch", "SpecDecodeBatch",
+           "MultiStepBatch", "MixedStepBatch"]

@@ -1,0 +1,304 @@
+"""Internal (post-preprocessing) request/response protocol types.
+
+These are the types that cross the frontend->worker boundary: the preprocessor
+turns an OpenAI request into a ``PreprocessedRequest`` (token ids + sampling +
+stop conditions); the engine streams back ``LLMEngineOutput`` frames; the
+backend (detokenizer) stage turns those into ``BackendOutput`` with text.
+
+Parity: reference ``lib/llm/src/protocols/common/preprocessor.rs:25-58``
+(``PreprocessedRequest``) and ``common/llm_backend.rs:27-83``
+(``LLMEngineOutput``/``BackendOutput``).
+
+All types are plain dataclasses with ``to_dict``/``from_dict`` so they can ride
+msgpack frames without a serialization framework.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Any, Dict, List, Optional
+
+
+class FinishReason(str, Enum):
+    EOS = "eos"
+    STOP = "stop"
+    LENGTH = "length"
+    CANCELLED = "cancelled"
+    ERROR = "error"
+
+    def to_openai(self) -> str:
+        return {
+            FinishReason.EOS: "stop",
+            FinishReason.STOP: "stop",
+            FinishReason.LENGTH: "length",
+            FinishReason.CANCELLED: "stop",
+            FinishReason.ERROR: "error",
+        }[self]
+
+
+def _asdict_shallow(obj) -> Dict[str, Any]:
+    return {
+        f.name: getattr(obj, f.name)
+        for f in dataclasses.fields(obj)
+        if getattr(obj, f.name) is not None
+    }
+
+
+@dataclass
+class StopConditions:
+    """When to stop generating.
+
+    Parity: reference ``protocols/common/mod.rs`` ``StopConditions``.
+    """
+
+    max_tokens: Optional[int] = None
+    stop: Optional[List[str]] = None  # stop strings (detokenizer-level)
+    stop_token_ids: Optional[List[int]] = None
+    min_tokens: Optional[int] = None
+    ignore_eos: bool = False
+
+    def to_dict(self) -> Dict[str, Any]:
+        return _asdict_shallow(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "StopConditions":
+        return cls(**{k: d.get(k) for k in ("max_tokens", "stop", "stop_token_ids", "min_tokens")},
+                   ignore_eos=bool(d.get("ignore_eos", False)))
+
+
+@dataclass
+class SamplingOptions:
+    """Sampling parameters forwarded to the engine.
+
+    Parity: reference ``protocols/common/mod.rs`` ``SamplingOptions``.
+    """
+
+    temperature: Optional[float] = None
+    top_p: Optional[float] = None
+    top_k: Optional[int] = None
+    frequency_penalty: Optional[float] = None
+    presence_penalty: Optional[float] = None
+    repetition_penalty: Optional[float] = None
+    seed: Optional[int] = None
+    n: int = 1
+    logprobs: Optional[int] = None
+    # OpenAI logit_bias: token id -> additive bias (-100 bans, +100 forces)
+    logit_bias: Optional[Dict[int, float]] = None
+    # vLLM-style min_p: drop candidates whose probability is below
+    # min_p * max-candidate-probability (0 = off)
+    min_p: Optional[float] = None
+    # guided decoding (OpenAI response_format -> engine/guided.py):
+    # {"mode": "json"} or {"mode": "json_schema", "schema": {...}}
+    guided: Optional[Dict[str, Any]] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = _asdict_shallow(self)
+        d["n"] = self.n
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SamplingOptions":
+        kw = {k: d.get(k) for k in (
+            "temperature", "top_p", "top_k", "frequency_penalty",
+            "presence_penalty", "repetition_penalty", "seed", "logprobs",
+            "min_p", "guided")}
+        lb = d.get("logit_bias")
+        if lb:
+            # wire form may carry string token-id keys (OpenAI JSON)
+            kw["logit_bias"] = {int(k): float(v) for k, v in lb.items()}
+        return cls(n=int(d.get("n", 1)), **kw)
+
+
+@dataclass
+class PreprocessedRequest:
+    """Tokenized request as sent from the frontend to a worker.
+
+    Parity: reference ``protocols/common/preprocessor.rs:25-58``.
+
+    ``estimated_prefix_hit_num_blocks`` is set by the KV router so the worker's
+    scheduler can account for the expected prefix-cache hit.
+    ``kv_transfer_params`` carries disaggregated prefill/decode handoff metadata
+    (reference: vLLM ``kv_transfer_params`` flow, ``handlers.py:121-156``).
+    """
+
+    token_ids: List[int] = field(default_factory=list)
+    request_id: str = ""
+    model: str = ""
+    stop_conditions: StopConditions = field(default_factory=StopConditions)
+    sampling_options: SamplingOptions = field(default_factory=SamplingOptions)
+    eos_token_ids: List[int] = field(default_factory=list)
+    mdc_sum: Optional[str] = None  # model-card checksum for config-drift detection
+    annotations: List[str] = field(default_factory=list)
+    estimated_prefix_hit_num_blocks: Optional[int] = None
+    kv_transfer_params: Optional[Dict[str, Any]] = None
+    prefill_only: bool = False
+    # >0 on a migration replay: the frontend's MigrationOperator stamps the
+    # attempt number when it re-issues a dropped stream, so the receiving
+    # worker can count replays it absorbs
+    migration_attempt: int = 0
+    # >0 on a migration replay/resume: how many TRAILING tokens of
+    # ``token_ids`` were GENERATED by earlier legs of this stream (the
+    # rebuild appends them to the prompt). The engine uses it to
+    # reconstruct penalty windows — frequency/presence penalties count
+    # generated tokens, which would otherwise read as prompt after a hop
+    resumed_tokens: int = 0
+    # end-to-end request deadline, absolute unix seconds (None = none).
+    # Set by the HTTP frontend (config default or per-request override) and
+    # propagated to the worker in the RPC ``req`` frame headers; expired
+    # work is dropped instead of generating tokens nobody is waiting for.
+    deadline_unix: Optional[float] = None
+    # local-only (not serialized): annotation responses filled by the
+    # preprocessor/router, emitted as SSE events by the HTTP layer
+    annotations_payload: Dict[str, Any] = field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "token_ids": list(self.token_ids),
+            "request_id": self.request_id,
+            "model": self.model,
+            "stop_conditions": self.stop_conditions.to_dict(),
+            "sampling_options": self.sampling_options.to_dict(),
+            "eos_token_ids": list(self.eos_token_ids),
+            "mdc_sum": self.mdc_sum,
+            "annotations": list(self.annotations),
+            "estimated_prefix_hit_num_blocks": self.estimated_prefix_hit_num_blocks,
+            "kv_transfer_params": self.kv_transfer_params,
+            "prefill_only": self.prefill_only,
+            "migration_attempt": self.migration_attempt,
+            "resumed_tokens": self.resumed_tokens,
+            "deadline_unix": self.deadline_unix,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "PreprocessedRequest":
+        return cls(
+            token_ids=list(d.get("token_ids", [])),
+            request_id=d.get("request_id", ""),
+            model=d.get("model", ""),
+            stop_conditions=StopConditions.from_dict(d.get("stop_conditions") or {}),
+            sampling_options=SamplingOptions.from_dict(d.get("sampling_options") or {}),
+            eos_token_ids=list(d.get("eos_token_ids", [])),
+            mdc_sum=d.get("mdc_sum"),
+            annotations=list(d.get("annotations", [])),
+            estimated_prefix_hit_num_blocks=d.get("estimated_prefix_hit_num_blocks"),
+            kv_transfer_params=d.get("kv_transfer_params"),
+            prefill_only=bool(d.get("prefill_only", False)),
+            migration_attempt=int(d.get("migration_attempt", 0)),
+            resumed_tokens=int(d.get("resumed_tokens", 0)),
+            deadline_unix=d.get("deadline_unix"),
+        )
+
+
+@dataclass
+class LLMEngineOutput:
+    """One streamed frame from the engine: newly generated token ids.
+
+    Parity: reference ``protocols/common/llm_backend.rs:27-55``.
+    """
+
+    token_ids: List[int] = field(default_factory=list)
+    cum_log_probs: Optional[float] = None
+    log_probs: Optional[List[float]] = None
+    top_logprobs: Optional[List[Dict[int, float]]] = None
+    finish_reason: Optional[FinishReason] = None
+    error: Optional[str] = None
+    kv_transfer_params: Optional[Dict[str, Any]] = None
+    # completed-request accounting (filled on the final frame)
+    prompt_tokens: Optional[int] = None
+    completion_tokens: Optional[int] = None
+    cached_tokens: Optional[int] = None
+    # stage timing stamps (unix seconds), attached by the engine loop to the
+    # FIRST emitted frame: enqueued_unix/admitted_unix/first_unix — the raw
+    # material for the queue/prefill trace spans (utils/tracing.StageStitcher)
+    timings: Optional[Dict[str, float]] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"token_ids": list(self.token_ids)}
+        if self.finish_reason is not None:
+            d["finish_reason"] = self.finish_reason.value
+        for k in ("cum_log_probs", "log_probs", "top_logprobs", "error",
+                  "kv_transfer_params", "prompt_tokens", "completion_tokens",
+                  "cached_tokens", "timings"):
+            v = getattr(self, k)
+            if v is not None:
+                d[k] = v
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "LLMEngineOutput":
+        fr = d.get("finish_reason")
+        return cls(
+            token_ids=list(d.get("token_ids", [])),
+            cum_log_probs=d.get("cum_log_probs"),
+            log_probs=d.get("log_probs"),
+            top_logprobs=d.get("top_logprobs"),
+            finish_reason=FinishReason(fr) if fr else None,
+            error=d.get("error"),
+            kv_transfer_params=d.get("kv_transfer_params"),
+            prompt_tokens=d.get("prompt_tokens"),
+            completion_tokens=d.get("completion_tokens"),
+            cached_tokens=d.get("cached_tokens"),
+            timings=d.get("timings"),
+        )
+
+
+@dataclass
+class BackendOutput:
+    """Detokenized frame produced by the backend stage for the frontend.
+
+    Parity: reference ``protocols/common/llm_backend.rs:60-83``.
+    """
+
+    token_ids: List[int] = field(default_factory=list)
+    text: Optional[str] = None
+    finish_reason: Optional[FinishReason] = None
+    error: Optional[str] = None
+    cum_log_probs: Optional[float] = None
+    log_probs: Optional[List[float]] = None
+    # OpenAI chat ``logprobs.content[]``-shaped dicts, one per emitted token
+    # (token text, logprob, bytes, top_logprobs) — rendered by the backend,
+    # which owns the tokenizer; None when the request didn't ask
+    logprobs_content: Optional[List[Dict[str, Any]]] = None
+    prompt_tokens: Optional[int] = None
+    completion_tokens: Optional[int] = None
+    cached_tokens: Optional[int] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"token_ids": list(self.token_ids)}
+        if self.finish_reason is not None:
+            d["finish_reason"] = self.finish_reason.value
+        for k in ("text", "error", "cum_log_probs", "log_probs",
+                  "logprobs_content", "prompt_tokens", "completion_tokens",
+                  "cached_tokens"):
+            v = getattr(self, k)
+            if v is not None:
+                d[k] = v
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "BackendOutput":
+        fr = d.get("finish_reason")
+        return cls(
+            token_ids=list(d.get("token_ids", [])),
+            text=d.get("text"),
+            finish_reason=FinishReason(fr) if fr else None,
+            error=d.get("error"),
+            cum_log_probs=d.get("cum_log_probs"),
+            log_probs=d.get("log_probs"),
+            logprobs_content=d.get("logprobs_content"),
+            prompt_tokens=d.get("prompt_tokens"),
+            completion_tokens=d.get("completion_tokens"),
+            cached_tokens=d.get("cached_tokens"),
+        )
+
+
+__all__ = [
+    "FinishReason",
+    "StopConditions",
+    "SamplingOptions",
+    "PreprocessedRequest",
+    "LLMEngineOutput",
+    "BackendOutput",
+]
