@@ -18,9 +18,10 @@ and suppresses the final result line):
    larger; counted from this run's inputs);
 3. the full-width Llama-3.2-3B forward (random weights from a seed) on a
    prefill, a mixed and a decode step, once through the kernels and once
-   through their plain versions: every layer's attention and the logits
-   must agree (the JAX-style oracle ``ops.attention`` runs too, and its
-   distance is reported);
+   through their plain versions: every layer's attention must agree within
+   2 bf16 ulps per row, and the logits within 1.5 times the distance
+   between the plain versions and the JAX-style oracle ``ops.attention``,
+   which differ only in where they round;
 4. ``TorchEngine`` serving greedy requests at full width: prompts of
    128-1024 seeded token ids, two sharing a prefix, some arriving while
    others decode; every request must finish with its tokens, no NaN, and
@@ -46,8 +47,15 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 HQ, HKV, DH, PS = 24, 8, 128, 16
-KERNEL_TOL = 2e-2               # bf16 outputs: ~3 ulp at |x| ~ 1
-FORWARD_TOL = 0.1               # of max|logits|, after 28 bf16 layers
+# kernel vs plain: per (query, head) row, in bf16 ulps of the row's largest
+# value (``row_ulp_error``); both round their output once to bf16, so one
+# ulp is the expected distance and a second covers the f32 sums' order
+KERNEL_TOL_ULPS = 2.0
+# logits through the kernels vs through their plain versions, at most this
+# many times the distance between two plain attentions that differ only in
+# where they round (the plain versions and the JAX-style oracle): 28 random
+# bf16 layers amplify rounding, and this run measures how far
+LOGITS_VS_ORACLE = 1.5
 REPS = 25
 
 
@@ -119,8 +127,9 @@ def make_case(rng, B, q_lens, ctxs, S, L=2, window=None, softcap=None):
 
 def work_of(case, S):
     """(bytes, operations) the function needs on these inputs: each live
-    K/V row read once, q read and out written once, the table entries and
-    lengths read; 4*Dh operations per (query head, visible kv position)."""
+    K/V row read once, the real query slots read once, the whole output
+    written once, the table entries and lengths read; 4*Dh operations per
+    (query head, visible kv position)."""
     B = len(case["ctxs"])
     win = case["window"] or 0
     kv_rows, pairs = 0, 0
@@ -131,9 +140,10 @@ def work_of(case, S):
             first = max(p - win + 1, 0) if win else 0
             pairs += p + 1 - first
     kv_bytes = kv_rows * HKV * DH * 2 * 2
-    io_bytes = 2 * B * S * HQ * DH * 2
+    q_bytes = sum(case["q_lens"]) * HQ * DH * 2   # real query slots only
+    out_bytes = B * S * HQ * DH * 2               # pad slots are written zero
     meta = B * (-(-max(case["ctxs"]) // PS)) * 4 + B * 8
-    return kv_bytes + io_bytes + meta, 4 * DH * HQ * pairs
+    return kv_bytes + q_bytes + out_bytes + meta, 4 * DH * HQ * pairs
 
 
 def sdpa_inputs(case, S, decode: bool):
@@ -161,6 +171,7 @@ def sdpa_inputs(case, S, decode: bool):
 
 def check_kernel(name, fn, plain, case, S, decode, results, label):
     import torch.nn.functional as F
+    from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
     q = case["q"][:, :1].contiguous() if decode else case["q"]
     args = (q, case["pages"], case["layer"], case["table"],
             case["positions"][:, :1].contiguous() if decode
@@ -175,9 +186,10 @@ def check_kernel(name, fn, plain, case, S, decode, results, label):
         real[i, :ql] = True
     diff = (out.float() - ref.float()).abs()
     err = float(diff[real].max())
+    ulps = float(row_ulp_error(out, ref)[real].max())
     finite = bool(torch.isfinite(out).all())
     pad_zero = bool((out[~real].float() == 0).all()) if not decode else True
-    ok = finite and pad_zero and err <= KERNEL_TOL
+    ok = finite and pad_zero and ulps <= KERNEL_TOL_ULPS
     ms = time_ms(lambda: fn(*args, **kw))
     plain_ms = time_ms(lambda: plain(*args, **kw), reps=10)
     qs, k, v, mask = sdpa_inputs(case, S, decode)
@@ -186,10 +198,12 @@ def check_kernel(name, fn, plain, case, S, decode, results, label):
     nbytes, ops = work_of(case, 1 if decode else S)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_FLOPS_PER_S * 1e3
-    row = dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    row = dict(label=label, max_abs_err=err, max_err_ulps=ulps, ms=ms,
+               plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    log(f"[kernel] {name} {label}: err={err:.3e} (tol {KERNEL_TOL}) "
+    log(f"[kernel] {name} {label}: max|d|={err:.3e} row err={ulps:.3f} "
+        f"ulps (tol {KERNEL_TOL_ULPS}) "
         f"finite={finite} pad_zero={pad_zero} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
@@ -197,7 +211,7 @@ def check_kernel(name, fn, plain, case, S, decode, results, label):
     results.setdefault(name, []).append(row)
     if not ok:
         raise AssertionError(f"{name} {label}: kernel disagrees with its "
-                             f"plain version (err {err}, finite {finite}, "
+                             f"plain version ({ulps} ulps, finite {finite}, "
                              f"pad rows zero {pad_zero})")
 
 
@@ -260,16 +274,18 @@ def phase_forward(params, cfg):
 
     Inside the kernel forward every layer's attention is also computed by
     the plain version on the SAME inputs (the model's real activations and
-    cache): those must agree within KERNEL_TOL. End to end, 28 layers of
-    random bf16 weights amplify any rounding-level difference (the two
-    plain attentions differ only in where they round, and their logits
-    differ about as much), so the logits must agree within FORWARD_TOL of
-    their scale and pick the same greedy token on every row whose top-2
-    margin is wider than twice their distance."""
+    cache): every row must agree within KERNEL_TOL_ULPS. End to end, 28
+    layers of random bf16 weights amplify any rounding-level difference, so
+    the logits through the kernels may be no further from the plain
+    forward's than LOGITS_VS_ORACLE times the distance this run measures
+    between the plain and the oracle forwards, which differ only in where
+    they round. The greedy token is not compared: with random weights the
+    top two logits of a row are often closer than that distance."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.ops.attention import paged_attention
     from dynamo_tpu_torch.ops.kernels.decode import (
         paged_decode_attention_stacked, paged_decode_plain)
+    from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
     from dynamo_tpu_torch.ops.kernels.prefill import (
         paged_prefill_attention_stacked, paged_prefill_plain)
     from dynamo_tpu_torch.ops.kernels.ragged import (
@@ -287,11 +303,8 @@ def phase_forward(params, cfg):
     def checked(name):
         def attn(*args):
             out = kernel[name](*args)
-            ref = plain[name](*args).float()
-            # error in units of the layer's output scale (bf16 ulps grow
-            # with magnitude: 1 ulp is 2^-6 for values in [2, 4))
-            layer_errs.append(float((out.float() - ref).abs().max())
-                              / max(1.0, float(ref.abs().max())))
+            ref = plain[name](*args)
+            layer_errs.append(float(row_ulp_error(out, ref).max()))
             return out
         return attn
 
@@ -332,21 +345,15 @@ def phase_forward(params, cfg):
         finite = bool(torch.isfinite(lk).all())
         diff = float((lk - lp).abs().max())
         scale = float(lp.abs().max())
-        tol = FORWARD_TOL * max(scale, 1.0)
-        # greedy tokens must agree on every row whose top-2 margin is
-        # wider than twice the logits' distance (closer calls may flip)
-        top2 = lp.topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 2 * diff
-        agree = bool((lk.argmax(-1) == lp.argmax(-1))[clear].all())
         odiff = float((lp - lo).abs().max())
+        tol = LOGITS_VS_ORACLE * odiff
         lmax = max(layer_errs)
-        log(f"[forward] {name}: per-layer kernel vs plain max err="
-            f"{lmax:.3e} of scale over {len(layer_errs)} layers (tol "
-            f"{KERNEL_TOL}); logits kernels vs plain max|d|={diff:.4e} "
-            f"(tol {tol:.3e}) same argmax on {int(clear.sum())}/"
-            f"{len(clear)} clear rows={agree}; plain vs oracle max|d|="
-            f"{odiff:.4e}; max|logits|={scale:.4e} finite={finite}")
-        if not finite or lmax > KERNEL_TOL or diff > tol or not agree:
+        log(f"[forward] {name}: per-layer kernel vs plain row err="
+            f"{lmax:.3f} ulps over {len(layer_errs)} layers (tol "
+            f"{KERNEL_TOL_ULPS}); logits kernels vs plain max|d|={diff:.4e} "
+            f"(tol {tol:.4e} = {LOGITS_VS_ORACLE} x plain vs oracle "
+            f"{odiff:.4e}); max|logits|={scale:.4e} finite={finite}")
+        if not finite or lmax > KERNEL_TOL_ULPS or diff > tol:
             raise AssertionError(f"forward {name}: kernels vs plain "
                                  f"attention disagree")
 
@@ -547,7 +554,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "max_abs_err": row["max_abs_err"],
+            "max_err_ulps": row["max_err_ulps"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["label"]})

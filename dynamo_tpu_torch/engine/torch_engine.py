@@ -53,6 +53,8 @@ ATTENTION = {
     "paged_prefill": paged_prefill_attention_stacked,
     "ragged_mixed": ragged_mixed_attention_stacked,
 }
+# batch rows pad to the next power of two from this (decode and chunk steps)
+MIN_BATCH_BUCKET = 1
 
 
 @dataclass
@@ -66,8 +68,6 @@ class TorchEngineConfig:
     max_prefill_seqs: int = 8     # sequences sharing one prefill step
     max_context: int = 2048       # max prompt+generation length
     min_prefill_bucket: int = 16
-    min_decode_bucket: int = 1
-    min_prefill_seqs_bucket: int = 1
     # alternatives returned per sampled token (OpenAI top_logprobs)
     num_top_logprobs: int = 8
     seed: int = 0
@@ -161,8 +161,7 @@ class TorchEngine(ScheduledEngineBase):
                     min_p=np.zeros(B, np.float32))
 
     def _chunk_arrays(self, chunks) -> dict:
-        B = _bucket(len(chunks), self.cfg.min_prefill_seqs_bucket,
-                    self.cfg.max_num_seqs)
+        B = _bucket(len(chunks), MIN_BATCH_BUCKET, self.cfg.max_num_seqs)
         S = _bucket(max(c.length for c in chunks),
                     self.cfg.min_prefill_bucket, self.cfg.max_prefill_chunk)
         a = self._empty_arrays(B, S)
@@ -181,8 +180,7 @@ class TorchEngine(ScheduledEngineBase):
         return a
 
     def _decode_arrays(self, seqs) -> dict:
-        B = _bucket(len(seqs), self.cfg.min_decode_bucket,
-                    self.cfg.max_num_seqs)
+        B = _bucket(len(seqs), MIN_BATCH_BUCKET, self.cfg.max_num_seqs)
         a = self._empty_arrays(B, 1)
         for i, seq in enumerate(seqs):
             a["toks"][i, 0] = seq.tokens.last_token()

@@ -62,4 +62,19 @@ def plain_paged_attention(q: torch.Tensor, pages: torch.Tensor,
     return out.permute(0, 2, 1, 3, 4).reshape(B, S, Hq, Dh).to(q.dtype)
 
 
-__all__ = ["plain_paged_attention", "NEG_INF"]
+def row_ulp_error(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """How far a kernel's output is from its plain version, row by row.
+
+    For each row of the last axis (one query slot and head: Dh values), the
+    largest ``|out - ref|`` in bfloat16 ulps of that row's largest ``|ref|``
+    (``ulp(x) = 2**(floor(log2 x) - 7)``), so the measure bites as hard on a
+    long context's small averages as on a short row's unit values. A row
+    whose ``ref`` is all zero (a pad slot) must match exactly: its ulp is
+    taken as 2**-107, so any difference there counts past every tolerance.
+    Returns the leading shape, float32."""
+    d = (out.float() - ref.float()).abs().amax(dim=-1)
+    scale = ref.float().abs().amax(dim=-1).clamp_min(2.0 ** -100)
+    return d / torch.exp2(torch.floor(torch.log2(scale)) - 7)
+
+
+__all__ = ["plain_paged_attention", "row_ulp_error", "NEG_INF"]

@@ -280,3 +280,20 @@ def test_kernel_head_mapping_gqa():
                                          (total - 1)[:, None], total, 0.1)
     expect = torch.tensor([1.0] * 4 + [2.0] * 4)[None, :, None]
     assert torch.equal(out[:, 0].float(), expect.expand(3, 8, 128))
+
+
+def test_row_ulp_error_scales_with_each_row():
+    """The kernels' tolerance measure: a difference counts in bf16 ulps of
+    its own row's largest value, and a zero row must match exactly."""
+    from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
+    ref = torch.tensor([[1.5, -0.25, 0.0],      # row max 1.5: ulp 2^-7
+                        [0.03125, 0.01, -0.02],  # row max 2^-5: ulp 2^-12
+                        [0.0, 0.0, 0.0]])       # a pad slot
+    out = ref.clone()
+    out[0, 1] += 2.0 ** -7
+    out[1, 0] += 2.0 ** -7                      # same size, 32 ulps here
+    e = row_ulp_error(out, ref)
+    assert e.tolist() == [1.0, 32.0, 0.0]
+    out[2, 2] = 2.0 ** -20
+    assert float(row_ulp_error(out, ref)[2]) > 1e20
+    assert float(row_ulp_error(ref.to(torch.bfloat16), ref).max()) <= 0.5
