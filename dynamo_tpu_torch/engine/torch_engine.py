@@ -6,18 +6,23 @@ main path: ``TorchEngine`` plugs into the same loop (``engine/loop.py``
 ``ScheduledEngineBase``) and overrides only ``_execute_plan``. For each
 plan it builds the same padded host arrays as the reference (power-of-two
 buckets on batch and chunk length, page table ``max_context // page_size``
-wide, pad rows with one garbage-page token), runs the Llama forward with
-the attention kernel chosen by the step's shape — the reference's choice on
-its Pallas path:
+wide, pad rows with one garbage-page token), runs the model family's forward
+(``models.get_family``) with the attention kernel chosen by the step's
+shape — the reference's choice on its Pallas path. The Llama tree:
 
 - ``DecodeBatch`` (and any step with S == 1): the paged decode kernel;
 - ``PrefillBatch``: the chunked-prefill kernel;
 - ``MixedStepBatch`` (prefill chunks + decode rows as length-1 chunks,
-  mixed batching on by default): the ragged mixed kernel;
+  mixed batching on by default): the ragged mixed kernel.
 
-then samples on the device and packs everything the host needs into one
-``[B, 2 + 2K]`` int32 buffer (token, logprob bits, K alternative ids, K
-alternative logprob bits): one device-to-host copy per step.
+DeepSeek (MLA, ``models/deepseek.py``): S == 1 steps run the latent decode
+kernel, every S > 1 step (prefill and mixed alike) the latent prefill
+kernel, which skips a decode row's pad query tiles itself. On the GPU a
+geometry the latent kernels do not take is refused at construction.
+
+Each step then samples on the device and packs everything the host needs
+into one ``[B, 2 + 2K]`` int32 buffer (token, logprob bits, K alternative
+ids, K alternative logprob bits): one device-to-host copy per step.
 
 Not on this slice, and refused rather than approximated: pipelined decode
 and the fused multi-step block (ROADMAP A5), speculative decoding (A8),
@@ -37,9 +42,12 @@ from dynamo_tpu_torch.engine.loop import ScheduledEngineBase
 from dynamo_tpu_torch.engine.scheduler import (DecodeBatch, MixedStepBatch,
                                                PrefillBatch, PrefillChunk,
                                                StepPlan)
-from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.models import get_family
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops.kernels._wrap import mla_geometry_error
 from dynamo_tpu_torch.ops.kernels.decode import paged_decode_attention_stacked
+from dynamo_tpu_torch.ops.kernels.mla_decode import mla_paged_decode_stacked
+from dynamo_tpu_torch.ops.kernels.mla_prefill import mla_paged_prefill_stacked
 from dynamo_tpu_torch.ops.kernels.prefill import (
     paged_prefill_attention_stacked)
 from dynamo_tpu_torch.ops.kernels.ragged import ragged_mixed_attention_stacked
@@ -53,6 +61,21 @@ ATTENTION = {
     "paged_prefill": paged_prefill_attention_stacked,
     "ragged_mixed": ragged_mixed_attention_stacked,
 }
+
+
+def _mla_decode(q_lat, q_pe, pages, layer, page_table, positions, total_lens,
+                sm_scale):
+    """The decode wrapper behind the MLA forward's hook signature (the
+    decode kernel reads no positions)."""
+    return mla_paged_decode_stacked(q_lat, q_pe, pages, layer, page_table,
+                                    total_lens, sm_scale)
+
+
+MLA_ATTENTION = {
+    "mla_decode": _mla_decode,
+    "mla_prefill": mla_paged_prefill_stacked,
+}
+
 # batch rows pad to the next power of two from this (decode and chunk steps)
 MIN_BATCH_BUCKET = 1
 
@@ -87,18 +110,28 @@ def _bucket(n: int, lo: int, hi: int) -> int:
 
 
 class TorchEngine(ScheduledEngineBase):
-    """Continuous-batching paged-KV engine over a PyTorch Llama-tree model."""
+    """Continuous-batching paged-KV engine over a PyTorch Llama-tree or
+    DeepSeek (MLA) model."""
 
     def __init__(self, model_cfg: ModelConfig, params,
                  config: Optional[TorchEngineConfig] = None, device=None):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.cfg = config or TorchEngineConfig()
-        if model_cfg.num_experts or model_cfg.kv_lora_rank \
-                or model_cfg.model_type.startswith("gemma"):
-            raise NotImplementedError(
-                f"model_type {model_cfg.model_type!r}: only the dense Llama "
-                "tree is ported (MoE: ROADMAP A11, MLA: A12, gemma-2: A10)")
+        self.family = get_family(model_cfg)
+        self.mla = bool(model_cfg.kv_lora_rank)
+        if self.mla and self.device.type == "cuda":
+            bad = mla_geometry_error(model_cfg.num_heads,
+                                     model_cfg.kv_lora_rank,
+                                     model_cfg.qk_rope_head_dim,
+                                     self.cfg.page_size)
+            if bad is None and model_cfg.dtype != "bfloat16":
+                bad = f"dtype {model_cfg.dtype}, not bfloat16"
+            if bad:
+                raise ValueError(f"{model_cfg.model_type}: the latent "
+                                 f"attention kernels do not take this "
+                                 f"geometry: {bad}")
+        self.attention = MLA_ATTENTION if self.mla else ATTENTION
         super().__init__(
             num_pages=self.cfg.num_pages, page_size=self.cfg.page_size,
             max_num_seqs=self.cfg.max_num_seqs,
@@ -109,17 +142,19 @@ class TorchEngine(ScheduledEngineBase):
             decode_progress_every=int(self.cfg.decode_progress_every))
         self.params = _params_to(params, self.device)
         # the paged cache, updated in place by every step
-        self.pages = llama.make_pages(model_cfg, self.cfg.num_pages,
-                                      self.cfg.page_size,
-                                      device=self.device)
+        self.pages = self.family.make_pages(model_cfg, self.cfg.num_pages,
+                                            self.cfg.page_size,
+                                            device=self.device)
         self.table_width = self.cfg.max_context // self.cfg.page_size
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.cfg.seed)
         self._step_counter = 0
         self.decode_dispatches = 0
         self.mixed_steps = 0
-        # attention calls routed to each kernel (per layer, both devices)
-        self.kernel_launches: Dict[str, int] = {k: 0 for k in ATTENTION}
+        # attention calls routed to each of the family's kernels (per
+        # layer, both devices)
+        self.kernel_launches: Dict[str, int] = {k: 0
+                                                for k in self.attention}
 
     # -- admission ---------------------------------------------------------
 
@@ -205,7 +240,10 @@ class TorchEngine(ScheduledEngineBase):
                                         is_last=True)
                            for s in plan.decode_seqs]
             a = self._chunk_arrays(chunks)
-            if a["toks"].shape[1] == 1:
+            if self.mla:
+                kernel = ("mla_decode" if a["toks"].shape[1] == 1
+                          else "mla_prefill")
+            elif a["toks"].shape[1] == 1:
                 kernel = "paged_decode"
             else:
                 kernel = "ragged_mixed" if mixed else "paged_prefill"
@@ -215,7 +253,7 @@ class TorchEngine(ScheduledEngineBase):
             fetch = any(c.is_last for c in chunks)
         elif isinstance(plan, DecodeBatch):
             a = self._decode_arrays(plan.seqs)
-            kernel = "paged_decode"
+            kernel = "mla_decode" if self.mla else "paged_decode"
             self.decode_dispatches += 1
             fetch = True
         else:
@@ -241,13 +279,13 @@ class TorchEngine(ScheduledEngineBase):
         dev = self.device
         t = {k: torch.from_numpy(v).to(dev, non_blocking=True)
              for k, v in a.items()}
-        impl = ATTENTION[kernel]
+        impl = self.attention[kernel]
 
         def attn(*args, **kw):
             self.kernel_launches[kernel] += 1
             return impl(*args, **kw)
 
-        logits, self.pages = llama.forward(
+        logits, self.pages = self.family.forward(
             self.params, self.model_cfg, t["toks"], t["pos"], self.pages,
             t["table"], t["total"], t["new"], attn_impl=attn)
         return self._sample_tail(logits, t, use_min_p=bool(a["min_p"].any()))
@@ -287,7 +325,8 @@ class TorchEngine(ScheduledEngineBase):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        params = llama.init_params(model_cfg, gen, device=dev)
+        params = get_family(model_cfg).init_params(model_cfg, gen,
+                                                   device=dev)
         return cls(model_cfg, params, config, device=dev)
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional
 
 
@@ -197,6 +197,30 @@ class ModelConfig:
             tie_word_embeddings=True, dtype="bfloat16")
         defaults.update(kw)
         return cls(**defaults)
+
+    @classmethod
+    def deepseek_v2_lite(cls, **kw) -> "ModelConfig":
+        """DeepSeek-V2-Lite, from its published ``config.json``
+        (huggingface.co/deepseek-ai/DeepSeek-V2-Lite): 27 layers, hidden
+        2048, 16 heads, vocab 102400; MLA with kv_lora_rank 512, rope 64,
+        nope 128, v 128, no q_lora; layer 0 dense (FFN 10944), then 64
+        routed experts of 1408 + 2 shared, top-6 greedy; yarn rope x40."""
+        hf = dict(
+            model_type="deepseek_v2", vocab_size=102400, hidden_size=2048,
+            intermediate_size=10944, moe_intermediate_size=1408,
+            num_hidden_layers=27, num_attention_heads=16,
+            num_key_value_heads=16, n_shared_experts=2, n_routed_experts=64,
+            routed_scaling_factor=1.0, kv_lora_rank=512, q_lora_rank=None,
+            qk_rope_head_dim=64, v_head_dim=128, qk_nope_head_dim=128,
+            topk_method="greedy", n_group=1, topk_group=1,
+            num_experts_per_tok=6, first_k_dense_replace=1,
+            norm_topk_prob=False, max_position_embeddings=163840,
+            rms_norm_eps=1e-6, rope_theta=10000, tie_word_embeddings=False,
+            rope_scaling={"type": "yarn", "factor": 40, "beta_fast": 32,
+                          "beta_slow": 1, "mscale": 0.707,
+                          "mscale_all_dim": 0.707,
+                          "original_max_position_embeddings": 4096})
+        return replace(cls.from_hf(hf), **kw)
 
     @classmethod
     def tiny(cls, **kw) -> "ModelConfig":

@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode", "prefill")
+SOURCES = ("decode", "prefill", "mla")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -53,6 +53,16 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                  _I, _I, _I, _F, _I, _F, _P],
         "ragged_mixed_launch": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                                 _I, _I, _I, _F, _I, _F, _P],
+    },
+    "mla": {
+        # q, pages, out, page_table, total_lens, layer, B, nh, dkv, dr, N,
+        # ps, P, stream
+        "mla_decode_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
+        # q, pages, out, page_table, positions, total_lens, layer, B, S, nh,
+        # dkv, dr, N, ps, P, stream
+        "mla_prefill_launch": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _P],
     },
 }
 

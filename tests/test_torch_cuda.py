@@ -7,8 +7,10 @@ present, as on a CPU-only test host. On the GPU host run them with
 
 (``--noconftest``: the suite's conftest imports JAX, which the GPU host
 does not have). ``chip_smoke.py`` checks the kernels at the Llama-3.2-3B
-shapes; these cover the other query-group sizes the kernels are built for,
-odd chunk lengths, and the wrappers' argument checks.
+and DeepSeek-V2-Lite shapes; these cover the other query-group sizes the
+GQA kernels are built for, the latent (MLA) kernels at 16 and 128 heads
+(V2-Lite's and V2/V3's), decode at ctx 1, odd chunk lengths, a decode row
+inside a mixed batch, and the wrappers' argument checks.
 """
 
 import numpy as np
@@ -18,6 +20,11 @@ import torch
 from dynamo_tpu_torch.ops.kernels import LAUNCHES
 from dynamo_tpu_torch.ops.kernels.decode import (
     paged_decode_attention_stacked, paged_decode_plain)
+from dynamo_tpu_torch.ops.kernels.mla_decode import (mla_decode_plain,
+                                                     mla_paged_decode_layer,
+                                                     mla_paged_decode_stacked)
+from dynamo_tpu_torch.ops.kernels.mla_prefill import (
+    mla_paged_prefill_stacked, mla_prefill_plain)
 from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
 from dynamo_tpu_torch.ops.kernels.prefill import (
     paged_prefill_attention_stacked, paged_prefill_plain)
@@ -115,3 +122,85 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
     bad_groups = list(_case(dev, 10, 2, [1], [40], 1))
     with pytest.raises(ValueError, match="groups"):
         paged_decode_attention_stacked(*bad_groups)
+
+
+def _mla_case(dev, nh, q_lens, ctxs, S, dkv=512, dr=64, ps=16, seed=0):
+    """Latent cache [2, N, 2, 1, ps, dkv] bf16 (slot 1 zero past dr, page 0
+    NaN), float32 q_lat and bf16 q_pe at each row's last q_len positions."""
+    rng = np.random.default_rng(seed)
+    B = len(ctxs)
+    P = -(-max(ctxs) // ps) + 2
+    N = sum(-(-c // ps) for c in ctxs) + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pages = torch.randn((2, N, 2, 1, ps, dkv), generator=g, device=dev
+                        ).to(torch.bfloat16)
+    pages[:, :, 1, :, :, dr:] = 0
+    pages[:, 0] = float("nan")
+    perm = rng.permutation(np.arange(1, N)).astype(np.int32)
+    table = np.zeros((B, P), np.int32)
+    pos = np.zeros((B, S), np.int32)
+    off = 0
+    for i, (ql, c) in enumerate(zip(q_lens, ctxs)):
+        n = -(-c // ps)
+        table[i, :n] = perm[off:off + n]
+        off += n
+        pos[i, :ql] = np.arange(c - ql, c)
+    q_lat = torch.randn((B, S, nh, dkv), generator=g, device=dev)
+    q_pe = torch.randn((B, S, nh, dr), generator=g, device=dev
+                       ).to(torch.bfloat16)
+    return dict(q_lat=q_lat, q_pe=q_pe, pages=pages,
+                table=torch.from_numpy(table).to(dev),
+                positions=torch.from_numpy(pos).to(dev),
+                total=torch.tensor(ctxs, dtype=torch.int32, device=dev))
+
+
+def _decode_args(c):
+    return (c["q_lat"][:, :1].contiguous(), c["q_pe"][:, :1].contiguous(),
+            c["pages"], 1, c["table"], c["total"], 0.0721688)
+
+
+def _prefill_args(c):
+    return (c["q_lat"], c["q_pe"], c["pages"], 1, c["table"], c["positions"],
+            c["total"], 0.0721688)
+
+
+@pytest.mark.parametrize("nh", [16, 128])
+def test_mla_decode(dev, nh):
+    c = _mla_case(dev, nh, [1] * 4, [1, 17, 300, 2049], 1)
+    args = _decode_args(c)
+    _check(mla_paged_decode_stacked, mla_decode_plain, args, [1] * 4,
+           "mla_decode")
+    # the per-layer variant: the same kernel on a one-layer view
+    one = mla_paged_decode_layer(args[0], args[1], c["pages"][1], *args[4:])
+    assert torch.equal(one, mla_paged_decode_stacked(*args))
+
+
+@pytest.mark.parametrize("nh", [16, 128])
+def test_mla_prefill_odd_chunks_and_a_decode_row(dev, nh):
+    """Odd chunk lengths over prefixes, a row of 5, and a decode row
+    (q_len 1, its 130 pad slots skipped) in one mixed batch; S = 131 is odd,
+    so the last 2-token query tile is ragged."""
+    c = _mla_case(dev, nh, [77, 1, 130, 5], [77, 400, 1000, 5], 131, seed=3)
+    _check(mla_paged_prefill_stacked, mla_prefill_plain, _prefill_args(c),
+           [77, 1, 130, 5], "mla_prefill")
+
+
+def test_mla_wrappers_reject_what_kernels_do_not_take(dev):
+    good = _mla_case(dev, 16, [1], [40], 1)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        mla_paged_decode_stacked(*_decode_args(
+            _mla_case(dev, 16, [1], [40], 1, dkv=192)))
+    with pytest.raises(ValueError, match="page_size"):
+        mla_paged_prefill_stacked(*_prefill_args(
+            _mla_case(dev, 16, [1], [40], 1, ps=12)))
+    with pytest.raises(ValueError, match="num_heads"):
+        mla_paged_decode_stacked(*_decode_args(
+            _mla_case(dev, 8, [1], [40], 1)))
+    args = list(_decode_args(good))
+    args[2] = good["pages"].float()
+    with pytest.raises(TypeError, match="bfloat16"):
+        mla_paged_decode_stacked(*args)
+    args = list(_prefill_args(good))
+    args[4] = good["table"].long()
+    with pytest.raises(TypeError, match="int32"):
+        mla_paged_prefill_stacked(*args)
