@@ -81,12 +81,17 @@ def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _attend_blockwise(qg: torch.Tensor, gather_chunk, num_table_pages: int,
                       page_size: int, chunk_pages: int,
                       positions: torch.Tensor, total_lens: torch.Tensor,
-                      sm_scale: float, window=None,
-                      softcap=None) -> torch.Tensor:
+                      sm_scale: float, window=None, softcap=None,
+                      return_partials: bool = False):
     """Flash-style chunked attention over the paged context (online softmax
     over chunks of ``chunk_pages`` pages; chunks past the longest live
     context are never touched). Matmuls run in the cache dtype with float32
-    accumulation, as the reference's."""
+    accumulation, as the reference's.
+
+    With ``return_partials`` it returns the un-normalised online-softmax
+    state ``(num [B, Hq, S, Dh], den [B, Hq, S], mx [B, Hq, S])`` instead,
+    grouped heads folded as in the reference, for
+    ``merge_softmax_partials``."""
     B, S, Hkv, G, Dh = qg.shape
     span = chunk_pages * page_size
     n_static = -(-num_table_pages // chunk_pages)
@@ -120,8 +125,36 @@ def _attend_blockwise(qg: torch.Tensor, gather_chunk, num_table_pages: int,
         num = num * scale[..., None] + pv
         den = den * scale + p.sum(dim=-1)
         mx = mx_new
+    if return_partials:
+        Hq = Hkv * G
+        return (num.permute(0, 1, 3, 2, 4).reshape(B, Hq, S, Dh),
+                den.permute(0, 1, 3, 2).reshape(B, Hq, S),
+                mx.permute(0, 1, 3, 2).reshape(B, Hq, S))
     out = num / torch.clamp(den, min=1e-20)[..., None]
     return out.permute(0, 2, 1, 3, 4).reshape(B, S, Hkv * G, Dh)
+
+
+def merge_softmax_partials(a, b):
+    """Combine two un-normalised online-softmax states over DISJOINT kv
+    contexts, each ``(num [..., D], den [...], mx [...])``; dead states
+    (``mx == NEG_INF``: that context had no visible kv) contribute zero.
+    Returns the same triple. The split-KV decode kernel
+    (``ops/kernels/csrc/decode.cu``) merges its splits with this
+    arithmetic."""
+    num_a, den_a, mx_a = a
+    num_b, den_b, mx_b = b
+    mx = torch.maximum(mx_a, mx_b)
+    sa = torch.where(mx_a > NEG_INF / 2, torch.exp(mx_a - mx), 0.0)
+    sb = torch.where(mx_b > NEG_INF / 2, torch.exp(mx_b - mx), 0.0)
+    num = num_a * sa[..., None] + num_b * sb[..., None]
+    den = den_a * sa + den_b * sb
+    return num, den, mx
+
+
+def normalize_softmax_partials(num: torch.Tensor,
+                               den: torch.Tensor) -> torch.Tensor:
+    """(num, den) -> attention output; all-dead rows produce zeros."""
+    return num / torch.clamp(den, min=1e-20)[..., None]
 
 
 def _pad_table(page_table: torch.Tensor, chunk_pages: int) -> torch.Tensor:
@@ -221,4 +254,5 @@ def paged_attention(q: torch.Tensor, pages: torch.Tensor, layer_idx,
 
 
 __all__ = ["write_kv", "paged_attention", "ragged_paged_attention",
+           "merge_softmax_partials", "normalize_softmax_partials",
            "NEG_INF"]

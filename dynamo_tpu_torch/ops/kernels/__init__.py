@@ -1,12 +1,12 @@
 """Hand-written CUDA attention kernels for Hopper (``sm_90a``) and their
 PyTorch wrappers.
 
-- ``decode.paged_decode_attention_stacked`` (``csrc/decode.cu``) replaces the
-  TPU kernel ``dynamo_tpu/ops/pallas/decode.py``;
-- ``prefill.paged_prefill_attention_stacked`` (``csrc/prefill.cu``) replaces
-  ``dynamo_tpu/ops/pallas/prefill.py``;
-- ``ragged.ragged_mixed_attention_stacked`` (``csrc/prefill.cu``, ragged
-  entry) replaces ``dynamo_tpu/ops/pallas/ragged.py``;
+- ``decode.paged_decode_attention_stacked`` (``csrc/decode.cu``, split-KV)
+  replaces the TPU kernel ``dynamo_tpu/ops/pallas/decode.py``;
+- ``prefill.paged_prefill_attention_stacked`` (``csrc/prefill_sm90.cu``, TMA
+  + wgmma) replaces ``dynamo_tpu/ops/pallas/prefill.py``;
+- ``ragged.ragged_mixed_attention_stacked`` (``csrc/prefill.cu``) replaces
+  ``dynamo_tpu/ops/pallas/ragged.py``;
 - ``mla_decode.mla_paged_decode_stacked`` (``csrc/mla.cu``, decode entry)
   replaces ``dynamo_tpu/ops/pallas/mla_decode.py``;
 - ``mla_prefill.mla_paged_prefill_stacked`` (``csrc/mla.cu``, prefill

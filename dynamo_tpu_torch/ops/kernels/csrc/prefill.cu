@@ -1,12 +1,12 @@
-// Chunked-prefill and ragged mixed-step paged attention for Hopper, sm_90a.
+// Ragged mixed-step paged attention for Hopper, sm_90a.
 //
-// One templated kernel serves two TPU kernels, each with its own C entry:
-// - paged_prefill_launch replaces dynamo_tpu/ops/pallas/prefill.py
-//   `paged_prefill_attention_stacked` -> `_paged_prefill` -> `_prefill_kernel`;
-// - ragged_mixed_launch replaces dynamo_tpu/ops/pallas/ragged.py
-//   `ragged_mixed_attention_stacked` -> `_ragged_mixed` -> `_ragged_kernel`.
+// ragged_mixed_launch replaces dynamo_tpu/ops/pallas/ragged.py
+// `ragged_mixed_attention_stacked` -> `_ragged_mixed` -> `_ragged_kernel`.
+// (The chunked-prefill entry moved to prefill_sm90.cu, a TMA + wgmma
+// design; the kernel here is the first port's WMMA design, kept for the
+// ragged entry until that entry moves onto the Hopper kernel too.)
 //
-// Both compute causal flash attention of S new query tokens per row, which
+// It computes causal flash attention of S new query tokens per row, which
 // sit at positions q_start = positions[b, 0] .. onward, against the row's
 // paged context: query at position p sees kv positions t <= p, t < ctx =
 // total_lens[b] and, with a window w > 0, t > p - w; optional softcap
@@ -14,9 +14,9 @@
 // and rounded to bf16 first. A prefix-cache hit (q_start > 0) falls out: the
 // queries attend to whatever the page table already holds. Query slots past
 // the row's real tokens (p >= ctx, i.e. beyond q_len = ctx - q_start) are pad
-// and come out as zeros. The ragged entry adds the TPU ragged kernel's skip:
-// a query tile wholly past q_len (a decode row has q_len = 1) writes its
-// zeros and returns without touching the cache.
+// and come out as zeros. The TPU ragged kernel's skip: a query tile wholly
+// past q_len (a decode row has q_len = 1) writes its zeros and returns
+// without touching the cache.
 //
 // What bounds it on the H100: tensor-core FLOPs at long S (4*S*ctx*Hq*Dh per
 // row against ~2 bytes per kv element read once per query tile), HBM bytes
@@ -28,7 +28,7 @@
 // bound min(ctx, q_start + tile_end) and starts at the window's first chunk.
 // K/V rows past the live context are zero-filled in shared memory, and every
 // masked score is replaced by a select, so NaN in the garbage page cannot
-// reach the output. `wgmma`, TMA and a producer warp are later work.
+// reach the output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -299,18 +299,6 @@ int dispatch(const void* q, const void* pages, void* out, const void* table,
 }
 
 }  // namespace
-
-extern "C" int paged_prefill_launch(const void* q, const void* pages,
-                                    void* out, const void* page_table,
-                                    const void* positions,
-                                    const void* total_lens, long long layer,
-                                    int B, int S, int Hq, int Hkv, int N,
-                                    int ps, int P, float sm_scale, int window,
-                                    float softcap, void* stream) {
-  return dispatch<false>(q, pages, out, page_table, positions, total_lens,
-                         layer, B, S, Hq, Hkv, N, ps, P, sm_scale, window,
-                         softcap, stream);
-}
 
 extern "C" int ragged_mixed_launch(const void* q, const void* pages,
                                    void* out, const void* page_table,

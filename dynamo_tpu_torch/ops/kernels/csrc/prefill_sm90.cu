@@ -1,0 +1,519 @@
+// Chunked-prefill paged attention for Hopper, sm_90a: TMA + wgmma, with the
+// score and output accumulators in registers.
+//
+// Replaces the TPU kernel dynamo_tpu/ops/pallas/prefill.py
+// `paged_prefill_attention_stacked` -> `_paged_prefill` -> `_prefill_kernel`.
+// Computes causal flash attention of S new query tokens per row, which sit
+// at positions q_start = positions[b, 0] .. onward, against the row's paged
+// context: the query at position p sees kv positions t <= p, t < ctx =
+// total_lens[b] and, with a window w > 0, t > p - w; optional softcap
+// cap*tanh(s/cap) before the mask; f32 online softmax; q scaled by sm_scale
+// and rounded to bf16 first; p rounded to bf16 before P.V. A prefix-cache
+// hit (q_start > 0) falls out: the queries attend to whatever the page table
+// already holds. Query slots past the row's real tokens (p >= ctx) are pad
+// and come out as zeros; a query tile wholly past them writes its zeros and
+// returns without touching the cache.
+//
+// Cache layout: pages [L, N, 2, Hkv, ps, Dh=128] bf16, page 0 the garbage
+// page; page_table [B, P] int32. One layer of it is a 2-D matrix
+// [N * 2 * Hkv * ps, 128] in which a kv head's [ps, 128] tile of one page is
+// contiguous.
+//
+// What bounds it on the H100: tensor-core operations at S = 512 (4 * Dh per
+// query head and visible kv position) against ~2 bytes per kv element. So
+// the design is the FA3 shape:
+// - a block takes one (row, kv head, tile of 128 query rows); a row is one
+//   (query slot, head) of the kv head's G heads (BQ = 128 / G slots), so
+//   every K/V chunk in shared memory serves all G heads;
+// - one producer warp keeps a ring of STAGES chunks of KB = 64 positions in
+//   flight with TMA: one tensor map over the layer's 2-D view with 128-byte
+//   swizzle, boxes of [gcd(ps, 64) rows, 64 dims], a page at a time, each
+//   stage completing on its `full` mbarrier; the consumers free a stage on
+//   its `empty` mbarrier. Boxes wholly past the live context are loaded from
+//   past the end of the map, which TMA fills with zeros;
+// - two consumer warpgroups of 64 rows each run `wgmma` m64n64k16: S = Q K^T
+//   with Q as a register operand (loaded, scaled and rounded once) and K^T
+//   from the swizzled stage, then softmax on the S fragments in registers,
+//   then O += P V with P converted in registers to the bf16 A operand and V
+//   read transposed from the stage. S and O never leave registers; nothing
+//   waits on __syncthreads between softmax and P.V;
+// - only chunks that cross a tile's diagonal, the window edge or the end of
+//   the context are masked (a select: masked scores never multiply NaN);
+//   in the chunk that holds the end of the context the consumers zero the
+//   V rows past it (a page's stale slots), so p = 0 never meets a NaN;
+// - blocks are ordered so the last query tiles of each row, which see the
+//   most kv, start first.
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int DH = 128;                        // head dim (the wrapper rejects others)
+constexpr int KB = 64;                         // kv positions per stage
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 2;                   // warpgroups of 64 query rows
+constexpr int ROWS = 64 * CONSUMERS;           // query rows per block
+constexpr int THREADS = 128 * CONSUMERS + 32;  // + the producer warp
+constexpr int HALF_BYTES = KB * 128;           // [KB, 64] bf16: one swizzled half
+constexpr int STAGE_BYTES = 4 * HALF_BYTES;    // K dims 0-63, 64-127, V the same
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand whose
+// 8-row groups of 128-byte rows follow each other (1024 bytes apart)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)64 << 16) |
+         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d[64 x 64] += a[64 x 16] (registers) * B[16 x 64] (shared memory);
+// TRANS_B 0: B stored N rows of K (K-major), 1: K rows of N (N-major)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TRANS_B),
+        "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barriers among the 256 consumer threads (0 is __syncthreads)
+constexpr int BAR_ZERO = 1;  // both warpgroups: stale V rows zeroed
+constexpr int BAR_TURN = 2;  // + warpgroup: its turn to issue S = Q K^T
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(128 * CONSUMERS) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(128 * CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int G>
+__global__ void __launch_bounds__(THREADS, 1)
+prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
+               const bf16* __restrict__ q, bf16* __restrict__ out,
+               const int* __restrict__ page_table,
+               const int* __restrict__ positions,
+               const int* __restrict__ total_lens, int S, int Hkv, int ps, int P,
+               int box_rows, int oob_row, int n_tiles, float sm_scale,
+               int window, float softcap) {
+  constexpr int BQ = ROWS / G;  // query slots per block
+  constexpr int LIVE = BQ * G;  // rows holding a (slot, head); the rest idle
+  const int Hq = Hkv * G;
+  const int pairs = gridDim.x / n_tiles;  // B * Hkv
+  const int tile = n_tiles - 1 - (int)blockIdx.x / pairs;  // most kv first
+  const int b = (int)blockIdx.x % pairs / Hkv;
+  const int h = (int)blockIdx.x % pairs % Hkv;
+  const int tile0 = tile * BQ;
+  const int tid = threadIdx.x;
+  const int ctx = total_lens[b];
+  const int q_start = positions[(long long)b * S];
+  const int q_len = ctx - q_start;
+  const int kv_end = min(ctx, P * ps);
+
+  if (tile0 >= q_len) {
+    // no real query in this tile: zeros, no kv traffic
+    for (int idx = tid; idx < LIVE * (DH / 8); idx += THREADS) {
+      const int r = idx / (DH / 8), c8 = idx % (DH / 8);
+      const int s = tile0 + r / G;
+      if (s < S)
+        *reinterpret_cast<uint4*>(
+            out + (((long long)b * S + s) * Hq + h * G + r % G) * DH + c8 * 8) =
+            make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const int last_slot = min(min(tile0 + BQ, S), q_len) - 1;
+  const int visible = min(kv_end, q_start + last_slot + 1);
+  const int first = window > 0 ? max(q_start + tile0 - window + 1, 0) : 0;
+  const int c_begin = first / KB;
+  const int n_chunks = max((visible + KB - 1) / KB - c_begin, 0);
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024-byte aligned
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t bars = base + STAGES * STAGE_BYTES;
+  // full[st] at bars + 8 st, empty[st] at bars + 8 (STAGES + st)
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(bars + 8 * st, 1);
+      mbar_init(bars + 8 * (STAGES + st), CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128 * CONSUMERS) {
+    // ---- producer warp: TMA loads, one box per lane ----
+    const int lane = tid & 31;
+    const int boxes = KB / box_rows;
+    const int* table = page_table + (long long)b * P;
+    // this lane's box of chunk i starts at position box_pos(i); its page
+    // id is read two chunks ahead, so the table's latency hides behind
+    // the ring instead of stalling every chunk
+    auto box_pos = [&](int i) { return (c_begin + i) * KB + lane * box_rows; };
+    auto page_of = [&](int i) {
+      const int pos = box_pos(i);
+      return i < n_chunks && lane < boxes && pos < kv_end ? table[pos / ps] : -1;
+    };
+    int page_cur = page_of(0), page_nx1 = page_of(1);
+    for (int i = 0; i < n_chunks; ++i) {
+      const int page_nx2 = page_of(i + 2);
+      const int st = i % STAGES;
+      const uint32_t use = (uint32_t)(i / STAGES);
+      if (i >= STAGES) mbar_wait(bars + 8 * (STAGES + st), (use & 1u) ^ 1u);
+      const uint32_t full = bars + 8 * st;
+      if (lane == 0) mbar_expect_tx(full, STAGE_BYTES);
+      __syncwarp();
+      if (lane < boxes) {
+        const int pos = box_pos(i);
+        int rk = oob_row, rv = oob_row;
+        if (page_cur >= 0) {
+          rk = ((page_cur * 2) * Hkv + h) * ps + pos % ps;
+          rv = rk + Hkv * ps;
+        }
+        const uint32_t dst = base + st * STAGE_BYTES + lane * box_rows * 128;
+        tma_load(dst, &kv_map, full, 0, rk);
+        tma_load(dst + HALF_BYTES, &kv_map, full, 64, rk);
+        tma_load(dst + 2 * HALF_BYTES, &kv_map, full, 0, rv);
+        tma_load(dst + 3 * HALF_BYTES, &kv_map, full, 64, rv);
+      }
+      page_cur = page_nx1;
+      page_nx1 = page_nx2;
+    }
+  } else {
+    // ---- consumer warpgroups ----
+    const int wg = tid / 128;
+    const int warp = (tid % 128) / 32;
+    const int lane = tid & 31;
+    const int g4 = lane / 4, c4 = lane % 4;
+    // this thread's two rows of the block: its accumulator rows g4, g4 + 8
+    int qpos[2];
+    bool has_slot[2], real[2];
+    long long orow[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = 64 * wg + 16 * warp + g4 + 8 * k;
+      const int slot = tile0 + r / G;
+      has_slot[k] = r < LIVE && slot < S;
+      real[k] = has_slot[k] && slot < q_len;
+      qpos[k] = q_start + slot;
+      orow[k] = (((long long)b * S + slot) * Hq + h * G + r % G) * DH;
+    }
+    // Q as the A operand of S = Q K^T: q * sm_scale rounded to bf16
+    uint32_t qa[DH / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float2 f = make_float2(0.f, 0.f);
+          if (has_slot[k])
+            f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                q + orow[k] + 16 * kk + 8 * hi + 2 * c4));
+          qa[kk][k + 2 * hi] = pack_bf16(f.x * sm_scale, f.y * sm_scale);
+        }
+    // the warpgroup's query positions bound which chunks need a mask
+    const int wg_lo = q_start + tile0 + (64 * wg) / G;
+    const int wg_hi = q_start + tile0 + min(64 * wg + 63, LIVE - 1) / G;
+
+    float o[2][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[0][i] = o[1][i] = 0.f;
+    float m_run[2] = {NEG_INF, NEG_INF};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sum
+
+    // ping-pong: the warpgroups take turns to issue S = Q K^T, so one's
+    // softmax runs while the other's products hold the tensor cores
+    if (wg == 1) named_arrive(BAR_TURN);
+    for (int i = 0; i < n_chunks; ++i) {
+      const int st = i % STAGES;
+      const int kc = (c_begin + i) * KB;
+      mbar_wait(bars + 8 * st, (uint32_t)(i / STAGES) & 1u);
+      const uint32_t kst = base + st * STAGE_BYTES;
+      if (kc + KB > kv_end) {
+        // V rows past the context: a live page's stale slots -> zeros
+        unsigned char* vst = gbase + st * STAGE_BYTES + 2 * HALF_BYTES;
+        for (int idx = tid; idx < 2 * KB * 8; idx += 128 * CONSUMERS) {
+          const int row = (idx / 8) % KB, half = idx / (8 * KB);
+          if (kc + row >= kv_end)
+            *reinterpret_cast<uint4*>(vst + half * HALF_BYTES + row * 128 +
+                                      (idx % 8) * 16) = make_uint4(0, 0, 0, 0);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_sync(BAR_ZERO);
+      }
+
+      float s[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] = 0.f;
+      named_sync(BAR_TURN + wg);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_64x64<0>(s, qa[kk],
+                       smem_desc(kst + (kk / 4) * HALF_BYTES + (kk % 4) * 32));
+      wg_commit();
+      named_arrive(BAR_TURN + (1 - wg));
+      wg_wait0();
+
+      const bool need_mask = kc + KB > kv_end || kc + KB - 1 > wg_lo ||
+                             (window > 0 && kc <= wg_hi - window);
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) s[j] = softcap * tanhf(s[j] / softcap);
+      }
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int t = kc + 8 * (j / 4) + 2 * c4 + (j & 1);
+          const int qp = qpos[(j / 2) & 1];
+          if (!(t <= qp && t < kv_end && (window <= 0 || t > qp - window)))
+            s[j] = NEG_INF;
+        }
+      }
+      float scale[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float mx = m_run[k];
+#pragma unroll
+        for (int j = 0; j < KB / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * k], s[4 * j + 2 * k + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // p = 2^(s log2e - m log2e); a row with nothing visible yet keeps
+        // m = -1e30 and takes m log2e = 0, so its masked p are 2^-1.4e30 = 0
+        const float ml = mx > NEG_INF * 0.5f ? mx * LOG2E : 0.f;
+        scale[k] = ex2(m_run[k] * LOG2E - ml);
+        m_run[k] = mx;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < KB / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2(fmaf(s[4 * j + 2 * k + e], LOG2E, -ml));
+            s[4 * j + 2 * k + e] = p;
+            rs += p;
+          }
+        l_run[k] = l_run[k] * scale[k] + rs;
+      }
+      if (__any_sync(0xffffffffu, scale[0] != 1.f || scale[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          o[0][j] *= scale[(j / 2) & 1];
+          o[1][j] *= scale[(j / 2) & 1];
+        }
+      }
+      uint32_t pa[KB / 16][4];
+      // P (bf16) as the A operand: S's fragment of columns 16 kk .. + 15
+#pragma unroll
+      for (int kk = 0; kk < KB / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KB / 16; ++kk) {
+        const uint32_t vrow = kst + 2 * HALF_BYTES + kk * 16 * 128;
+        wgmma_64x64<1>(o[0], pa[kk], smem_desc(vrow));
+        wgmma_64x64<1>(o[1], pa[kk], smem_desc(vrow + HALF_BYTES));
+      }
+      wg_commit();
+      wg_wait0();
+      if (lane == 0) mbar_arrive(bars + 8 * (STAGES + st));
+    }
+
+    if (wg == 0) named_sync(BAR_TURN);  // the other warpgroup's last turn
+
+    // normalise and store; pad slots get zeros
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      float l = l_run[k];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float den = fmaxf(l, 1e-20f);
+      if (!has_slot[k]) continue;
+#pragma unroll
+      for (int hd = 0; hd < 2; ++hd)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float x0 = real[k] ? o[hd][4 * j + 2 * k] / den : 0.f;
+          const float x1 = real[k] ? o[hd][4 * j + 2 * k + 1] / den : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(out + orow[k] + 64 * hd + 8 * j +
+                                             2 * c4) =
+              __floats2bfloat162_rn(x0, x1);
+        }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
+template <int G>
+int launch(const void* q, const void* pages, void* out, const void* table,
+           const void* positions, const void* lens, long long layer, int B,
+           int S, int Hkv, int N, int ps, int P, float sm_scale, int window,
+           float softcap, cudaStream_t stream) {
+  static bool smem_set = false;  // once per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        prefill_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const long long rows = (long long)N * 2 * Hkv * ps;  // one layer, 2-D
+  EncodeTiled encode = encoder();
+  if (encode == nullptr || rows >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int box_rows = gcd(ps, KB);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)DH, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)DH * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  void* layer_base = const_cast<bf16*>(static_cast<const bf16*>(pages) + layer * rows * DH);
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, layer_base, dims,
+             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (S + ROWS / G - 1) / (ROWS / G);
+  prefill_kernel<G><<<n_tiles * B * Hkv, THREADS, SMEM_BYTES, stream>>>(
+      map, static_cast<const bf16*>(q), static_cast<bf16*>(out),
+      static_cast<const int*>(table), static_cast<const int*>(positions),
+      static_cast<const int*>(lens), S, Hkv, ps, P, box_rows, (int)rows,
+      n_tiles, sm_scale, window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int paged_prefill_launch(const void* q, const void* pages,
+                                    void* out, const void* page_table,
+                                    const void* positions,
+                                    const void* total_lens, long long layer,
+                                    int B, int S, int Hq, int Hkv, int N,
+                                    int ps, int P, float sm_scale, int window,
+                                    float softcap, void* stream) {
+  if (B == 0 || S == 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv || ps % 8) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DYN_CASE(GV)                                                           \
+  case GV:                                                                     \
+    return launch<GV>(q, pages, out, page_table, positions, total_lens, layer, \
+                      B, S, Hkv, N, ps, P, sm_scale, window, softcap, s);
+  switch (Hq / Hkv) {
+    DYN_CASE(1)
+    DYN_CASE(2)
+    DYN_CASE(3)
+    DYN_CASE(4)
+    DYN_CASE(6)
+    DYN_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DYN_CASE
+}

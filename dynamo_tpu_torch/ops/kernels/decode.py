@@ -1,10 +1,13 @@
 """Paged decode attention (S = 1): wrapper of ``csrc/decode.cu``.
 
 Replaces ``dynamo_tpu/ops/pallas/decode.py`` ``paged_decode_attention_stacked``
-with the same signature. See the source's note for the design.
+with the same signature. See the source's note for the design: split-KV,
+with the split count chosen here from shapes alone (``decode_splits``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -13,6 +16,49 @@ from dynamo_tpu_torch.ops.kernels import build
 from dynamo_tpu_torch.ops.kernels._wrap import (check_cuda_args, softcap_arg,
                                                 window_arg)
 from dynamo_tpu_torch.ops.kernels.plain import plain_paged_attention
+
+
+# the split length aimed at, in positions: shorter splits pay each block's
+# start-up more often, longer ones leave the card waiting on the longest
+# rows; tools/decode_split_sweep.py measures the trade on the card
+SPLIT_POSITIONS = 320
+# the least context a split takes on, in positions: below it a block's
+# pipeline barely fills before it drains
+SPLIT_MIN_POSITIONS = 128
+# the most pages a split may hold (csrc/decode.cu MAX_SPLIT_PAGES: its page
+# ids sit in shared memory)
+SPLIT_MAX_PAGES = 512
+# blocks of the kernel one SM holds at once (66.5 KB of shared memory each)
+BLOCKS_PER_SM = 3
+
+
+def decode_splits(B: int, Hkv: int, P: int, ps: int,
+                  num_sms: int) -> tuple:
+    """``(splits, split_pages)`` of the split-KV decode kernel: every split
+    is ``split_pages`` whole pages of the ``P``-wide table and the splits
+    cover it (``(splits - 1) * split_pages < P <= splits * split_pages``).
+
+    A function of shapes only, never of the row lengths: reading
+    ``total_lens`` here would add a device sync to every decode step, and a
+    data-dependent launch shape could not be captured in a CUDA graph.
+    Splits of about ``SPLIT_POSITIONS`` positions, more where the
+    ``B * Hkv`` (row, kv head) pairs would not give every SM
+    ``BLOCKS_PER_SM`` blocks, none shorter than ``SPLIT_MIN_POSITIONS``
+    positions or longer than ``SPLIT_MAX_PAGES`` pages."""
+    if P <= 0:
+        return 1, 0
+    fill = -(-BLOCKS_PER_SM * num_sms // max(1, B * Hkv))
+    by_length = -(-P * ps // SPLIT_POSITIONS)
+    most = max(1, (P * ps) // SPLIT_MIN_POSITIONS)
+    splits = max(min(max(fill, by_length), most), -(-P // SPLIT_MAX_PAGES))
+    splits = max(1, min(splits, P))
+    per = -(-P // splits)
+    return -(-P // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_decode_plain(q, pages, layer_idx, page_table, positions,
@@ -38,13 +84,24 @@ def paged_decode_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
                                   total_lens, sm_scale, window, softcap)
     check_cuda_args("paged_decode", q, pages, layer_idx, page_table,
                     total_lens)
-    B, _S, Hq, _Dh = q.shape
+    B, _S, Hq, Dh = q.shape
     _L, N, _two, Hkv, ps, _ = pages.shape
+    P = page_table.shape[1]
+    sms = _sm_count(q.device.index or 0)
+    splits, per = decode_splits(B, Hkv, P, ps, sms)
     out = torch.empty_like(q)
+    part_num = part_ml = None
+    if splits > 1:
+        part_num = torch.empty((B, Hq, splits, Dh), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B, Hq, splits, 2), dtype=torch.float32,
+                              device=q.device)
     fn = build.library("decode").paged_decode_launch
     code = fn(q.data_ptr(), pages.data_ptr(), out.data_ptr(),
+              None if part_num is None else part_num.data_ptr(),
+              None if part_ml is None else part_ml.data_ptr(),
               page_table.data_ptr(), total_lens.data_ptr(), int(layer_idx),
-              B, Hq, Hkv, N, ps, page_table.shape[1], float(sm_scale),
+              B, Hq, Hkv, N, ps, P, per, splits, float(sm_scale),
               window_arg(window), softcap_arg(softcap),
               build.stream_ptr(q.device))
     build.check(code, "paged_decode")
@@ -52,4 +109,5 @@ def paged_decode_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
     return out
 
 
-__all__ = ["paged_decode_attention_stacked", "paged_decode_plain"]
+__all__ = ["paged_decode_attention_stacked", "paged_decode_plain",
+           "decode_splits"]

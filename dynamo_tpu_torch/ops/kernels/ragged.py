@@ -34,8 +34,8 @@ def ragged_mixed_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
     if not q.is_cuda:
         return ragged_mixed_plain(q, pages, layer_idx, page_table, positions,
                                   total_lens, sm_scale, window, softcap)
-    return launch_flash("ragged_mixed_launch", "ragged_mixed", q, pages,
-                        layer_idx, page_table, positions, total_lens,
+    return launch_flash("prefill", "ragged_mixed_launch", "ragged_mixed", q,
+                        pages, layer_idx, page_table, positions, total_lens,
                         sm_scale, window, softcap)
 
 

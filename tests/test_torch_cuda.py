@@ -10,7 +10,12 @@ does not have). ``chip_smoke.py`` checks the kernels at the Llama-3.2-3B
 and DeepSeek-V2-Lite shapes; these cover the other query-group sizes the
 GQA kernels are built for, the latent (MLA) kernels at 16 and 128 heads
 (V2-Lite's and V2/V3's), decode at ctx 1, odd chunk lengths, a decode row
-inside a mixed batch, and the wrappers' argument checks.
+inside a mixed batch, and the wrappers' argument checks. For the split-KV
+decode kernel: one split, many splits, contexts ending on and either side
+of a split boundary, a window starting inside a split; for the TMA + wgmma
+prefill kernel: S not a multiple of the query tile, pad tiles, a prefix
+whose end is not a multiple of the 64-position kv chunk, window + softcap,
+and page sizes whose TMA boxes are 8, 16 and 64 rows.
 """
 
 import numpy as np
@@ -18,8 +23,9 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.ops.kernels import LAUNCHES
+from dynamo_tpu_torch.ops.kernels._wrap import GROUPS
 from dynamo_tpu_torch.ops.kernels.decode import (
-    paged_decode_attention_stacked, paged_decode_plain)
+    decode_splits, paged_decode_attention_stacked, paged_decode_plain)
 from dynamo_tpu_torch.ops.kernels.mla_decode import (mla_decode_plain,
                                                      mla_paged_decode_layer,
                                                      mla_paged_decode_stacked)
@@ -42,10 +48,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(dev, Hq, Hkv, q_lens, ctxs, S, ps=16, seed=0):
+def _case(dev, Hq, Hkv, q_lens, ctxs, S, ps=16, seed=0, P=None):
     rng = np.random.default_rng(seed)
     B = len(ctxs)
-    P = -(-max(ctxs) // ps) + 2
+    P = P or -(-max(ctxs) // ps) + 2
     N = sum(-(-c // ps) for c in ctxs) + 1
     g = torch.Generator(device=dev).manual_seed(seed)
     pages = torch.randn((2, N, 2, Hkv, ps, 128), generator=g, device=dev
@@ -103,6 +109,69 @@ def test_prefill_and_ragged_groups(dev, Hq, Hkv):
              "ragged_mixed")):
         _check(fn, plain, args, q_lens, name)
         _check(fn, plain, args, q_lens, name, window=64, softcap=30.0)
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("G", GROUPS)
+def test_decode_split_boundaries(dev, G):
+    """Contexts ending one before, on and one after a split boundary, a
+    full table, and a window whose start lies inside a split."""
+    B, Hkv, P, ps = 4, 8, 256, 16
+    splits, per = decode_splits(B, Hkv, P, ps, _sms(dev))
+    assert splits > 1
+    edge = per * ps
+    args = _case(dev, G * Hkv, Hkv, [1] * B,
+                 [edge - 1, edge, edge + 1, P * ps], 1, P=P, seed=G)
+    _check(paged_decode_attention_stacked, paged_decode_plain, args,
+           [1] * B, "paged_decode")
+    window = edge // 2 + 3          # starts inside the split before the last
+    _check(paged_decode_attention_stacked, paged_decode_plain, args,
+           [1] * B, "paged_decode", window=window, softcap=25.0)
+
+
+@pytest.mark.parametrize("ps", [16, 24, 128])
+def test_decode_one_split_and_many(dev, ps):
+    """A narrow table takes one split (the kernel writes bf16 itself); B=1
+    at ctx 4096 takes many (the merge kernel runs)."""
+    one = _case(dev, 24, 8, [1] * 3, [1, ps - 1, 100], 1, ps=ps, seed=1,
+                P=-(-max(100, ps - 1) // ps))
+    assert decode_splits(3, 8, one[3].shape[1], ps, _sms(dev))[0] == 1
+    _check(paged_decode_attention_stacked, paged_decode_plain, one, [1] * 3,
+           "paged_decode")
+    many = _case(dev, 24, 8, [1], [4096], 1, ps=ps, seed=2)
+    assert decode_splits(1, 8, many[3].shape[1], ps, _sms(dev))[0] > 8
+    _check(paged_decode_attention_stacked, paged_decode_plain, many, [1],
+           "paged_decode")
+    _check(paged_decode_attention_stacked, paged_decode_plain, many, [1],
+           "paged_decode", window=1000)
+
+
+@pytest.mark.parametrize("G", GROUPS)
+def test_prefill_tiles_pads_and_prefix(dev, G):
+    """S = 131 is not a multiple of any query tile (128 // G slots); rows
+    of q_len 1 and 5 leave whole pad tiles (zeros, no kv traffic); the
+    130-token chunk over an 870-token prefix starts mid kv chunk."""
+    q_lens, ctxs, S = [77, 1, 130, 5], [77, 400, 1000, 5], 131
+    args = _case(dev, G * 4, 4, q_lens, ctxs, S, seed=10 + G)
+    _check(paged_prefill_attention_stacked, paged_prefill_plain, args,
+           q_lens, "paged_prefill")
+    _check(paged_prefill_attention_stacked, paged_prefill_plain, args,
+           q_lens, "paged_prefill", window=100, softcap=30.0)
+
+
+@pytest.mark.parametrize("ps", [8, 24, 64, 128])
+def test_prefill_page_sizes(dev, ps):
+    """TMA boxes of gcd(ps, 64) rows: 8 (ps 8, 24), 64 (ps 64, 128); a
+    context ending inside a page zeroes that page's stale V rows."""
+    q_lens, ctxs, S = [200, 64, 33], [200, 700, 1201], 200
+    args = _case(dev, 24, 8, q_lens, ctxs, S, ps=ps, seed=ps)
+    _check(paged_prefill_attention_stacked, paged_prefill_plain, args,
+           q_lens, "paged_prefill")
+    _check(paged_prefill_attention_stacked, paged_prefill_plain, args,
+           q_lens, "paged_prefill", window=150)
 
 
 def test_wrappers_reject_what_kernels_do_not_take(dev):
