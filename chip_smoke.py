@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # the whole check, on one CUDA GPU
     python3 chip_smoke.py --quick    # build + kernel checks only
     python3 chip_smoke.py --profile  # and a device-time breakdown by kernel
+    python3 chip_smoke.py --sweep    # kernel checks, then split lengths timed
 
 Phases (each prints what it finds; any failure makes the exit code non-zero
 and suppresses the final result line):
@@ -768,14 +769,88 @@ def phase_profile(params, cfg):
             f"{e.key[:90]}")
 
 
+def kernel_breakdown(fn, layers, calls=10):
+    """Device time per call of each CUDA kernel ``fn`` launches (a split
+    kernel and its merge), from ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(i % layers)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i % layers)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))]
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    return {e.key.removeprefix("void ")[:60]: dev_us(e) / 1e3 / calls
+            for e in rows if dev_us(e) > 0}
+
+
+def phase_sweep():
+    """``--sweep`` only: the split-KV kernels' device time per call
+    (``time_ms``) over split lengths, at phase 2's and 2b's main cases,
+    with the default length's time split by kernel (split kernel, merge)."""
+    from dynamo_tpu_torch.ops.kernels import mla_decode, ragged
+    from dynamo_tpu_torch.ops.kernels.mla_decode import (
+        mla_paged_decode_stacked as mla)
+    from dynamo_tpu_torch.ops.kernels.ragged import (
+        ragged_mixed_attention_stacked as rag)
+    rng = np.random.default_rng(10)
+    for B in (1, 8, 32):
+        ctxs = [4096] + list(rng.integers(1, 4097, size=B - 1))
+        if B > 2:
+            ctxs[1] = 1
+        c = make_mla_case(rng, [1] * B, ctxs, 1)
+        args = (c["q_lat"][:, :1].contiguous(), c["q_pe"][:, :1].contiguous(),
+                c["pages"])
+        run = lambda layer: mla(*args, layer, c["table"], c["total"],
+                                c["sm_scale"])
+        knobs = ("SPLIT_POSITIONS", "BLOCKS_PER_SM", "SPLIT_MIN_POSITIONS")
+        default = [getattr(mla_decode, k) for k in knobs]
+        for pos in (128, 256, 512, 1024):
+            for bps in (1, 2, 4):
+                for least in (64, 128):
+                    for k, v in zip(knobs, (pos, bps, least)):
+                        setattr(mla_decode, k, v)
+                    splits = mla_decode.mla_decode_splits(B, NH, 4096 // PS,
+                                                          PS, 132)
+                    log(f"[sweep] mla_decode B={B} split_positions={pos} "
+                        f"blocks_per_sm={bps} min_positions={least} "
+                        f"splits={splits} "
+                        f"ms={time_ms(run, c['layers']):.4f}")
+        for k, v in zip(knobs, default):
+            setattr(mla_decode, k, v)
+        log(f"[sweep] mla_decode B={B} by kernel (ms per call): "
+            f"{kernel_breakdown(run, c['layers'])}")
+        del c, args
+    rng = np.random.default_rng(0)
+    qls = [512, 512, 1, 1, 1, 1, 1, 1]
+    ctxs = [1024, 512] + list(rng.integers(64, 4097, size=6))
+    c = make_case(rng, 8, qls, ctxs, 512)
+    run = lambda layer: rag(c["q"], c["pages"], layer, c["table"],
+                            c["positions"], c["total"], c["sm_scale"])
+    default = ragged.SPLIT_POSITIONS, ragged.SPLIT_MIN_POSITIONS
+    for pos in (256, 512, 1024, 2048):
+        ragged.SPLIT_POSITIONS = pos
+        ragged.SPLIT_MIN_POSITIONS = min(pos, default[1])
+        log(f"[sweep] ragged_mixed split_positions={pos} plan="
+            f"{ragged.ragged_splits(8, 512, HKV, HQ // HKV, 4096 // PS, PS, 132)}"
+            f" ms={time_ms(run, c['layers']):.4f}")
+    ragged.SPLIT_POSITIONS, ragged.SPLIT_MIN_POSITIONS = default
+    log(f"[sweep] ragged_mixed by kernel (ms per call): "
+        f"{kernel_breakdown(run, c['layers'])}")
+
+
 SOURCES = {
     "paged_decode": ("dynamo_tpu_torch/ops/kernels/csrc/decode.cu",
                      "dynamo_tpu/ops/pallas/decode.py:69"),
     "paged_prefill": ("dynamo_tpu_torch/ops/kernels/csrc/prefill_sm90.cu",
                       "dynamo_tpu/ops/pallas/prefill.py:92"),
-    "ragged_mixed": ("dynamo_tpu_torch/ops/kernels/csrc/prefill.cu",
+    "ragged_mixed": ("dynamo_tpu_torch/ops/kernels/csrc/prefill_sm90.cu",
                      "dynamo_tpu/ops/pallas/ragged.py:49"),
-    "mla_decode": ("dynamo_tpu_torch/ops/kernels/csrc/mla.cu",
+    "mla_decode": ("dynamo_tpu_torch/ops/kernels/csrc/mla_decode.cu",
                    "dynamo_tpu/ops/pallas/mla_decode.py:60"),
     "mla_prefill": ("dynamo_tpu_torch/ops/kernels/csrc/mla.cu",
                     "dynamo_tpu/ops/pallas/mla_prefill.py:65"),
@@ -853,12 +928,17 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(info)} "
         f"with {build.nvcc_version()}")
     for name, rec in sorted(info.items()):
+        # each kernel's "Compiling entry function" line, then its registers,
+        # shared memory, stack and spills
         for line in rec["ptxas"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
                 log(f"[ptxas] {name}: {line.strip()}")
     results = {}
     run_phase("kernels", lambda: phase_kernels(results), failures)
     run_phase("mla kernels", lambda: phase_mla_kernels(results), failures)
+    if "--sweep" in args:
+        run_phase("sweep", phase_sweep, failures)
     if quick:
         log(f"[quick] kernel checks {'failed' if failures else 'passed'}")
         return 1 if failures else 0
@@ -885,7 +965,11 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "ms_per_call": row["ms_per_call"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["label"]})
+            "shape": row["label"],
+            "cases": [{k: r[k] for k in ("label", "ms", "bound_ms",
+                                         "plain_ms", "library_ms",
+                                         "max_err_ulps")}
+                      for r in results[name]]})
     log(f"[total] {time.perf_counter() - t0:.1f} s")
     log(smi_line())               # the card's name and power limit
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,12 +5,13 @@ PyTorch wrappers.
   replaces the TPU kernel ``dynamo_tpu/ops/pallas/decode.py``;
 - ``prefill.paged_prefill_attention_stacked`` (``csrc/prefill_sm90.cu``, TMA
   + wgmma) replaces ``dynamo_tpu/ops/pallas/prefill.py``;
-- ``ragged.ragged_mixed_attention_stacked`` (``csrc/prefill.cu``) replaces
+- ``ragged.ragged_mixed_attention_stacked`` (``csrc/prefill_sm90.cu``,
+  ragged entry: split-KV for decode rows) replaces
   ``dynamo_tpu/ops/pallas/ragged.py``;
-- ``mla_decode.mla_paged_decode_stacked`` (``csrc/mla.cu``, decode entry)
-  replaces ``dynamo_tpu/ops/pallas/mla_decode.py``;
-- ``mla_prefill.mla_paged_prefill_stacked`` (``csrc/mla.cu``, prefill
-  entry) replaces ``dynamo_tpu/ops/pallas/mla_prefill.py``.
+- ``mla_decode.mla_paged_decode_stacked`` (``csrc/mla_decode.cu``,
+  split-KV) replaces ``dynamo_tpu/ops/pallas/mla_decode.py``;
+- ``mla_prefill.mla_paged_prefill_stacked`` (``csrc/mla.cu``) replaces
+  ``dynamo_tpu/ops/pallas/mla_prefill.py``.
 
 That is every Pallas kernel of the reference. Each wrapper keeps the JAX
 function's signature: ``(q, pages, layer_idx, page_table, positions,

@@ -70,11 +70,30 @@ SMEM_MAX = 232448
 
 
 def mla_smem_bytes(rows: int, dkv: int, dr: int) -> int:
-    """Dynamic shared memory of an MLA block with ``rows`` query rows
-    (``layout().total`` in ``csrc/mla.cu``)."""
+    """Dynamic shared memory of an MLA prefill block with ``rows`` query
+    rows (``layout().total`` in ``csrc/mla.cu``)."""
     ld = dkv + dr + 8
     return (rows * ld * 2 + 64 * ld * 2 + rows * 68 * 4 + rows * 72 * 2
             + rows * (dkv + 4) * 4 + 3 * rows * 4)
+
+
+# the MLA decode kernel's output columns per block: 8 warps of at most 10
+# m16n8 tiles of register accumulators (csrc/mla_decode.cu); no wider
+# latent fits the prefill kernel's shared memory either
+MLA_DECODE_MAX_DKV = 640
+
+
+def mla_decode_smem_bytes(dkv: int, dr: int) -> int:
+    """Dynamic shared memory of an MLA decode block (``layout().total`` in
+    ``csrc/mla_decode.cu``): a ring of 3 stages of 32 positions, each
+    ``dkv / 64 + ceil(dr / 64)`` swizzled column blocks of 4 KB, the warps'
+    partial scores, the bf16 probabilities, the rows' rescale factors and
+    sums, the split's page ids, the ring's mbarriers and 1 KB of alignment
+    slack."""
+    cblocks = dkv // 64 + -(-dr // 64)
+    return (3 * cblocks * 32 * 128 + 8 * MLA_HEAD_GROUP * 36 * 4
+            + MLA_HEAD_GROUP * 40 * 2 + 2 * MLA_HEAD_GROUP * 4 + 256 * 4
+            + 6 * 8 + 1024)
 
 
 def mla_geometry_error(nh: int, dkv: int, dr: int, ps: int):
@@ -88,7 +107,11 @@ def mla_geometry_error(nh: int, dkv: int, dr: int, ps: int):
                 f"kv_lora_rank={dkv}")
     if nh % MLA_HEAD_GROUP:
         return f"num_heads={nh} is not a multiple of {MLA_HEAD_GROUP}"
-    if mla_smem_bytes(32, dkv, dr) > SMEM_MAX:
+    if dkv > MLA_DECODE_MAX_DKV:
+        return (f"kv_lora_rank={dkv} exceeds the decode kernel's "
+                f"{MLA_DECODE_MAX_DKV} register-held output columns")
+    if max(mla_smem_bytes(32, dkv, dr),
+           mla_decode_smem_bytes(dkv, dr)) > SMEM_MAX:
         return (f"dkv={dkv}, dr={dr} tiles exceed the {SMEM_MAX}-byte "
                 "shared-memory budget")
     return None

@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode", "prefill", "prefill_sm90", "mla")
+SOURCES = ("decode", "prefill_sm90", "mla", "mla_decode")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -37,11 +37,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
 
-# the two flash-attention entries: q, pages, out, page_table, positions,
+# the flash-attention entries: q, pages, out, page_table, positions,
 # total_lens, layer, B, S, Hq, Hkv, N, ps, P, sm_scale, window, softcap,
-# stream
-_FLASH = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F,
-          _P]
+# (the ragged entry then: part_num, part_ml, split_cap, split_pages, splits,
+# n_work,) stream
+_FLASH = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F]
 
 # C signatures: (name, argtypes) per library. Every pointer and the stream
 # are c_void_p — ctypes would otherwise pass a Python int as a 32-bit int.
@@ -53,13 +53,17 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _F, _I, _F, _P],
     },
-    "prefill": {"ragged_mixed_launch": _FLASH},
-    "prefill_sm90": {"paged_prefill_launch": _FLASH},
+    "prefill_sm90": {
+        "paged_prefill_launch": _FLASH + [_P],
+        "ragged_mixed_launch": _FLASH + [_P, _P, _I, _I, _I, _I, _P],
+    },
+    "mla_decode": {
+        # q, pages, out, part_num, part_ml, page_table, total_lens, layer, B,
+        # nh, dkv, dr, N, ps, P, split_pages, splits, stream
+        "mla_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _P],
+    },
     "mla": {
-        # q, pages, out, page_table, total_lens, layer, B, nh, dkv, dr, N,
-        # ps, P, stream
-        "mla_decode_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                              _I, _I, _P],
         # q, pages, out, page_table, positions, total_lens, layer, B, S, nh,
         # dkv, dr, N, ps, P, stream
         "mla_prefill_launch": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,

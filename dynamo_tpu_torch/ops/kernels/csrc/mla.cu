@@ -1,10 +1,8 @@
-// Latent (MLA) paged attention for Hopper, sm_90a: decode and chunked prefill.
+// Latent (MLA) chunked-prefill paged attention for Hopper, sm_90a.
 //
-// One templated kernel serves two TPU kernels, each with its own C entry:
-// - mla_decode_launch replaces dynamo_tpu/ops/pallas/mla_decode.py
-//   `mla_paged_decode_stacked` -> `_mla_paged_decode` -> `_mla_decode_kernel`;
-// - mla_prefill_launch replaces dynamo_tpu/ops/pallas/mla_prefill.py
-//   `mla_paged_prefill_stacked` -> `_mla_paged_prefill` -> `_mla_prefill_kernel`.
+// mla_prefill_launch replaces dynamo_tpu/ops/pallas/mla_prefill.py
+// `mla_paged_prefill_stacked` -> `_mla_paged_prefill` -> `_mla_prefill_kernel`.
+// (The decode kernel, B4, has its own source: mla_decode.cu.)
 //
 // DeepSeek's absorbed multi-head latent attention over the 2-slot latent
 // cache pages [L, N, 2, 1, ps, dkv] bf16 (slot 0 the latent c_kv, slot 1 the
@@ -16,36 +14,34 @@
 // one row [q_lat | q_pe] of dkv + dr values (the wrapper does it, as the TPU
 // kernels' callers do); scores and sums are f32 (online softmax), p rounds
 // to bf16 before P.V, and the output is f32 [B, S, nh, dkv], as on the TPU.
-// Decode (S = 1) puts its query at ctx - 1; prefill puts row b's queries at
-// positions[b, 0] + s, so a prefix-cache hit attends to whatever the page
-// table already holds. Query slots at or past ctx are pad and come out zero;
-// a query tile wholly past them writes its zeros and returns without
-// touching the cache (a decode row's 511 pad slots inside a mixed step).
+// Row b's queries sit at positions[b, 0] + s, so a prefix-cache hit attends
+// to whatever the page table already holds. Query slots at or past ctx are
+// pad and come out zero; a query tile wholly past them writes its zeros and
+// returns without touching the cache (a decode row's 511 pad slots inside a
+// mixed step).
 //
-// What bounds it on the H100: HBM bytes at decode (each live position's
-// (dkv + dr) * 2 bytes against 4 * nh * (dkv + dr) flops: 64 flop/byte at
-// nh = 16, far below the ~295 where the tensor cores bound), tensor-core
-// flops at long prefill chunks. Design for that, simple first:
+// What bounds it on the H100: tensor-core flops at long prefill chunks (4 *
+// nh * (dkv + dr) per visible (query, position) pair), HBM bytes for the
+// decode rows of mixed steps. Design for that, simple first:
 // - MLA has ONE kv head, so every query head of a row reads the same latent
-//   page. The block stacks HG = 16 heads (x BQ query tokens) into the M
+//   page. The block stacks HG = 16 heads x BQ = 2 query tokens into the M
 //   dimension of WMMA bf16 x bf16 -> f32 products (16x16x16), so each kv
 //   chunk loaded into shared memory serves all of them. nh must be a
 //   multiple of 16 (V2-Lite 16, V2/V3 128); a head group of 16 is one block.
 // - Slot 1 is read only for its first dr columns: the padding is zeros and
 //   would not change the score (mla_decode.py:28-29), and skipping it saves
 //   (dkv - dr) * 2 of every position's 2 * dkv * 2 bytes.
-// - The TPU grid is sequential and Hopper's is not: decode gets one block
-//   per (row, head group) and loops over kv chunks of KB positions; prefill
-//   one block per (row, query tile of BQ tokens, head group), looping only
-//   over the chunks its causal bound min(ctx, q_start + tile_end) can see.
+// - The TPU grid is sequential and Hopper's is not: one block per (row,
+//   query tile of BQ tokens, head group), looping only over the kv chunks of
+//   KB positions its causal bound min(ctx, q_start + tile_end) can see.
 // - The accumulator is the trouble: [M, dkv] f32 is 64 KB at M = 32 and
 //   dkv = 512, beside a [KB, dkv + dr] bf16 kv chunk of 73 KB. It lives in
 //   dynamic shared memory (above 48 KB, set with cudaFuncSetAttribute), and
-//   the tiles are sized to the 227 KB budget: M = 16 (decode) or 32
-//   (prefill, BQ = 2) rows and KB = 64 positions. Heads past the first 16
-//   go to other blocks, which re-read the chunk (from L2). Register-resident
-//   accumulators (mma.sync / wgmma), TMA, a producer warp and split-KV for
-//   small batches are later work.
+//   the tiles are sized to the 227 KB budget: M = 32 rows and KB = 64
+//   positions. Heads past the first 16 go to other blocks, which re-read the
+//   chunk (from L2). Register-resident accumulators (wgmma), TMA, a
+//   producer warp and split-KV for the decode rows of mixed steps are later
+//   work.
 // - NaN in the garbage page 0 cannot leak: rows past the live context are
 //   zero-filled in shared memory and every masked score is replaced by a
 //   select, so no masked weight multiplies a loaded value.
@@ -92,7 +88,7 @@ __host__ __device__ inline Layout layout(int M, int dkv, int dr) {
   return L;
 }
 
-template <int BQ, bool DECODE>
+template <int BQ>
 __global__ void __launch_bounds__(THREADS)
 mla_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
            float* __restrict__ out, const int* __restrict__ page_table,
@@ -119,7 +115,7 @@ mla_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
   const int h0 = blockIdx.z * HG;     // first head of this group
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ctx = total_lens[b];
-  const int q_start = DECODE ? ctx - 1 : positions[(long long)b * S];
+  const int q_start = positions[(long long)b * S];
   const int kv_end = min(ctx, P * ps);
   // output row of block row r (valid when its slot is < S)
   auto out_row = [&](int r) {
@@ -267,7 +263,7 @@ mla_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
   }
 }
 
-template <int BQ, bool DECODE>
+template <int BQ>
 int launch(const void* q, const void* pages, void* out, const void* table,
            const void* positions, const void* lens, long long layer, int B,
            int S, int nh, int dkv, int dr, int N, int ps, int P,
@@ -278,7 +274,7 @@ int launch(const void* q, const void* pages, void* out, const void* table,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = layout(BQ * HG, dkv, dr).total;
   if (smem > (size_t)SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = mla_kernel<BQ, DECODE>;
+  auto kern = mla_kernel<BQ>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -293,21 +289,12 @@ int launch(const void* q, const void* pages, void* out, const void* table,
 
 }  // namespace
 
-extern "C" int mla_decode_launch(const void* q, const void* pages, void* out,
-                                 const void* page_table,
-                                 const void* total_lens, long long layer,
-                                 int B, int nh, int dkv, int dr, int N, int ps,
-                                 int P, void* stream) {
-  return launch<1, true>(q, pages, out, page_table, nullptr, total_lens, layer,
-                         B, 1, nh, dkv, dr, N, ps, P, stream);
-}
-
 extern "C" int mla_prefill_launch(const void* q, const void* pages, void* out,
                                   const void* page_table,
                                   const void* positions,
                                   const void* total_lens, long long layer,
                                   int B, int S, int nh, int dkv, int dr, int N,
                                   int ps, int P, void* stream) {
-  return launch<2, false>(q, pages, out, page_table, positions, total_lens,
+  return launch<2>(q, pages, out, page_table, positions, total_lens,
                           layer, B, S, nh, dkv, dr, N, ps, P, stream);
 }

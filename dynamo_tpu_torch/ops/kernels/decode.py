@@ -32,32 +32,45 @@ SPLIT_MAX_PAGES = 512
 BLOCKS_PER_SM = 3
 
 
-def decode_splits(B: int, Hkv: int, P: int, ps: int,
-                  num_sms: int) -> tuple:
-    """``(splits, split_pages)`` of the split-KV decode kernel: every split
-    is ``split_pages`` whole pages of the ``P``-wide table and the splits
-    cover it (``(splits - 1) * split_pages < P <= splits * split_pages``).
-
-    A function of shapes only, never of the row lengths: reading
-    ``total_lens`` here would add a device sync to every decode step, and a
-    data-dependent launch shape could not be captured in a CUDA graph.
-    Splits of about ``SPLIT_POSITIONS`` positions, more where the
-    ``B * Hkv`` (row, kv head) pairs would not give every SM
-    ``BLOCKS_PER_SM`` blocks, none shorter than ``SPLIT_MIN_POSITIONS``
-    positions or longer than ``SPLIT_MAX_PAGES`` pages."""
+def plan_splits(pairs: int, P: int, ps: int, num_sms: int,
+                blocks_per_sm: int, split_positions: int,
+                min_positions: int, max_pages: int) -> tuple:
+    """``(splits, split_pages)`` of a split-KV kernel with ``pairs`` blocks
+    per split: every split is ``split_pages`` whole pages of the ``P``-wide
+    table and the splits cover it (``(splits - 1) * split_pages < P <=
+    splits * split_pages``). Splits of about ``split_positions`` positions,
+    more where ``pairs`` would not give every SM ``blocks_per_sm`` blocks,
+    none shorter than ``min_positions`` positions or longer than
+    ``max_pages`` pages."""
     if P <= 0:
         return 1, 0
-    fill = -(-BLOCKS_PER_SM * num_sms // max(1, B * Hkv))
-    by_length = -(-P * ps // SPLIT_POSITIONS)
-    most = max(1, (P * ps) // SPLIT_MIN_POSITIONS)
-    splits = max(min(max(fill, by_length), most), -(-P // SPLIT_MAX_PAGES))
+    fill = -(-blocks_per_sm * num_sms // max(1, pairs))
+    by_length = -(-P * ps // split_positions)
+    most = max(1, (P * ps) // min_positions)
+    splits = max(min(max(fill, by_length), most), -(-P // max_pages))
     splits = max(1, min(splits, P))
     per = -(-P // splits)
     return -(-P // per), per
 
 
+def decode_splits(B: int, Hkv: int, P: int, ps: int,
+                  num_sms: int) -> tuple:
+    """``(splits, split_pages)`` of the split-KV decode kernel
+    (``plan_splits`` over the ``B * Hkv`` (row, kv head) pairs).
+
+    A function of shapes only, never of the row lengths: reading
+    ``total_lens`` here would add a device sync to every decode step, and a
+    data-dependent launch shape could not be captured in a CUDA graph.
+    Splits of about ``SPLIT_POSITIONS`` positions, more where the pairs
+    would not give every SM ``BLOCKS_PER_SM`` blocks, none shorter than
+    ``SPLIT_MIN_POSITIONS`` positions or longer than ``SPLIT_MAX_PAGES``
+    pages."""
+    return plan_splits(B * Hkv, P, ps, num_sms, BLOCKS_PER_SM,
+                       SPLIT_POSITIONS, SPLIT_MIN_POSITIONS, SPLIT_MAX_PAGES)
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -87,7 +100,7 @@ def paged_decode_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
     B, _S, Hq, Dh = q.shape
     _L, N, _two, Hkv, ps, _ = pages.shape
     P = page_table.shape[1]
-    sms = _sm_count(q.device.index or 0)
+    sms = sm_count(q.device.index or 0)
     splits, per = decode_splits(B, Hkv, P, ps, sms)
     out = torch.empty_like(q)
     part_num = part_ml = None
@@ -110,4 +123,4 @@ def paged_decode_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
 
 
 __all__ = ["paged_decode_attention_stacked", "paged_decode_plain",
-           "decode_splits"]
+           "decode_splits", "plan_splits", "sm_count"]

@@ -1,14 +1,14 @@
 """The plain PyTorch versions of the attention kernels.
 
 ``plain_paged_attention`` computes what ``csrc/decode.cu`` and
-``csrc/prefill.cu`` compute, and ``plain_mla_attention`` what
-``csrc/mla.cu`` computes, in the same arithmetic order where it matters: q
-scaled by ``sm_scale`` and rounded to the working dtype, scores in float32,
-softcap before the mask, masked scores replaced (a select, never a
-multiply), probabilities rounded to the cache dtype before P.V, float32
-sums, pad query slots (position >= ctx) zero. The CPU path of every wrapper
-and the CPU tests use them; on the card ``chip_smoke.py`` holds each kernel
-against its plain version.
+``csrc/prefill_sm90.cu`` compute, and ``plain_mla_attention`` what
+``csrc/mla_decode.cu`` and ``csrc/mla.cu`` compute, in the same arithmetic
+order where it matters: q scaled by ``sm_scale`` and rounded to the working
+dtype, scores in float32, softcap before the mask, masked scores replaced (a
+select, never a multiply), probabilities rounded to the cache dtype before
+P.V, float32 sums, pad query slots (position >= ctx) zero. The CPU path of
+every wrapper and the CPU tests use them; on the card ``chip_smoke.py``
+holds each kernel against its plain version.
 """
 
 from __future__ import annotations
@@ -79,7 +79,8 @@ def plain_mla_attention(q_lat: torch.Tensor, q_pe: torch.Tensor,
                         page_table: torch.Tensor, q_start: torch.Tensor,
                         total_lens: torch.Tensor,
                         sm_scale: float) -> torch.Tensor:
-    """The plain version of both MLA kernels (``csrc/mla.cu``).
+    """The plain version of both MLA kernels (``csrc/mla_decode.cu``,
+    ``csrc/mla.cu``).
 
     q_lat [B, S, nh, dkv] and q_pe [B, S, nh, dr] at positions
     ``q_start[b] + s``; pages [L, N, 2, 1, ps, dkv] (slot 0 the latent,

@@ -26,28 +26,6 @@ def paged_prefill_plain(q, pages, layer_idx, page_table, positions,
                                  window=window, softcap=softcap)
 
 
-def launch_flash(source: str, entry: str, counter: str, q, pages, layer_idx,
-                 page_table, positions, total_lens, sm_scale, window,
-                 softcap):
-    """Launch ``entry`` of ``csrc/<source>.cu`` on q's stream: the prefill
-    entry of ``prefill_sm90.cu`` or the ragged entry of ``prefill.cu``,
-    which take the same arguments."""
-    check_cuda_args(counter, q, pages, layer_idx, page_table, total_lens,
-                    positions)
-    B, S, Hq, _Dh = q.shape
-    _L, N, _two, Hkv, ps, _ = pages.shape
-    out = torch.empty_like(q)
-    fn = getattr(build.library(source), entry)
-    code = fn(q.data_ptr(), pages.data_ptr(), out.data_ptr(),
-              page_table.data_ptr(), positions.data_ptr(),
-              total_lens.data_ptr(), int(layer_idx), B, S, Hq, Hkv, N, ps,
-              page_table.shape[1], float(sm_scale), window_arg(window),
-              softcap_arg(softcap), build.stream_ptr(q.device))
-    build.check(code, counter)
-    LAUNCHES[counter] += 1
-    return out
-
-
 def paged_prefill_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
                                     layer_idx, page_table: torch.Tensor,
                                     positions: torch.Tensor,
@@ -61,9 +39,19 @@ def paged_prefill_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
         return paged_prefill_plain(q, pages, layer_idx, page_table,
                                    positions, total_lens, sm_scale, window,
                                    softcap)
-    return launch_flash("prefill_sm90", "paged_prefill_launch",
-                        "paged_prefill", q, pages, layer_idx, page_table,
-                        positions, total_lens, sm_scale, window, softcap)
+    check_cuda_args("paged_prefill", q, pages, layer_idx, page_table,
+                    total_lens, positions)
+    B, S, Hq, _Dh = q.shape
+    _L, N, _two, Hkv, ps, _ = pages.shape
+    out = torch.empty_like(q)
+    code = build.library("prefill_sm90").paged_prefill_launch(
+        q.data_ptr(), pages.data_ptr(), out.data_ptr(), page_table.data_ptr(),
+        positions.data_ptr(), total_lens.data_ptr(), int(layer_idx), B, S, Hq,
+        Hkv, N, ps, page_table.shape[1], float(sm_scale), window_arg(window),
+        softcap_arg(softcap), build.stream_ptr(q.device))
+    build.check(code, "paged_prefill")
+    LAUNCHES["paged_prefill"] += 1
+    return out
 
 
 __all__ = ["paged_prefill_attention_stacked", "paged_prefill_plain"]

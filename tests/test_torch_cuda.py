@@ -15,7 +15,14 @@ decode kernel: one split, many splits, contexts ending on and either side
 of a split boundary, a window starting inside a split; for the TMA + wgmma
 prefill kernel: S not a multiple of the query tile, pad tiles, a prefix
 whose end is not a multiple of the 64-position kv chunk, window + softcap,
-and page sizes whose TMA boxes are 8, 16 and 64 rows.
+and page sizes whose TMA boxes are 8, 16 and 64 rows. For the ragged
+kernel's split-KV path (short rows spread over several blocks, then
+merged): every G, decode rows whose contexts end on and either side of a
+split boundary and fill the table, window + softcap, and rows with q_len
+at the split cap and one past it beside a long chunk. For the split-KV MLA
+decode kernel: B = 1, 8 and 32 at 16 and 32 heads, ctx 1, the split
+boundaries and a full table, page sizes whose TMA boxes are 8, 16 and 32
+rows, and latent widths of 128, 256 and 512.
 """
 
 import numpy as np
@@ -27,6 +34,7 @@ from dynamo_tpu_torch.ops.kernels._wrap import GROUPS
 from dynamo_tpu_torch.ops.kernels.decode import (
     decode_splits, paged_decode_attention_stacked, paged_decode_plain)
 from dynamo_tpu_torch.ops.kernels.mla_decode import (mla_decode_plain,
+                                                     mla_decode_splits,
                                                      mla_paged_decode_layer,
                                                      mla_paged_decode_stacked)
 from dynamo_tpu_torch.ops.kernels.mla_prefill import (
@@ -35,7 +43,8 @@ from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
 from dynamo_tpu_torch.ops.kernels.prefill import (
     paged_prefill_attention_stacked, paged_prefill_plain)
 from dynamo_tpu_torch.ops.kernels.ragged import (
-    ragged_mixed_attention_stacked, ragged_mixed_plain)
+    SPLIT_Q_CAP, ragged_mixed_attention_stacked, ragged_mixed_plain,
+    ragged_splits)
 
 pytestmark = pytest.mark.cuda
 TOL_ULPS = 2.0   # per (query, head) row, bf16 ulps of the row's largest value
@@ -174,6 +183,26 @@ def test_prefill_page_sizes(dev, ps):
            q_lens, "paged_prefill", window=150)
 
 
+@pytest.mark.parametrize("G", GROUPS)
+def test_ragged_split_rows(dev, G):
+    """Decode rows whose contexts end one before, on and one after a split
+    boundary and at the full table, a row of q_len at the split cap and one
+    of cap + 1 (tiles, no split), beside a chunk over a prefix."""
+    Hkv, P, ps, S = 4, 256, 16, 40
+    B = 7
+    n_work, splits, per = ragged_splits(B, S, Hkv, G, P, ps, _sms(dev))
+    assert splits > 1 and n_work >= splits
+    edge = per * ps
+    q_lens = [1, 1, 1, 1, SPLIT_Q_CAP, SPLIT_Q_CAP + 1, S - 3]
+    ctxs = [edge - 1, edge, edge + 1, P * ps, 2 * edge + 5, 700, 900]
+    args = _case(dev, G * Hkv, Hkv, q_lens, ctxs, S, P=P, seed=20 + G)
+    _check(ragged_mixed_attention_stacked, ragged_mixed_plain, args, q_lens,
+           "ragged_mixed")
+    # a window starting inside a split, with softcap
+    _check(ragged_mixed_attention_stacked, ragged_mixed_plain, args, q_lens,
+           "ragged_mixed", window=edge // 2 + 3, softcap=30.0)
+
+
 def test_wrappers_reject_what_kernels_do_not_take(dev):
     args = list(_case(dev, 8, 4, [1], [40], 1))
     bad_dh = list(args)
@@ -193,12 +222,13 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
         paged_decode_attention_stacked(*bad_groups)
 
 
-def _mla_case(dev, nh, q_lens, ctxs, S, dkv=512, dr=64, ps=16, seed=0):
+def _mla_case(dev, nh, q_lens, ctxs, S, dkv=512, dr=64, ps=16, seed=0,
+              P=None):
     """Latent cache [2, N, 2, 1, ps, dkv] bf16 (slot 1 zero past dr, page 0
     NaN), float32 q_lat and bf16 q_pe at each row's last q_len positions."""
     rng = np.random.default_rng(seed)
     B = len(ctxs)
-    P = -(-max(ctxs) // ps) + 2
+    P = P or -(-max(ctxs) // ps) + 2
     N = sum(-(-c // ps) for c in ctxs) + 1
     g = torch.Generator(device=dev).manual_seed(seed)
     pages = torch.randn((2, N, 2, 1, ps, dkv), generator=g, device=dev
@@ -242,6 +272,42 @@ def test_mla_decode(dev, nh):
     # the per-layer variant: the same kernel on a one-layer view
     one = mla_paged_decode_layer(args[0], args[1], c["pages"][1], *args[4:])
     assert torch.equal(one, mla_paged_decode_stacked(*args))
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("nh", [16, 32])
+def test_mla_decode_splits(dev, B, nh):
+    """ctx 1, contexts ending one before, on and one after a split
+    boundary, and a full table, at B = 1, 8, 32 (the split count falls as B
+    grows); at B = 1 one call per context."""
+    P, ps = 256, 16
+    splits, per = mla_decode_splits(B, nh, P, ps, _sms(dev))
+    assert splits > 1
+    edge = per * ps
+    cases = [1, edge - 1, edge, edge + 1, P * ps]
+    ctxs = [cases[i % len(cases)] for i in range(B)] if B > 1 else [P * ps]
+    c = _mla_case(dev, nh, [1] * B, ctxs, 1, P=P, seed=B + nh)
+    _check(mla_paged_decode_stacked, mla_decode_plain, _decode_args(c),
+           [1] * B, "mla_decode")
+    if B == 1:
+        for ctx in cases[:-1]:
+            c = _mla_case(dev, nh, [1], [ctx], 1, P=P, seed=ctx)
+            _check(mla_paged_decode_stacked, mla_decode_plain,
+                   _decode_args(c), [1], "mla_decode")
+
+
+@pytest.mark.parametrize("ps,dkv,dr", [(8, 512, 64), (24, 512, 64),
+                                       (64, 512, 64), (16, 128, 16),
+                                       (16, 256, 128)])
+def test_mla_decode_page_sizes_and_widths(dev, ps, dkv, dr):
+    """TMA boxes of gcd(ps, 32) rows (8, 8, 32, 16), contexts ending
+    inside a page and inside a box, and latents of 2, 4 and 8 register
+    tiles a warp with rope widths below, at and above one 64-column box."""
+    ctxs = [1, ps - 1, 3 * ps + 5, 1000, 2049]
+    c = _mla_case(dev, 16, [1] * 5, ctxs, 1, dkv=dkv, dr=dr, ps=ps,
+                  seed=ps + dkv)
+    _check(mla_paged_decode_stacked, mla_decode_plain, _decode_args(c),
+           [1] * 5, "mla_decode")
 
 
 @pytest.mark.parametrize("nh", [16, 128])
