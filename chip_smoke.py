@@ -3,7 +3,8 @@
     python3 chip_smoke.py            # the whole check, on one CUDA GPU
     python3 chip_smoke.py --quick    # build + kernel checks only
     python3 chip_smoke.py --profile  # and a device-time breakdown by kernel
-    python3 chip_smoke.py --sweep    # kernel checks, then split lengths timed
+    python3 chip_smoke.py --sweep    # kernel checks, then split lengths
+                                     # timed and split by kernel
 
 Phases (each prints what it finds; any failure makes the exit code non-zero
 and suppresses the final result line):
@@ -37,7 +38,9 @@ Then, with the Llama model freed, DeepSeek-V2-Lite (MLA + MoE):
     shapes (nh=16, dkv=512, dr=64, page 16, bf16), NaN in the garbage page:
     decode at B = 1, 8, 32 (contexts up to 4096, one of 1 token), prefill
     B=4 S=512 with prefix hits and a 300-token row, and a mixed batch (two
-    chunks + six decode rows at S=512); within 2 bf16 ulps per (query,
+    chunks + six decode rows at S=512), and S=131 (a ragged last 4-slot
+    tile) with decode rows whose contexts end on a split boundary and one
+    position either side of it; within 2 bf16 ulps per (query,
     head) row, finite, pad slots exactly zero; each with its time, the
     plain version's, one ``scaled_dot_product_attention`` call's on the
     gathered latent (and the backend that served it) and its bound
@@ -90,6 +93,7 @@ REPS = 25
 L2_BYTES = 50 * 2 ** 20        # H100 L2
 MAX_FLUSH_LAYERS = 64
 SLEEP_CYCLES_PER_S = 2.0e9     # torch.cuda._sleep spins clock cycles
+SERVE_TIMEOUT_S = 300          # a serve takes seconds; a stuck one fails
 
 
 def log(msg: str) -> None:
@@ -501,6 +505,25 @@ def phase_mla_kernels(results):
     case = make_mla_case(rng, [512, 512, 1, 1, 1, 1, 1, 1], ctxs, S)
     check_mla("mla_prefill", case, S, False, results,
               "B=8 S=512 2 chunks + 6 decode rows")
+    del case
+    q_lens, ctxs = mla_ragged_shape()
+    case = make_mla_case(rng, q_lens, ctxs, 131)
+    check_mla("mla_prefill", case, 131, False, results,
+              "B=7 S=131 ragged tiles + decode rows on a split edge")
+
+
+def mla_ragged_shape():
+    """Phase 2b's third B5 case: S = 131 (a ragged last 4-slot tile),
+    chunks of 77 and 130 over prefixes, a row of 5, a decode row at ctx 1
+    and three whose contexts end one before, on and one after a split
+    boundary of ``mla_prefill_splits`` on this card."""
+    from dynamo_tpu_torch.ops.kernels.mla_prefill import mla_prefill_splits
+    q_lens = [77, 1, 130, 5, 1, 1, 1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _n, _splits, per = mla_prefill_splits(len(q_lens), 131, NH, 4096 // PS,
+                                          PS, sms)
+    edge = per * PS
+    return q_lens, [77, 1, 1000, 5, edge - 1, edge, edge + 1]
 
 
 # -- phase 3: full-width forward, kernels vs plain attention ---------------
@@ -685,6 +708,12 @@ async def serve(engine, n_req=10, max_tokens=32):
     return stats, wall
 
 
+def run_serve(engine, **kw):
+    """``serve`` with a deadline: an engine step that raises leaves its
+    requests waiting forever, and the phase must fail instead."""
+    return asyncio.run(asyncio.wait_for(serve(engine, **kw), SERVE_TIMEOUT_S))
+
+
 def phase_engine(params, cfg):
     """Serve ``serve()``'s workload; every request must finish with its 32
     tokens and finite logprobs, and each of the family's kernels must have
@@ -699,7 +728,7 @@ def phase_engine(params, cfg):
         num_pages=4096, page_size=PS, max_num_seqs=32, max_prefill_chunk=512,
         max_prefill_seqs=8, max_context=4096), device="cuda")
     reset_launch_counts()
-    stats, wall = asyncio.run(serve(engine))
+    stats, wall = run_serve(engine)
     torch.cuda.synchronize()
     counts = {k: LAUNCHES[k] for k in engine.kernel_launches}
     by_kind = {}
@@ -740,14 +769,14 @@ def phase_profile(params, cfg):
     engine = TorchEngine(cfg, params, TorchEngineConfig(
         num_pages=1024, page_size=PS, max_num_seqs=32, max_prefill_chunk=512,
         max_context=4096), device="cuda")
-    asyncio.run(serve(engine, n_req=2, max_tokens=4))       # warm up
+    run_serve(engine, n_req=2, max_tokens=4)                # warm up
     engine = TorchEngine(cfg, params, TorchEngineConfig(
         num_pages=1024, page_size=PS, max_num_seqs=32, max_prefill_chunk=512,
         max_context=4096), device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        asyncio.run(serve(engine, n_req=4, max_tokens=16))
+        run_serve(engine, n_req=4, max_tokens=16)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [e for e in prof.key_averages()
@@ -791,8 +820,9 @@ def kernel_breakdown(fn, layers, calls=10):
 def phase_sweep():
     """``--sweep`` only: the split-KV kernels' device time per call
     (``time_ms``) over split lengths, at phase 2's and 2b's main cases,
-    with the default length's time split by kernel (split kernel, merge)."""
-    from dynamo_tpu_torch.ops.kernels import mla_decode, ragged
+    with the default length's time split by kernel (split or tile kernel,
+    merge); the MLA prefill kernel at each of phase 2b's three cases."""
+    from dynamo_tpu_torch.ops.kernels import mla_decode, mla_prefill, ragged
     from dynamo_tpu_torch.ops.kernels.mla_decode import (
         mla_paged_decode_stacked as mla)
     from dynamo_tpu_torch.ops.kernels.ragged import (
@@ -825,6 +855,35 @@ def phase_sweep():
         log(f"[sweep] mla_decode B={B} by kernel (ms per call): "
             f"{kernel_breakdown(run, c['layers'])}")
         del c, args
+    # B5 at phase 2b's cases (the same draws of the same generator)
+    from dynamo_tpu_torch.ops.kernels.mla_prefill import (
+        mla_paged_prefill_stacked as mla_pf)
+    cases = [("B=4 S=512 prefix hits", lambda: ([512, 512, 512, 300],
+                                                [512, 1024, 3000, 1836]), 512),
+             ("B=8 mixed", lambda: ([512, 512, 1, 1, 1, 1, 1, 1], [1024, 512]
+                                    + list(rng.integers(64, 4097, size=6))),
+              512),
+             ("B=7 S=131 ragged", mla_ragged_shape, 131)]
+    default = mla_prefill.SPLIT_POSITIONS
+    for label, shape, S in cases:
+        q_lens, ctxs = shape()
+        c = make_mla_case(rng, q_lens, ctxs, S)
+        run = lambda layer: mla_pf(c["q_lat"], c["q_pe"], c["pages"], layer,
+                                   c["table"], c["positions"], c["total"],
+                                   c["sm_scale"])
+        log(f"[sweep] mla_prefill {label} "
+            f"ms={time_ms(run, c['layers']):.4f}")
+        if min(q_lens) == 1:
+            for pos in (256, 512, 1024, 2048):
+                mla_prefill.SPLIT_POSITIONS = pos
+                plan = mla_prefill.mla_prefill_splits(len(ctxs), S, NH,
+                                                      4096 // PS, PS, 132)
+                log(f"[sweep] mla_prefill {label} split_positions={pos} "
+                    f"plan={plan} ms={time_ms(run, c['layers']):.4f}")
+            mla_prefill.SPLIT_POSITIONS = default
+        log(f"[sweep] mla_prefill {label} by kernel (ms per call): "
+            f"{kernel_breakdown(run, c['layers'])}")
+        del c
     rng = np.random.default_rng(0)
     qls = [512, 512, 1, 1, 1, 1, 1, 1]
     ctxs = [1024, 512] + list(rng.integers(64, 4097, size=6))
@@ -852,7 +911,7 @@ SOURCES = {
                      "dynamo_tpu/ops/pallas/ragged.py:49"),
     "mla_decode": ("dynamo_tpu_torch/ops/kernels/csrc/mla_decode.cu",
                    "dynamo_tpu/ops/pallas/mla_decode.py:60"),
-    "mla_prefill": ("dynamo_tpu_torch/ops/kernels/csrc/mla.cu",
+    "mla_prefill": ("dynamo_tpu_torch/ops/kernels/csrc/mla_prefill.cu",
                     "dynamo_tpu/ops/pallas/mla_prefill.py:65"),
 }
 # the shape each kernel's line reports: the main path's largest case
@@ -929,11 +988,18 @@ def main() -> int:
         f"with {build.nvcc_version()}")
     for name, rec in sorted(info.items()):
         # each kernel's "Compiling entry function" line, then its registers,
-        # shared memory, stack and spills
+        # shared memory, stack and spills; ptxas's notes that it added a
+        # wgmma fence (C7519) are counted, not listed
+        fences = 0
         for line in rec["ptxas"].splitlines():
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill", "smem")):
+            if "(C7519)" in line:
+                fences += 1
+            elif any(w in line for w in ("entry function", "registers",
+                                         "spill", "smem")):
                 log(f"[ptxas] {name}: {line.strip()}")
+        if fences:
+            log(f"[ptxas] {name}: {fences} wgmma fences added by ptxas "
+                f"(C7519)")
     results = {}
     run_phase("kernels", lambda: phase_kernels(results), failures)
     run_phase("mla kernels", lambda: phase_mla_kernels(results), failures)

@@ -10,10 +10,12 @@ PyTorch wrappers.
   ``dynamo_tpu/ops/pallas/ragged.py``;
 - ``mla_decode.mla_paged_decode_stacked`` (``csrc/mla_decode.cu``,
   split-KV) replaces ``dynamo_tpu/ops/pallas/mla_decode.py``;
-- ``mla_prefill.mla_paged_prefill_stacked`` (``csrc/mla.cu``) replaces
+- ``mla_prefill.mla_paged_prefill_stacked`` (``csrc/mla_prefill.cu``, TMA
+  + wgmma, split-KV decode rows) replaces
   ``dynamo_tpu/ops/pallas/mla_prefill.py``.
 
-That is every Pallas kernel of the reference. Each wrapper keeps the JAX
+That is every Pallas kernel of the reference; the TMA kernels share their
+Hopper helpers through ``csrc/sm90.cuh``. Each wrapper keeps the JAX
 function's signature: ``(q, pages, layer_idx, page_table, positions,
 total_lens, sm_scale, window=None, softcap=None)`` for the three GQA
 kernels of the Llama tree, ``(q_lat, q_pe, pages, layer_idx, page_table,

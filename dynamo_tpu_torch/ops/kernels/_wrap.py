@@ -69,18 +69,42 @@ MLA_HEAD_GROUP = 16
 SMEM_MAX = 232448
 
 
-def mla_smem_bytes(rows: int, dkv: int, dr: int) -> int:
-    """Dynamic shared memory of an MLA prefill block with ``rows`` query
-    rows (``layout().total`` in ``csrc/mla.cu``)."""
-    ld = dkv + dr + 8
-    return (rows * ld * 2 + 64 * ld * 2 + rows * 68 * 4 + rows * 72 * 2
-            + rows * (dkv + 4) * 4 + 3 * rows * 4)
+# the MLA prefill kernel's ring: chunks of 32 kv positions, as many stages
+# as fit beside the query up to 4 (csrc/mla_prefill.cu)
+MLA_PREFILL_CHUNK = 32
+MLA_PREFILL_MAX_STAGES = 4
+
+
+def mla_smem_bytes(dkv: int, dr: int, stages: int) -> int:
+    """Dynamic shared memory of an MLA prefill block (``layout().total`` in
+    ``csrc/mla_prefill.cu``): the swizzled query ``[64, dkv + dr]`` in
+    column blocks of 64 (8 KB each), a ring of ``stages`` chunks of 32
+    positions in ``dkv / 64 + max(1, ceil(dr / 64))`` column blocks (the
+    first k_pe block carries P between the warpgroups), the warpgroups' row
+    maxima and sums, the mbarriers of the ring and of the query's staging,
+    and 1 KB of alignment slack."""
+    rope = -(-dr // 64)
+    qblocks = dkv // 64 + rope
+    cblocks = dkv // 64 + max(1, rope)
+    return (qblocks * 64 * 128 + stages * cblocks * MLA_PREFILL_CHUNK * 128
+            + 2 * 2 * 64 * 4 + stages * 16 + 24 + 1024)
+
+
+def mla_prefill_stages(dkv: int, dr: int) -> int:
+    """The prefill kernel's ring depth: the most stages, up to 4, that fit
+    the shared memory beside the query; 0 when not even 2 fit."""
+    fits = [n for n in range(2, MLA_PREFILL_MAX_STAGES + 1)
+            if mla_smem_bytes(dkv, dr, n) <= SMEM_MAX]
+    return max(fits, default=0)
 
 
 # the MLA decode kernel's output columns per block: 8 warps of at most 10
-# m16n8 tiles of register accumulators (csrc/mla_decode.cu); no wider
-# latent fits the prefill kernel's shared memory either
+# m16n8 tiles of register accumulators (csrc/mla_decode.cu)
 MLA_DECODE_MAX_DKV = 640
+# the prefill kernel's: each of its two consumer warpgroups holds
+# [64, dkv / 2] f32 in registers, 128 a thread at dkv = 512
+# (csrc/mla_prefill.cu); a wider latent would spill
+MLA_PREFILL_MAX_DKV = 512
 
 
 def mla_decode_smem_bytes(dkv: int, dr: int) -> int:
@@ -96,8 +120,9 @@ def mla_decode_smem_bytes(dkv: int, dr: int) -> int:
             + 6 * 8 + 1024)
 
 
-def mla_geometry_error(nh: int, dkv: int, dr: int, ps: int):
-    """Why the MLA kernels do not take this geometry, or None."""
+def mla_geometry_error(nh: int, dkv: int, dr: int, ps: int, kernel=None):
+    """Why the MLA kernels (``kernel`` "decode" or "prefill", or None for
+    both, as the engine runs them) do not take this geometry, or None."""
     if dkv % 128:
         return f"kv_lora_rank={dkv} is not a multiple of 128"
     if ps % 8:
@@ -107,24 +132,35 @@ def mla_geometry_error(nh: int, dkv: int, dr: int, ps: int):
                 f"kv_lora_rank={dkv}")
     if nh % MLA_HEAD_GROUP:
         return f"num_heads={nh} is not a multiple of {MLA_HEAD_GROUP}"
-    if dkv > MLA_DECODE_MAX_DKV:
-        return (f"kv_lora_rank={dkv} exceeds the decode kernel's "
-                f"{MLA_DECODE_MAX_DKV} register-held output columns")
-    if max(mla_smem_bytes(32, dkv, dr),
-           mla_decode_smem_bytes(dkv, dr)) > SMEM_MAX:
-        return (f"dkv={dkv}, dr={dr} tiles exceed the {SMEM_MAX}-byte "
-                "shared-memory budget")
+    if kernel != "prefill":
+        if dkv > MLA_DECODE_MAX_DKV:
+            return (f"kv_lora_rank={dkv} exceeds the decode kernel's "
+                    f"{MLA_DECODE_MAX_DKV} register-held output columns")
+        if mla_decode_smem_bytes(dkv, dr) > SMEM_MAX:
+            return (f"dkv={dkv}, dr={dr} tiles exceed the decode kernel's "
+                    f"{SMEM_MAX}-byte shared-memory budget")
+    if kernel != "decode":
+        if dkv > MLA_PREFILL_MAX_DKV:
+            return (f"kv_lora_rank={dkv} exceeds the prefill kernel's "
+                    f"{MLA_PREFILL_MAX_DKV} register-held output columns "
+                    f"({MLA_PREFILL_MAX_DKV // 2} a consumer warpgroup)")
+        if not mla_prefill_stages(dkv, dr):
+            return (f"dkv={dkv}, dr={dr} tiles exceed the prefill kernel's "
+                    f"{SMEM_MAX}-byte shared-memory budget")
     return None
 
 
 def check_mla_args(name: str, q_lat: torch.Tensor, q_pe: torch.Tensor,
                    pages: torch.Tensor, layer_idx, page_table: torch.Tensor,
                    total_lens: torch.Tensor, positions=None) -> None:
-    """Raise on anything the MLA kernels do not take: bf16 pages
-    ``[L, N, 2, 1, ps, dkv]`` with ``dkv % 128 == 0`` and ``ps % 8 == 0``
-    (the reference's ``supports``, ``mla_decode.py:55``), ``dr <= dkv`` with
-    ``dr % 16 == 0``, heads in groups of 16, the block's tiles within the
-    shared-memory budget, int32 tables, contiguous buffers, one device."""
+    """Raise on anything the MLA kernel ``name`` ("mla_decode" or
+    "mla_prefill") does not take: bf16 pages ``[L, N, 2, 1, ps, dkv]`` with
+    ``dkv % 128 == 0`` and ``ps % 8 == 0`` (the reference's ``supports``,
+    ``mla_decode.py:55``), ``dr <= dkv`` with ``dr % 16 == 0``, heads in
+    groups of 16, the kernel's register and shared-memory budgets, int32
+    tables, contiguous buffers, one device; the prefill kernel also reads
+    f32 or bf16 query rows itself, each row contiguous and 16-byte
+    aligned."""
     if q_lat.dim() != 4 or q_pe.dim() != 4 or pages.dim() != 6:
         raise ValueError(f"{name}: q_lat/q_pe must be [B,S,nh,d] and pages "
                          f"[L,N,2,1,ps,dkv], got {tuple(q_lat.shape)}, "
@@ -137,7 +173,7 @@ def check_mla_args(name: str, q_lat: torch.Tensor, q_pe: torch.Tensor,
         raise ValueError(f"{name}: q_lat {tuple(q_lat.shape)}, q_pe "
                          f"{tuple(q_pe.shape)} and pages "
                          f"{tuple(pages.shape)} do not fit together")
-    bad = mla_geometry_error(nh, dkv, dr, ps)
+    bad = mla_geometry_error(nh, dkv, dr, ps, name.removeprefix("mla_"))
     if bad:
         raise ValueError(f"{name}: {bad}")
     if pages.dtype != torch.bfloat16:
@@ -145,12 +181,23 @@ def check_mla_args(name: str, q_lat: torch.Tensor, q_pe: torch.Tensor,
                         f"{pages.dtype}")
     if not (q_lat.is_floating_point() and q_pe.is_floating_point()):
         raise TypeError(f"{name}: q_lat/q_pe must be floating point")
-    # q_lat/q_pe are stacked into a fresh buffer: only their device counts
+    buffers = [("pages", pages)]
     for what, t in (("q_lat", q_lat), ("q_pe", q_pe)):
         if t.device != pages.device:
             raise ValueError(f"{name}: {what} is on {t.device}, pages on "
                              f"{pages.device}")
-    _check_rest(name, [("pages", pages)], L, layer_idx, page_table,
+        if name == "mla_prefill" and t.shape[-1]:
+            # the prefill kernel copies each (slot, head) row of f32 or bf16
+            # itself (the decode wrapper stacks q into a fresh buffer)
+            if t.dtype not in (torch.float32, torch.bfloat16):
+                raise TypeError(f"{name}: {what} must be float32 or "
+                                f"bfloat16, got {t.dtype}")
+            if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+                    st * t.element_size() % 16 for st in t.stride()[:3]):
+                raise ValueError(f"{name}: {what}'s rows must be contiguous "
+                                 f"and 16-byte aligned, got strides "
+                                 f"{t.stride()}")
+    _check_rest(name, buffers, L, layer_idx, page_table,
                 total_lens, positions, B, S)
 
 

@@ -3,8 +3,9 @@ bound with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own, for ``sm_90a``, into
 ``build/kernels/lib<name>_<hash>.so`` at the repository root, where
-``<hash>`` covers the source and the flags: a changed source rebuilds, an
-unchanged one loads the library already built. All sources compile in
+``<hash>`` covers the source, the headers it includes (``csrc/sm90.cuh``)
+and the flags: a changed source or header rebuilds, an unchanged one loads
+the library already built. All sources compile in
 parallel at the first use of any kernel (one ``nvcc`` process each), so a
 fresh checkout builds everything in the time of its slowest file. Nothing
 includes PyTorch's headers: a file builds in seconds.
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +29,7 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode", "prefill_sm90", "mla", "mla_decode")
+SOURCES = ("decode", "prefill_sm90", "mla_prefill", "mla_decode")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -63,11 +65,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "mla_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _P],
     },
-    "mla": {
-        # q, pages, out, page_table, positions, total_lens, layer, B, S, nh,
-        # dkv, dr, N, ps, P, stream
-        "mla_prefill_launch": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _P],
+    "mla_prefill": {
+        # q_lat, q_pe, pages, out, part_num, part_ml, page_table, positions,
+        # total_lens, layer, B, S, nh, dkv, dr, N, ps, P, sm_scale,
+        # q_lat_f32, q_pe_f32, the (b, s, head) strides of q_lat and q_pe,
+        # stages, split_cap, split_pages, splits, n_work, stream
+        "mla_prefill_launch": [_P] * 9 + [_LL] + [_I] * 8 + [_F] + [_I] * 2
+                              + [_LL] * 6 + [_I] * 5 + [_P],
     },
 }
 
@@ -90,7 +94,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """The library's path: a hash of the source, the local headers it
+    includes (``#include "x.cuh"``) and the flags, so an edited header
+    rebuilds every source that includes it."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src)
+    for header in re.findall(rb'#include "([^"]+)"', src):
+        h.update((CSRC / header.decode()).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

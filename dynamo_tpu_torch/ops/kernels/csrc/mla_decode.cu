@@ -66,10 +66,7 @@
 // loaded, rows past it are zeroed, and every masked score is replaced by a
 // select.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
@@ -115,44 +112,6 @@ __host__ __device__ inline Layout layout(int cblocks) {
   return L;
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
-      : "memory");
-}
-
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(BAR_CONSUMERS), "n"(32 * NWARPS)
                : "memory");
@@ -185,12 +144,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // NT m16n8 output tiles per consumer warp: dkv = 64 * NT
@@ -519,28 +472,6 @@ mla_merge_kernel(const float* __restrict__ part_num,
       make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv);
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
-
 template <int NT>
 int launch(const void* q, const void* pages, void* out, void* part_num,
            void* part_ml, const void* table, const void* lens, long long layer,
@@ -563,20 +494,10 @@ int launch(const void* q, const void* pages, void* out, void* part_num,
   }
   // one layer as a 2-D matrix [N * 2 * ps, dkv]: a page's slot is ps rows
   const long long rows = (long long)N * 2 * ps;
-  EncodeTiled encode = encoder();
-  if (encode == nullptr || rows >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
   const int box_rows = gcd(ps, KB);
   CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)dkv, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)dkv * sizeof(bf16)};
-  const cuuint32_t box[2] = {BOX_COLS, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
   void* layer_base = const_cast<bf16*>(static_cast<const bf16*>(pages) + layer * rows * dkv);
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, layer_base, dims,
-             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (!encode_rows_map(&map, layer_base, rows, dkv, box_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   mla_decode_kernel<NT><<<dim3(B * (nh / HG), splits), THREADS, smem, stream>>>(
       map, static_cast<const bf16*>(q), static_cast<float*>(out),

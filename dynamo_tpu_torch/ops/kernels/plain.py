@@ -2,7 +2,7 @@
 
 ``plain_paged_attention`` computes what ``csrc/decode.cu`` and
 ``csrc/prefill_sm90.cu`` compute, and ``plain_mla_attention`` what
-``csrc/mla_decode.cu`` and ``csrc/mla.cu`` compute, in the same arithmetic
+``csrc/mla_decode.cu`` and ``csrc/mla_prefill.cu`` compute, in the same arithmetic
 order where it matters: q scaled by ``sm_scale`` and rounded to the working
 dtype, scores in float32, softcap before the mask, masked scores replaced (a
 select, never a multiply), probabilities rounded to the cache dtype before
@@ -80,7 +80,7 @@ def plain_mla_attention(q_lat: torch.Tensor, q_pe: torch.Tensor,
                         total_lens: torch.Tensor,
                         sm_scale: float) -> torch.Tensor:
     """The plain version of both MLA kernels (``csrc/mla_decode.cu``,
-    ``csrc/mla.cu``).
+    ``csrc/mla_prefill.cu``).
 
     q_lat [B, S, nh, dkv] and q_pe [B, S, nh, dr] at positions
     ``q_start[b] + s``; pages [L, N, 2, 1, ps, dkv] (slot 0 the latent,

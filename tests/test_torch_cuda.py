@@ -22,7 +22,14 @@ split boundary and fill the table, window + softcap, and rows with q_len
 at the split cap and one past it beside a long chunk. For the split-KV MLA
 decode kernel: B = 1, 8 and 32 at 16 and 32 heads, ctx 1, the split
 boundaries and a full table, page sizes whose TMA boxes are 8, 16 and 32
-rows, and latent widths of 128, 256 and 512.
+rows, and latent widths of 128, 256 and 512. For the MLA prefill kernel
+(4-slot wgmma tiles, TMA ring, split-KV decode rows): 16 and 128 heads at
+S = 131 (a ragged last tile), decode rows whose contexts end on and either
+side of a split boundary in a mixed batch, page sizes 8/24/64, latent and
+rope widths 128/16, 256/128, 384/0 and 512/64, rings of 2, 3 and 4
+stages (the depth a geometry's shared memory allows), bf16 and f32
+queries, and its refusals (a latent wider than its register-held
+output, half-precision or strided queries).
 """
 
 import numpy as np
@@ -37,8 +44,9 @@ from dynamo_tpu_torch.ops.kernels.mla_decode import (mla_decode_plain,
                                                      mla_decode_splits,
                                                      mla_paged_decode_layer,
                                                      mla_paged_decode_stacked)
+from dynamo_tpu_torch.ops.kernels._wrap import mla_prefill_stages
 from dynamo_tpu_torch.ops.kernels.mla_prefill import (
-    mla_paged_prefill_stacked, mla_prefill_plain)
+    mla_paged_prefill_stacked, mla_prefill_plain, mla_prefill_splits)
 from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
 from dynamo_tpu_torch.ops.kernels.prefill import (
     paged_prefill_attention_stacked, paged_prefill_plain)
@@ -314,10 +322,88 @@ def test_mla_decode_page_sizes_and_widths(dev, ps, dkv, dr):
 def test_mla_prefill_odd_chunks_and_a_decode_row(dev, nh):
     """Odd chunk lengths over prefixes, a row of 5, and a decode row
     (q_len 1, its 130 pad slots skipped) in one mixed batch; S = 131 is odd,
-    so the last 2-token query tile is ragged."""
+    so the last 4-slot query tile is ragged (slots 128-130 and one past
+    S)."""
     c = _mla_case(dev, nh, [77, 1, 130, 5], [77, 400, 1000, 5], 131, seed=3)
     _check(mla_paged_prefill_stacked, mla_prefill_plain, _prefill_args(c),
            [77, 1, 130, 5], "mla_prefill")
+
+
+@pytest.mark.parametrize("nh", [16, 128])
+def test_mla_prefill_split_rows(dev, nh):
+    """Decode rows (the split-KV path) whose contexts are 1, end one
+    before, on and one after a split boundary and fill the table, beside
+    chunks of 77 and 130 over prefixes and a row of 5, at S = 131."""
+    P, ps, S = 256, 16, 131
+    q_lens = [77, 1, 130, 5, 1, 1, 1, 1]
+    B = len(q_lens)
+    n_work, splits, per = mla_prefill_splits(B, S, nh, P, ps, _sms(dev))
+    assert splits > 2 and n_work >= splits
+    edge = per * ps
+    ctxs = [77, 1, 1000, 5, edge - 1, edge, edge + 1, P * ps]
+    c = _mla_case(dev, nh, q_lens, ctxs, S, P=P, seed=nh)
+    _check(mla_paged_prefill_stacked, mla_prefill_plain, _prefill_args(c),
+           q_lens, "mla_prefill")
+
+
+@pytest.mark.parametrize("ps,dkv,dr", [(8, 512, 64), (24, 512, 64),
+                                       (64, 512, 64), (16, 128, 16),
+                                       (16, 256, 128), (16, 384, 0)])
+def test_mla_prefill_page_sizes_and_widths(dev, ps, dkv, dr):
+    """TMA boxes of gcd(ps, 32) rows (8, 8, 32, 16), contexts ending inside
+    a page and inside a box, latents of 1 to 4 output tiles a warpgroup and
+    rope widths below, at and above one 64-column box (and none)."""
+    q_lens, ctxs, S = [40, 1, 9, 1], [40, ps - 1, 3 * ps + 5, 1000], 40
+    c = _mla_case(dev, 16, q_lens, ctxs, S, dkv=dkv, dr=dr, ps=ps,
+                  seed=ps + dkv)
+    _check(mla_paged_prefill_stacked, mla_prefill_plain, _prefill_args(c),
+           q_lens, "mla_prefill")
+
+
+@pytest.mark.parametrize("dkv,dr,stages", [(512, 256, 2), (384, 384, 2),
+                                           (512, 128, 3), (512, 64, 4)])
+def test_mla_prefill_rings(dev, dkv, dr, stages):
+    """Every ring depth the kernel may run, each at a geometry whose shared
+    memory allows no deeper ring, over odd chunk counts (the last pair's
+    second warpgroup has no chunk) and a decode row; at 2 and 3 stages
+    the query's rows take more than one staging round."""
+    assert mla_prefill_stages(dkv, dr) == stages
+    q_lens, ctxs = [130, 33, 1, 64], [2000, 33, 700, 100]
+    c = _mla_case(dev, 16, q_lens, ctxs, 130, dkv=dkv, dr=dr,
+                  seed=dkv + dr)
+    _check(mla_paged_prefill_stacked, mla_prefill_plain, _prefill_args(c),
+           q_lens, "mla_prefill")
+
+
+def test_mla_prefill_many_rows(dev):
+    """70 rows of short chunks, prefix hits and decode rows: a grid of 70
+    (row, head group) columns."""
+    rng = np.random.default_rng(70)
+    q_lens = [int(q) for q in rng.integers(1, 9, size=70)]
+    ctxs = [q + int(rng.integers(0, 300)) for q in q_lens]
+    c = _mla_case(dev, 16, q_lens, ctxs, 8, seed=70)
+    _check(mla_paged_prefill_stacked, mla_prefill_plain, _prefill_args(c),
+           q_lens, "mla_prefill")
+
+
+@pytest.mark.parametrize("nh", [16, 32])
+def test_mla_prefill_query_dtypes_and_layouts(dev, nh):
+    """bf16 q_lat and f32 q_pe are read as they come, as f32 q_lat and bf16
+    q_pe are, and so are head-major rows (the model's absorbed q_lat is an
+    einsum's [nh, B, S, dkv] result viewed as [B, S, nh, dkv])."""
+    q_lens, ctxs = [20, 1], [300, 90]
+    c = _mla_case(dev, nh, q_lens, ctxs, 20, seed=5)
+    args = list(_prefill_args(c))
+    args[0] = args[0].to(torch.bfloat16)
+    args[1] = args[1].float()
+    _check(mla_paged_prefill_stacked, mla_prefill_plain, tuple(args), q_lens,
+           "mla_prefill")
+    args = list(_prefill_args(c))
+    args[0] = args[0].permute(2, 0, 1, 3).contiguous().permute(1, 2, 0, 3)
+    args[1] = args[1].permute(2, 0, 1, 3).contiguous().permute(1, 2, 0, 3)
+    assert not args[0].is_contiguous()
+    _check(mla_paged_prefill_stacked, mla_prefill_plain, tuple(args), q_lens,
+           "mla_prefill")
 
 
 def test_mla_wrappers_reject_what_kernels_do_not_take(dev):
@@ -338,4 +424,21 @@ def test_mla_wrappers_reject_what_kernels_do_not_take(dev):
     args = list(_prefill_args(good))
     args[4] = good["table"].long()
     with pytest.raises(TypeError, match="int32"):
+        mla_paged_prefill_stacked(*args)
+    # the prefill kernel holds O in registers: at most 512 latent columns
+    # (the decode kernel takes 640)
+    wide = _mla_case(dev, 16, [1], [40], 1, dkv=640, dr=32)
+    with pytest.raises(ValueError, match="register-held"):
+        mla_paged_prefill_stacked(*_prefill_args(wide))
+    _check(mla_paged_decode_stacked, mla_decode_plain, _decode_args(wide),
+           [1], "mla_decode")
+    # the prefill kernel reads the query rows itself: f32/bf16, each row
+    # contiguous
+    args = list(_prefill_args(good))
+    args[0] = good["q_lat"].half()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mla_paged_prefill_stacked(*args)
+    args = list(_prefill_args(_mla_case(dev, 16, [2], [40], 2)))
+    args[0] = torch.repeat_interleave(args[0], 2, dim=-1)[..., ::2]
+    with pytest.raises(ValueError, match="rows must be contiguous"):
         mla_paged_prefill_stacked(*args)
