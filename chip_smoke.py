@@ -21,6 +21,10 @@ and suppresses the final result line):
    gathered KV, a yardstick the port never calls) and the least time the
    card needs for the same work (bytes at 3.35 TB/s or operations at 989
    TFLOP/s bf16, whichever is larger; counted from this run's inputs);
+   for the prefill kernel's prefix-hit case, the rows past 1 ulp of the
+   plain version, each against ``plain.online_attention_rows``, which
+   rounds as the kernel does (p against the running max of 64-position
+   chunks, where the plain version uses the row's final max);
 3. the full-width Llama-3.2-3B forward (random weights from a seed) on a
    prefill, a mixed and a decode step, once through the kernels and once
    through their plain versions: every layer's attention must agree within
@@ -30,7 +34,19 @@ and suppresses the final result line):
 4. ``TorchEngine`` serving greedy requests at full width: prompts of
    128-1024 seeded token ids, two sharing a prefix, some arriving while
    others decode; every request must finish with its tokens, no NaN, and
-   the decode, prefill and ragged kernels must all have launched.
+   the decode, prefill and ragged kernels must all have launched;
+4c. ``TorchEngine`` serving every sampling option at full width: two
+   seeded requests, two unseeded with top-p, frequency + presence and
+   repetition penalties, a +100 logit bias, a guided JSON schema over a
+   synthetic byte vocabulary. A second serve on a fresh engine must give
+   the same tokens, the biased request only its id, the guided text a
+   document of the schema (or a legal prefix of one), every request
+   finite logprobs, and every kernel of the model must launch; each
+   seeded request is served alone too, and the tokens it changes are
+   reported with the first changed step's margin. On Llama-3.2-3B's vocab
+   the sampler on the card is held against the CPU (threefry words
+   bit-equal, Gumbel noise within 1 ulp, tokens equal) and
+   ``TorchEngine._sample_tail`` is timed alone at B=32.
 
 Then, with the Llama model freed, DeepSeek-V2-Lite (MLA + MoE):
 
@@ -51,15 +67,18 @@ Then, with the Llama model freed, DeepSeek-V2-Lite (MLA + MoE):
     (``_mla_attend`` / ``_mla_attend_blockwise``): every layer within 2
     ulps per row; the logits gate of phase 3 is reported, and decides
     nothing, since random MoE gates can flip a near-tie route between two
-    forwards that differ in rounding;
+    forwards that differ in rounding: it prints, per MoE layer, the
+    tokens whose routes differ between the forwards, and per layer each
+    latent attention's distance to the oracle's on the same inputs;
 4b. ``TorchEngine`` serving DeepSeek-V2-Lite with phase 4's workload: every
     request finishes with 32 finite-logprob tokens and both latent kernels
-    launch.
+    launch; then phase 4c's sampled workload.
 
 It imports nothing of JAX and nothing of the JAX package. Every phase
 prints its seconds. The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels, each with its launches from its own
-model's serve.
+model's greedy serve (``launches``) and sampled serve
+(``launches_sampled``).
 """
 
 from __future__ import annotations
@@ -320,6 +339,38 @@ def check_kernel(name, fn, plain, case, S, decode, results, label):
           L, case["q_lens"], work_of(case, 1 if decode else S), results)
 
 
+def kernel_cases(rng):
+    """Phase 2's cases, made in order from ``rng``: (kernel, label, case, S,
+    decode). A generator, so a test can rebuild one case from the same
+    draws of the same generator."""
+    # B1: decode at B in {1, 8, 32}, ragged contexts up to 4096
+    for B in (1, 8, 32):
+        ctxs = [4096] + list(rng.integers(1, 4097, size=B - 1))
+        if B > 2:
+            ctxs[1] = 1
+        yield ("paged_decode", f"B={B} ctx<={max(ctxs)}",
+               make_case(rng, B, [1] * B, ctxs, 1), 1, True)
+    yield ("paged_decode", "B=8 window=1024 softcap=30",
+           make_case(rng, 8, [1] * 8, list(rng.integers(1500, 4097, 8)), 1,
+                     window=1024, softcap=30.0), 1, True)
+    # B2: S=512 chunks, rows with prefix hits and one partial chunk
+    S = 512
+    yield ("paged_prefill", PREFILL_PREFIX_LABEL,
+           make_case(rng, 4, [512, 512, 512, 300], [512, 1024, 3000, 1836],
+                     S), S, False)
+    yield ("paged_prefill", "B=2 S=512 window=256 softcap=50",
+           make_case(rng, 2, [512, 512], [2048, 512], S, window=256,
+                     softcap=50.0), S, False)
+    # B3: two 512-token chunks (one over a prefix) + six decode rows
+    ctxs = [1024, 512] + list(rng.integers(64, 4097, size=6))
+    yield ("ragged_mixed", "B=8 S=512 2 chunks + 6 decode rows",
+           make_case(rng, 8, [512, 512, 1, 1, 1, 1, 1, 1], ctxs, S), S,
+           False)
+
+
+PREFILL_PREFIX_LABEL = "B=4 S=512 prefix hits"
+
+
 def phase_kernels(results):
     from dynamo_tpu_torch.ops.kernels.decode import (
         paged_decode_attention_stacked, paged_decode_plain)
@@ -327,40 +378,81 @@ def phase_kernels(results):
         paged_prefill_attention_stacked, paged_prefill_plain)
     from dynamo_tpu_torch.ops.kernels.ragged import (
         ragged_mixed_attention_stacked, ragged_mixed_plain)
-    rng = np.random.default_rng(0)
-    # B1: decode at B in {1, 8, 32}, ragged contexts up to 4096
-    for B in (1, 8, 32):
-        ctxs = [4096] + list(rng.integers(1, 4097, size=B - 1))
-        if B > 2:
-            ctxs[1] = 1
-        case = make_case(rng, B, [1] * B, ctxs, 1)
-        check_kernel("paged_decode", paged_decode_attention_stacked,
-                     paged_decode_plain, case, 1, True, results,
-                     f"B={B} ctx<={max(ctxs)}")
-    case = make_case(rng, 8, [1] * 8, list(rng.integers(1500, 4097, 8)), 1,
-                     window=1024, softcap=30.0)
-    check_kernel("paged_decode", paged_decode_attention_stacked,
-                 paged_decode_plain, case, 1, True, results,
-                 "B=8 window=1024 softcap=30")
-    # B2: S=512 chunks, rows with prefix hits and one partial chunk
-    S = 512
-    qls, ctxs = [512, 512, 512, 300], [512, 1024, 3000, 1836]
-    case = make_case(rng, 4, qls, ctxs, S)
-    check_kernel("paged_prefill", paged_prefill_attention_stacked,
-                 paged_prefill_plain, case, S, False, results,
-                 "B=4 S=512 prefix hits")
-    case = make_case(rng, 2, [512, 512], [2048, 512], S, window=256,
-                     softcap=50.0)
-    check_kernel("paged_prefill", paged_prefill_attention_stacked,
-                 paged_prefill_plain, case, S, False, results,
-                 "B=2 S=512 window=256 softcap=50")
-    # B3: two 512-token chunks (one over a prefix) + six decode rows
-    qls = [512, 512, 1, 1, 1, 1, 1, 1]
-    ctxs = [1024, 512] + list(rng.integers(64, 4097, size=6))
-    case = make_case(rng, 8, qls, ctxs, S)
-    check_kernel("ragged_mixed", ragged_mixed_attention_stacked,
-                 ragged_mixed_plain, case, S, False, results,
-                 "B=8 S=512 2 chunks + 6 decode rows")
+    impls = {"paged_decode": (paged_decode_attention_stacked,
+                              paged_decode_plain),
+             "paged_prefill": (paged_prefill_attention_stacked,
+                               paged_prefill_plain),
+             "ragged_mixed": (ragged_mixed_attention_stacked,
+                              ragged_mixed_plain)}
+    for name, label, case, S, decode in kernel_cases(
+            np.random.default_rng(0)):
+        check_kernel(name, *impls[name], case, S, decode, results, label)
+        if label == PREFILL_PREFIX_LABEL:
+            prefill_rows_report(case, S)
+        del case
+
+
+def chunked_rows(case, S, layer, b, h):
+    """``online_attention_rows`` (the prefill kernel's own chunked
+    rounding) for every real (query slot, head) row of sequence ``b`` and
+    kv head ``h``: bf16 [q_len, G, Dh]."""
+    from dynamo_tpu_torch.ops.kernels.plain import online_attention_rows
+    G = HQ // HKV
+    ctx, ql = case["ctxs"][b], case["q_lens"][b]
+    n = -(-ctx // PS)
+    kv = case["pages"][layer][case["table"][b, :n].long()]  # [n,2,Hkv,ps,Dh]
+    k = kv[:, 0, h].reshape(n * PS, DH)
+    v = kv[:, 1, h].reshape(n * PS, DH)
+    qs = (case["q"][b, :ql, h * G:(h + 1) * G] * case["sm_scale"]).to(
+        torch.bfloat16).reshape(ql * G, DH)
+    qpos = (ctx - ql + torch.arange(ql, device="cuda")).repeat_interleave(G)
+    return online_attention_rows(qs, k, v, qpos, ctx).reshape(ql, G, DH)
+
+
+def prefill_rows_report(case, S, layer=1):
+    """Phase 2's B=4 S=512 prefix-hit case, row by row: the (query slot,
+    head) rows where the prefill kernel is more than 1 ulp from its plain
+    version, and the kernel and the plain version each against
+    ``online_attention_rows``, which rounds p against the running max of
+    64-position chunks as the kernel (and the TPU kernel, per its own
+    chunk) does, where the plain version rounds against the row's final
+    max. Reports; the kernel check above decides."""
+    from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
+    from dynamo_tpu_torch.ops.kernels.prefill import (
+        paged_prefill_attention_stacked, paged_prefill_plain)
+    args = (case["q"], case["pages"], layer, case["table"],
+            case["positions"], case["total"], case["sm_scale"])
+    out = paged_prefill_attention_stacked(*args)
+    ref = paged_prefill_plain(*args)
+    G = HQ // HKV
+    worst = {"kernel_vs_plain": 0.0, "kernel_vs_chunked": 0.0,
+             "plain_vs_chunked": 0.0}
+    flagged = []
+    for b, ql in enumerate(case["q_lens"]):
+        for h in range(HKV):
+            cols = slice(h * G, (h + 1) * G)
+            mir = chunked_rows(case, S, layer, b, h)
+            kp = row_ulp_error(out[b, :ql, cols], ref[b, :ql, cols])
+            km = row_ulp_error(out[b, :ql, cols], mir)
+            pm = row_ulp_error(ref[b, :ql, cols], mir)
+            for key, e in (("kernel_vs_plain", kp), ("kernel_vs_chunked", km),
+                           ("plain_vs_chunked", pm)):
+                worst[key] = max(worst[key], float(e.max()))
+            for slot, g in (kp > 1.0).nonzero().tolist():
+                flagged.append((b, slot, h * G + g,
+                                case["ctxs"][b] - ql + slot,
+                                float(kp[slot, g]), float(km[slot, g]),
+                                float(pm[slot, g])))
+    log(f"[kernel] paged_prefill B=4 S=512 rows: {len(flagged)} of "
+        f"{sum(case['q_lens']) * HQ} past 1 ulp from the plain version; "
+        f"max ulps kernel vs plain {worst['kernel_vs_plain']:.3f}, kernel "
+        f"vs chunked rounding {worst['kernel_vs_chunked']:.3f}, plain vs "
+        f"chunked rounding {worst['plain_vs_chunked']:.3f}")
+    for b, slot, head, pos, kp, km, pm in flagged[:16]:
+        log(f"[kernel] paged_prefill row b={b} slot={slot} head={head} "
+            f"pos={pos} ctx={case['ctxs'][b]}: kernel vs plain {kp:.3f}, "
+            f"kernel vs chunked {km:.3f}, plain vs chunked {pm:.3f} ulps")
+    return worst, flagged
 
 
 # -- phase 2b: the latent (MLA) kernels against their plain versions -------
@@ -593,22 +685,40 @@ def phase_forward(params, cfg, impls, strict_logits=True):
     per-layer check alone decides: random MoE gates can flip a near-tie
     route between two forwards that differ in rounding, and one flipped
     route moves the logits by far more than rounding."""
-    from dynamo_tpu_torch.models import get_family
+    from dynamo_tpu_torch.models import deepseek, get_family
     from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
     family = get_family(cfg)
     kernel, plain, oracle = impls
+    mla = oracle is None
     rng = np.random.default_rng(1)
     dev = "cuda"
     P = 4096 // PS
     layer_errs = []
+    vs_oracle = []          # MLA: per layer, (kernel, plain) vs the oracle
+    real_slots = None       # [B, S] bool of the step being run
 
     def checked(name):
         def attn(*args):
             out = kernel[name](*args)
             ref = plain[name](*args)
             layer_errs.append(float(row_ulp_error(out, ref).max()))
+            if mla:
+                orc = mla_oracle_latent(cfg, *args)
+                vs_oracle.append(
+                    (float(row_ulp_error(out, orc)[real_slots].max()),
+                     float(row_ulp_error(ref, orc)[real_slots].max())))
             return out
         return attn
+
+    # MLA + MoE: record each MoE layer's routed experts per forward
+    routes = {"on": None}
+    gate = deepseek._gate
+
+    def recording_gate(cfg_, lp, x):
+        w, idx = gate(cfg_, lp, x)
+        if routes["on"] is not None:
+            routes[routes["on"]].append(idx.sort(dim=-1).values)
+        return w, idx
 
     impls = {"kernel": checked, "plain": lambda n: plain[n],
              "oracle": lambda n: oracle}
@@ -636,12 +746,23 @@ def phase_forward(params, cfg, impls, strict_logits=True):
     for name, toks, pos, total, new in steps:
         a = [torch.from_numpy(np.asarray(x, np.int32)).to(dev)
              for x in (toks, pos, table, total, new)]
+        S_step = a[0].shape[1]
+        real_slots = (torch.arange(S_step, device=dev)[None, :]
+                      < a[4][:, None])
         logits = {}
         layer_errs.clear()
-        for k, impl in impls.items():
-            logits[k], _ = family.forward(params, cfg, a[0], a[1],
-                                          caches[k], a[2], a[3], a[4],
-                                          attn_impl=impl(name))
+        vs_oracle.clear()
+        deepseek._gate = recording_gate
+        try:
+            for k, impl in impls.items():
+                routes["on"] = k
+                routes[k] = []
+                logits[k], _ = family.forward(params, cfg, a[0], a[1],
+                                              caches[k], a[2], a[3], a[4],
+                                              attn_impl=impl(name))
+        finally:
+            deepseek._gate = gate
+            routes["on"] = None
         torch.cuda.synchronize()
         lk, lp, lo = logits["kernel"], logits["plain"], logits["oracle"]
         finite = bool(torch.isfinite(lk).all())
@@ -659,10 +780,55 @@ def phase_forward(params, cfg, impls, strict_logits=True):
                 or (strict_logits and diff > tol):
             raise AssertionError(f"forward {name}: kernels vs plain "
                                  f"attention disagree")
+        log(f"[forward] {name}: logits ratio kernels-vs-plain / "
+            f"plain-vs-oracle = {diff / max(odiff, 1e-30):.3f}")
+        if routes["kernel"]:
+            flips = route_flips(routes, real_slots)
+            log(f"[forward] {name}: MoE routes differing per layer over "
+                f"{int(real_slots.sum())} tokens, kernels vs plain "
+                f"{flips['kernel']} (total {sum(flips['kernel'])}), plain "
+                f"vs oracle {flips['oracle']} (total "
+                f"{sum(flips['oracle'])})")
+        if vs_oracle:
+            kv = [round(x[0], 3) for x in vs_oracle]
+            pv = [round(x[1], 3) for x in vs_oracle]
+            log(f"[forward] {name}: per layer, latent attention vs the "
+                f"oracle (f32 scores from the unrounded query, f32 "
+                f"weights) in ulps: kernel {kv}; plain {pv}; kernel/plain "
+                f"max {max(kv) / max(max(pv), 1e-30):.3f}")
         if diff > tol:
             log(f"[forward] {name}: logits gate exceeded ({diff:.4e} > "
                 f"{tol:.4e}); reported only: the per-layer check decides "
                 f"(random MoE gates can flip a near-tie route)")
+
+
+def route_flips(routes, real_slots):
+    """Per MoE layer, the real tokens whose routed expert set differs:
+    kernels vs plain and plain vs oracle."""
+    out = {}
+    for k, other in (("kernel", "plain"), ("oracle", "plain")):
+        out[k] = [int(((a != b).any(dim=-1) & real_slots).sum())
+                  for a, b in zip(routes[k], routes[other])]
+    return out
+
+
+def mla_oracle_latent(cfg, q_lat, q_pe, pages, layer, table, positions,
+                      total, sm_scale):
+    """The DeepSeek oracle's latent attention (``deepseek._mla_attend``
+    before its output projection) on the attention call's own inputs:
+    float32 scores from the unrounded query, float32 softmax weights."""
+    from dynamo_tpu_torch.models.deepseek import _gather_ctx
+    from dynamo_tpu_torch.ops.kernels.plain import NEG_INF
+    ckv, kpe = _gather_ctx(cfg, pages[layer][table.long()])
+    ckv32 = ckv.float()
+    s = (torch.einsum("bsnk,btk->bnst", q_lat.float(), ckv32)
+         + torch.einsum("bsnd,btd->bnst", q_pe.float(), kpe.float())
+         ) * sm_scale
+    t = torch.arange(ckv.shape[1], device=ckv.device)[None, None, None, :]
+    mask = ((t <= positions.long()[:, None, :, None])
+            & (t < total.long()[:, None, None, None]))
+    probs = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    return torch.einsum("bnst,btk->bsnk", probs, ckv32)
 
 
 # -- phase 4: the engine serving requests ----------------------------------
@@ -755,6 +921,326 @@ def phase_engine(params, cfg):
     for k, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} never launched while serving")
+    return counts
+
+
+# -- phase 4c: every sampling option, served --------------------------------
+
+GUIDED_SPEC = {"mode": "json_schema", "schema": {
+    "type": "object",
+    "properties": {"ok": {"type": "boolean"}, "n": {"type": "integer"}},
+    "required": ["ok", "n"]}}
+BIAS_ID = 4242
+# (request id, sampling options): the workload of phase 4c
+SAMPLED = [
+    ("seed-a", dict(temperature=0.8, seed=11)),
+    ("seed-b", dict(temperature=0.8, seed=12)),
+    ("free-a", dict(temperature=1.0, top_p=0.9)),
+    ("free-b", dict(temperature=1.0, top_p=0.9)),
+    ("freq", dict(temperature=0.8, frequency_penalty=0.7,
+                  presence_penalty=0.5)),
+    ("rep", dict(temperature=0.8, repetition_penalty=1.3)),
+    ("bias", dict(temperature=1.0, logit_bias={BIAS_ID: 100.0})),
+    ("guided", dict(temperature=0.7, guided=GUIDED_SPEC)),
+]
+SAMPLED_PROMPTS = [96, 160, 64, 224, 128, 192, 80, 48]
+SAMPLED_MAX = 32
+GUIDED_MAX = 48
+SAMPLER_B = 32
+SAMPLER_V = 128256
+
+
+def synthetic_vocab(V, seed=0):
+    """Token bytes of a synthetic byte vocabulary of ``V`` ids, made from
+    ``seed``: ids 0-255 are the single bytes, the rest random 2-4-byte
+    strings over a JSON-ish alphabet or, one in ten, None (special); the
+    last id is the EOS. Returns (token_bytes, eos)."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b'{}[]":, \n0123456789.-+eEtruefalsnbcdxyz_',
+                             np.uint8)
+    n = V - 256
+    lens = rng.integers(2, 5, size=n)
+    special = rng.random(n) < 0.1
+    chars = rng.choice(alphabet, size=(n, 4))
+    toks = [bytes([b]) for b in range(256)]
+    toks += [None if special[i] else chars[i, :lens[i]].tobytes()
+             for i in range(n)]
+    toks[V - 1] = None
+    return toks, V - 1
+
+
+async def serve_sampled(engine, names, eos):
+    """Serve phase 4c's requests named in ``names``, all submitted at once;
+    returns {name: dict(tokens, logprobs, finish)}."""
+    from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
+                                                   SamplingOptions,
+                                                   StopConditions)
+    rng = np.random.default_rng(4)
+    V = engine.model_cfg.vocab_size
+    prompts = {rid: list(map(int, rng.integers(0, V, size=n)))
+               for (rid, _o), n in zip(SAMPLED, SAMPLED_PROMPTS)}
+    opts = dict(SAMPLED)
+    out = {}
+
+    async def one(rid):
+        guided = rid == "guided"
+        req = PreprocessedRequest(
+            token_ids=prompts[rid], request_id=rid,
+            stop_conditions=StopConditions(
+                max_tokens=GUIDED_MAX if guided else SAMPLED_MAX),
+            sampling_options=SamplingOptions(**opts[rid]),
+            eos_token_ids=[eos] if guided else [])
+        toks, lps, fin = [], [], None
+        async for frame in engine.generate(req):
+            toks += frame.token_ids
+            lps += list(frame.log_probs or [])
+            fin = frame.finish_reason
+        out[rid] = dict(tokens=toks, logprobs=lps, finish=fin)
+
+    await asyncio.gather(*(one(rid) for rid in names))
+    await engine.stop()
+    return out, prompts
+
+
+def check_guided(tokens, finish, vocab, eos):
+    """(c): the grammar accepts every emitted token; the text parses as a
+    conforming document when the request stopped on EOS, and is a legal
+    prefix when it hit max_tokens. Returns the text."""
+    from dynamo_tpu_torch.engine.guided import (compile_guided,
+                                                initial_state, step)
+    g = compile_guided(GUIDED_SPEC)
+    st = initial_state(g)
+    text = b""
+    for t in tokens:
+        if t == eos:
+            continue
+        bs = vocab[t]
+        if bs is None:
+            raise AssertionError(f"guided: special token {t} emitted")
+        for b in bs:
+            st = step(g, st, b)
+            if st is None:
+                raise AssertionError(f"guided: {text + bs!r} leaves the "
+                                     "grammar")
+        text += bs
+    if finish == "eos":
+        doc = json.loads(text)
+        if not (isinstance(doc.get("ok"), bool)
+                and isinstance(doc.get("n"), int)):
+            raise AssertionError(f"guided: {doc!r} does not conform")
+    elif finish != "length":
+        raise AssertionError(f"guided: finish {finish}")
+    return text.decode("utf-8", "replace")
+
+
+def first_step_margin(engine, prompt, tokens, k, so):
+    """The seeded request's draw at generated step ``k`` (the first where a
+    lone serve and the batched serve differ), recomputed from a forward of
+    its prompt and first ``k`` tokens alone: the gap between the best and
+    second best Gumbel-perturbed score (logit / T + noise) among the top
+    candidates."""
+    from dynamo_tpu_torch.ops import prng
+    from dynamo_tpu_torch.ops.sampling import (TOPK_MAX, _masked_candidates,
+                                               sampling_noise)
+    cfg = engine.model_cfg
+    ids = prompt + tokens[:k]
+    n = len(ids)
+    pages = engine.family.make_pages(cfg, -(-n // PS) + 2, PS,
+                                     device="cuda")
+    table = torch.zeros((1, 4096 // PS), dtype=torch.int32, device="cuda")
+    table[0, :-(-n // PS)] = torch.arange(1, -(-n // PS) + 1)
+    t = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")
+    kernel = "mla_prefill" if engine.mla else "paged_prefill"
+    logits, _ = engine.family.forward(
+        engine.params, cfg, t([ids]), t([list(range(n))]), pages, table,
+        t([n]), t([n]), attn_impl=engine.attention[kernel])
+    temp = torch.tensor([so["temperature"]], device="cuda")
+    scaled, _idx = _masked_candidates(logits.float(), temp,
+                                      t([0]), torch.ones(1, device="cuda"))
+    base = prng.PRNGKey(engine.cfg.seed, device="cuda")
+    noise = sampling_noise(base, 1, min(TOPK_MAX, cfg.vocab_size),
+                           seeds=t([(so["seed"] % 0x7FFFFFFF) + 1]),
+                           seed_rng=base, seed_pos=t([n]))
+    top2 = torch.topk((scaled + noise)[0], 2).values
+    return float(top2[0] - top2[1])
+
+
+def sampler_parity():
+    """(f), gated: the sampler on the card against the same sampler on the
+    CPU, on identical logits at B=32, V=128256 with seeded and unseeded
+    rows, top-k, top-p and min-p: the threefry words bit-equal, the Gumbel
+    noise within 1 ulp, the tokens equal."""
+    from dynamo_tpu_torch.ops import prng
+    from dynamo_tpu_torch.ops.sampling import sample_tokens, sampling_noise
+    rng = np.random.default_rng(5)
+    B, V = SAMPLER_B, SAMPLER_V
+    logits = (rng.normal(size=(B, V)) * 3).astype(np.float32)
+    host = dict(temp=rng.uniform(0.5, 1.3, B).astype(np.float32),
+                top_k=rng.choice([0, 0, 20, 50], B).astype(np.int32),
+                top_p=rng.choice([1.0, 0.9, 0.7], B).astype(np.float32),
+                min_p=rng.choice([0.0, 0.05], B).astype(np.float32),
+                seeds=np.where(rng.random(B) < 0.5,
+                               rng.integers(1, 2 ** 31 - 1, B), 0
+                               ).astype(np.int32),
+                pos=rng.integers(1, 4096, B).astype(np.int32))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        a = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        base = prng.PRNGKey(0, device=dev)
+        key = prng.fold_in(base, 123)
+        words = prng.random_bits(key, (B, 64))
+        noise = sampling_noise(key, B, 64, seeds=a["seeds"], seed_rng=base,
+                               seed_pos=a["pos"])
+        toks, lps = sample_tokens(torch.from_numpy(logits).to(dev), noise,
+                                  a["temp"], a["top_k"], a["top_p"],
+                                  min_p=a["min_p"])
+        got[dev] = [x.cpu() for x in (words, noise, toks, lps)]
+    (wc, nc, tc, lc), (wg, ng, tg, lg) = got["cpu"], got["cuda"]
+    ulps = (nc.view(torch.int32).long() - ng.view(torch.int32).long()).abs()
+    rel = float(((lg - lc).abs() / lc.abs().clamp_min(1e-30)).max())
+    ok = torch.equal(wc, wg) and int(ulps.max()) <= 1 and torch.equal(tc, tg)
+    log(f"[sampling] card vs CPU at B={B} V={V}: threefry words equal "
+        f"{torch.equal(wc, wg)}, Gumbel noise max {int(ulps.max())} ulps, "
+        f"tokens equal {torch.equal(tc, tg)}, logprobs max rel diff "
+        f"{rel:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sampler on the card disagrees with the CPU")
+
+
+def sampling_time(engine):
+    """``TorchEngine._sample_tail`` alone at B=32, V=128256: no extras
+    (the batch-wide draw), seeds + penalties over a window of 32, and
+    seeds + penalties + guided masks; each case's time per call and the
+    Gumbel draw's (``sampling_noise`` alone, same case), by
+    ``time_ms_per_call``: CUDA events around each call, so for these runs
+    of small launches the host's issue time as much as the device's."""
+    from dynamo_tpu_torch.ops.sampling import TOPK_MAX, sampling_noise
+    B, V, W = SAMPLER_B, SAMPLER_V, engine.cfg.penalty_window
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(3)
+    logits = torch.randn((B, V), generator=g, device=dev) * 3
+    base = dict(step=torch.tensor(9, device=dev),
+                temp=torch.full((B,), 0.8, device=dev),
+                top_k=torch.zeros(B, dtype=torch.int32, device=dev),
+                top_p=torch.full((B,), 0.9, device=dev),
+                total=torch.randint(1, 4096, (B,), generator=g, device=dev,
+                                    dtype=torch.int32))
+    pen = dict(base,
+               seeds=torch.where(torch.arange(B, device=dev) % 2 == 0,
+                                 torch.arange(B, device=dev) + 1, 0
+                                 ).to(torch.int32),
+               pen_ids=torch.randint(0, V, (B, W), generator=g, device=dev,
+                                     dtype=torch.int32),
+               pen_cnt=torch.randint(0, 3, (B, W), generator=g,
+                                     device=dev).float(),
+               pen_ctx=torch.ones((B, W), device=dev),
+               pen_bias=torch.zeros((B, W), device=dev),
+               pen_fp=torch.full((B,), 0.5, device=dev),
+               pen_pp=torch.full((B,), 0.3, device=dev),
+               pen_rp=torch.full((B,), 1.2, device=dev),
+               pen_min_p=torch.zeros(B, device=dev))
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, -(-V // 32)),
+                          generator=g, device=dev, dtype=torch.int32)
+    words[1::2] = -1                          # unconstrained rows
+    guided = dict(pen, mask_words=words)
+    k = min(TOPK_MAX, V)
+    rows = []
+    for name, t in (("no extras", base), ("seeds+penalties W=32", pen),
+                    ("seeds+penalties+guided", guided)):
+        seeds = t.get("seeds")
+        ms = time_ms_per_call(lambda _l: engine._sample_tail(logits, t))
+        draw = time_ms_per_call(lambda _l: sampling_noise(
+            engine._rng, B, k, seeds=seeds, seed_rng=engine._rng,
+            seed_pos=t["total"]))
+        rows.append((name, ms, draw))
+        log(f"[sampling] _sample_tail B={B} V={V} {name}: {ms:.4f} ms per "
+            f"call, the Gumbel draw {draw:.4f} ms ({100 * draw / ms:.1f}%)")
+    return rows
+
+
+def phase_sampled(params, cfg, time_sampler):
+    """Phase 4c: ``TorchEngine`` serving phase 4c's eight requests (two
+    seeded, two unseeded top-p, frequency + presence penalties, a
+    repetition penalty, a +100 logit bias, a guided JSON schema over a
+    synthetic byte vocabulary) at full width on the loaded weights.
+    Checks (a) a second serve on a fresh engine streams the same tokens,
+    (b) the biased request emits only its biased id, (c) the guided text
+    stays in its grammar, (d) every request finishes with finite
+    logprobs, (e) each of the family's kernels launched during the serve;
+    reports how many tokens each seeded request changes served alone, with
+    the first changed step's margin. With ``time_sampler``: (f)'s gated
+    card-vs-CPU sampler check and the sampling time. Returns the kernels'
+    launches over the first serve."""
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    vocab, eos = synthetic_vocab(cfg.vocab_size)
+    names = [rid for rid, _o in SAMPLED]
+
+    def fresh():
+        eng = TorchEngine(cfg, params, TorchEngineConfig(
+            num_pages=2048, page_size=PS, max_num_seqs=32,
+            max_prefill_chunk=512, max_context=4096), device="cuda")
+        eng.enable_guided(vocab, [eos])
+        return eng
+
+    def run(eng, which):
+        return asyncio.run(asyncio.wait_for(serve_sampled(eng, which, eos),
+                                            SERVE_TIMEOUT_S))
+
+    engine = fresh()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    first, prompts = run(engine, names)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: LAUNCHES[k] for k in engine.kernel_launches}
+    second, _ = run(fresh(), names)
+    n_tok = sum(len(r["tokens"]) for r in first.values())
+    log(f"[sampled] {len(first)} requests, {n_tok} tokens in {wall:.3f} s; "
+        f"launches={counts}")
+    for rid in names:
+        r = first[rid]
+        fin = r["finish"].value if r["finish"] is not None else None
+        log(f"[sampled] {rid}: {len(r['tokens'])} tokens, finish {fin}, "
+            f"first {r['tokens'][:8]}")
+        want = GUIDED_MAX if rid == "guided" else SAMPLED_MAX
+        if fin not in ("length", "eos") or not r["tokens"] \
+                or (fin == "length" and len(r["tokens"]) != want):
+            raise AssertionError(f"(d) {rid}: {len(r['tokens'])} tokens, "
+                                 f"finish {fin}")
+        if not all(math.isfinite(x) for x in r["logprobs"]):
+            raise AssertionError(f"(d) {rid}: non-finite logprobs")
+        if second[rid]["tokens"] != r["tokens"]:
+            raise AssertionError(f"(a) {rid}: a fresh engine with the same "
+                                 "seed streamed other tokens")
+    log("[sampled] (a) a fresh engine streamed the same tokens for all "
+        f"{len(names)} requests")
+    if set(first["bias"]["tokens"]) != {BIAS_ID}:
+        raise AssertionError(f"(b) the +100 bias on {BIAS_ID} did not "
+                             f"force it: {first['bias']['tokens']}")
+    text = check_guided(first["guided"]["tokens"],
+                        first["guided"]["finish"].value, vocab, eos)
+    log(f"[sampled] (b) bias: all {len(first['bias']['tokens'])} tokens are "
+        f"{BIAS_ID}; (c) guided ({first['guided']['finish'].value}): "
+        f"{text!r}")
+    for k, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"(e) kernel {k} never launched in 4c")
+    for rid in ("seed-a", "seed-b"):
+        alone, _ = run(fresh(), [rid])
+        a, b = alone[rid]["tokens"], first[rid]["tokens"]
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        msg = f"{len(diff)} of {len(b)} tokens differ"
+        if diff:
+            m = first_step_margin(engine, prompts[rid], a, diff[0],
+                                  dict(SAMPLED)[rid])
+            msg += (f"; first at step {diff[0]}, margin there {m:.4e} "
+                    "(one forward of the prefix alone)")
+        log(f"[sampled] {rid} served alone vs batched: {msg}")
+    if time_sampler:
+        sampler_parity()
+        sampling_time(engine)
     return counts
 
 
@@ -953,13 +1439,17 @@ def model_phases(name, cfg, impls, strict_logits, failures, profile):
                   failures)
         counts = run_phase(f"engine {name}",
                            lambda: phase_engine(params, cfg), failures)
+        sampled = run_phase(
+            f"sampled {name}",
+            lambda: phase_sampled(params, cfg, cfg.vocab_size == SAMPLER_V),
+            failures)
         if profile:
             run_phase(f"profile {name}", lambda: phase_profile(params, cfg),
                       failures)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return counts or {}
+    return counts or {}, sampled or {}
 
 
 def main() -> int:
@@ -1009,14 +1499,17 @@ def main() -> int:
         log(f"[quick] kernel checks {'failed' if failures else 'passed'}")
         return 1 if failures else 0
     counts = {k: 0 for k in SOURCES}
+    sampled = {k: 0 for k in SOURCES}
     profile = "--profile" in args
     if not failures:
         # one model on the card at a time: each is freed before the next
-        counts.update(model_phases("llama32_3b", llama_cfg(), llama_impls(),
-                                   True, failures, profile))
-        counts.update(model_phases(
-            "deepseek_v2_lite", ModelConfig.deepseek_v2_lite(), mla_impls(),
-            False, failures, profile))
+        for name, cfg, impls, strict in (
+                ("llama32_3b", llama_cfg(), llama_impls(), True),
+                ("deepseek_v2_lite", ModelConfig.deepseek_v2_lite(),
+                 mla_impls(), False)):
+            c, sc = model_phases(name, cfg, impls, strict, failures, profile)
+            counts.update(c)
+            sampled.update(sc)
     if failures:
         log(f"[fail] phases failed: {failures}")
         return 1
@@ -1026,6 +1519,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
+            "launches_sampled": sampled[name],
             "max_abs_err": row["max_abs_err"],
             "max_err_ulps": row["max_err_ulps"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "ms_per_call": row["ms_per_call"],

@@ -20,30 +20,40 @@ kernel, every S > 1 step (prefill and mixed alike) the latent prefill
 kernel, which skips a decode row's pad query tiles itself. On the GPU a
 geometry the latent kernels do not take is refused at construction.
 
-Each step then samples on the device and packs everything the host needs
-into one ``[B, 2 + 2K]`` int32 buffer (token, logprob bits, K alternative
-ids, K alternative logprob bits): one device-to-host copy per step.
+Each step then samples on the device with every option the reference
+serves: penalties and logit bias over a per-row window, the guided-decoding
+allow-mask (``engine/guided.py``), per-request seeds, and the reference's
+key schedule through ``ops/prng.py`` (JAX's threefry, bit for bit), so
+sampled streams match ``JaxEngine``'s token for token. It packs everything
+the host needs into one ``[B, 2 + 2K]`` int32 buffer (token, logprob bits,
+K alternative ids, K alternative logprob bits): one device-to-host copy
+per step.
 
 Not on this slice, and refused rather than approximated: pipelined decode
 and the fused multi-step block (ROADMAP A5), speculative decoding (A8),
-per-request seeds, penalties, logit bias and guided decoding (A4/A8),
 sequence-parallel ring prefill (A13).
 """
 
 from __future__ import annotations
 
+import json
+import threading
+from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.engine.guided import (GuidedRequest, GuidedVocab,
+                                            compile_guided)
 from dynamo_tpu_torch.engine.loop import ScheduledEngineBase
 from dynamo_tpu_torch.engine.scheduler import (DecodeBatch, MixedStepBatch,
                                                PrefillBatch, PrefillChunk,
                                                StepPlan)
 from dynamo_tpu_torch.models import get_family
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops import prng
 from dynamo_tpu_torch.ops.kernels._wrap import mla_geometry_error
 from dynamo_tpu_torch.ops.kernels.decode import paged_decode_attention_stacked
 from dynamo_tpu_torch.ops.kernels.mla_decode import mla_paged_decode_stacked
@@ -51,8 +61,9 @@ from dynamo_tpu_torch.ops.kernels.mla_prefill import mla_paged_prefill_stacked
 from dynamo_tpu_torch.ops.kernels.prefill import (
     paged_prefill_attention_stacked)
 from dynamo_tpu_torch.ops.kernels.ragged import ragged_mixed_attention_stacked
-from dynamo_tpu_torch.ops.sampling import (TOPK_MAX, gumbel_noise,
-                                           log_softmax_at, sample_tokens,
+from dynamo_tpu_torch.ops.sampling import (TOPK_MAX, apply_penalties,
+                                           apply_vocab_mask, log_softmax_at,
+                                           sample_tokens, sampling_noise,
                                            top_k_stable)
 from dynamo_tpu_torch.utils.device import resolve_device
 
@@ -94,6 +105,9 @@ class TorchEngineConfig:
     # alternatives returned per sampled token (OpenAI top_logprobs)
     num_top_logprobs: int = 8
     seed: int = 0
+    # penalty/bias window slots per row (frequency/presence/repetition
+    # penalties and logit_bias ride a sparse window of this many ids)
+    penalty_window: int = 32
     # mixed prefill+decode dispatch (decode rows ride prefill steps as
     # length-1 ragged chunks); False restores the strict alternation
     mixed_batch: bool = True
@@ -145,9 +159,10 @@ class TorchEngine(ScheduledEngineBase):
         self.pages = self.family.make_pages(model_cfg, self.cfg.num_pages,
                                             self.cfg.page_size,
                                             device=self.device)
+        self.scheduler.cfg.penalty_window = self.cfg.penalty_window
         self.table_width = self.cfg.max_context // self.cfg.page_size
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(self.cfg.seed)
+        # JAX's PRNGKey(seed): step keys are fold_in(_rng, step)
+        self._rng = prng.PRNGKey(self.cfg.seed, device=self.device)
         self._step_counter = 0
         self.decode_dispatches = 0
         self.mixed_steps = 0
@@ -155,22 +170,220 @@ class TorchEngine(ScheduledEngineBase):
         # layer, both devices)
         self.kernel_launches: Dict[str, int] = {k: 0
                                                 for k in self.attention}
+        # guided decoding (engine/guided.py): set by enable_guided once the
+        # worker knows the tokenizer's byte vocabulary
+        self._guided_vocab = None
+        self._guided_bytes = None
+        self._guided_reqs: dict = {}     # step thread's automata
+        self._grammar_cache: dict = {}
+        self._grammar_lock = threading.Lock()
+        # finished/cancelled request ids, recorded on the event-loop thread
+        # and dropped from _guided_reqs by the step thread
+        self._released: set = set()
+        self._released_lock = threading.Lock()
 
-    # -- admission ---------------------------------------------------------
+    # -- guided decoding ---------------------------------------------------
+
+    def enable_guided(self, token_bytes, eos_ids) -> None:
+        """Arm response_format support: ``token_bytes[id]`` is the byte
+        string token id appends to the output (None for special tokens),
+        ``eos_ids`` the ids allowed once the document completes."""
+        self._guided_bytes = list(token_bytes)
+        if len(self._guided_bytes) < self.model_cfg.vocab_size:
+            # a padded model vocab: the mask must cover every logit column
+            self._guided_bytes += [None] * (
+                self.model_cfg.vocab_size - len(self._guided_bytes))
+        for e in eos_ids:
+            # an EOS that is a regular vocab entry ENDS the document; it is
+            # never walked as literal text
+            if 0 <= e < len(self._guided_bytes):
+                self._guided_bytes[e] = None
+        self._guided_vocab = GuidedVocab(self._guided_bytes, list(eos_ids))
 
     def validate_request(self, request) -> Optional[str]:
-        so = request.sampling_options
-        missing = [name for name, on in (
-            ("seed", so.seed is not None),
-            ("frequency_penalty", bool(so.frequency_penalty)),
-            ("presence_penalty", bool(so.presence_penalty)),
-            ("repetition_penalty", so.repetition_penalty not in (None, 1.0)),
-            ("logit_bias", bool(so.logit_bias)),
-            ("guided", bool(so.guided))) if on]
-        if missing:
-            return (f"{', '.join(missing)}: not yet served by the torch "
-                    "engine (ROADMAP A4/A8)")
+        """Refuse what ``JaxEngine`` refuses: a guided request without a
+        registered byte vocabulary, or with a grammar that does not
+        compile."""
+        spec = request.sampling_options.guided
+        if not spec:
+            return None
+        if self._guided_vocab is None:
+            return ("guided decoding (response_format) is not available: "
+                    "the worker did not register a token-byte vocabulary")
+        try:
+            self._grammar_for(spec)
+        except Exception as e:  # noqa: BLE001 — surface compile errors
+            return f"response_format rejected: {e}"
         return None
+
+    def _grammar_for(self, spec: dict):
+        """Compile-or-cache a guided grammar; called from both the
+        event-loop thread (validate_request) and the step thread."""
+        key = json.dumps(spec, sort_keys=True)
+        with self._grammar_lock:
+            g = self._grammar_cache.get(key)
+        if g is None:
+            g = compile_guided(spec)
+            with self._grammar_lock:
+                if len(self._grammar_cache) >= 64:
+                    self._grammar_cache.pop(
+                        next(iter(self._grammar_cache)), None)
+                g = self._grammar_cache.setdefault(key, g)
+        return g
+
+    def release_request(self, rid) -> None:
+        """A request left the scheduler: its automaton is dropped by the
+        step thread at the next step (the threads never share one)."""
+        with self._released_lock:
+            self._released.add(rid)
+
+    def _guided_req_for(self, seq, spec: dict):
+        """Get-or-(re)build the request's automaton and sync it to the
+        sequence's generated tokens (``n_seen`` beyond ``generated`` means
+        a preemption rewound the sequence: rebuild and re-walk)."""
+        rid = seq.request.request_id
+        gr = self._guided_reqs.get(rid)
+        if gr is None or gr.n_seen > len(seq.generated):
+            gr = GuidedRequest(self._grammar_for(spec), self._guided_vocab,
+                               self._guided_bytes)
+            self._guided_reqs[rid] = gr
+        gr.catch_up(seq.generated)
+        gr.last_step = self._step_counter
+        return gr
+
+    def _guided_masks(self, rows, B: int) -> Optional[np.ndarray]:
+        """Per-row packed allow-masks ``[B, ceil(V/32)]`` uint32 for this
+        step, or None when no row is constrained (unconstrained rows of a
+        constrained batch are all-ones, the no-op)."""
+        gv = self._guided_vocab
+        if gv is None:
+            return None
+        masks = None
+        for i, seq in enumerate(rows):
+            spec = seq.request.sampling_options.guided
+            if not spec:
+                continue
+            m = self._guided_req_for(seq, spec).mask()
+            if m is not None:
+                if masks is None:
+                    masks = np.full((B, gv.words), 0xFFFFFFFF, np.uint32)
+                masks[i] = m
+        if len(self._guided_reqs) > 4 * self.cfg.max_num_seqs:
+            # size cap, evicting by last touch
+            stale = sorted(self._guided_reqs.items(),
+                           key=lambda kv: kv[1].last_step)
+            for rid, _ in stale[:len(stale) // 2]:
+                del self._guided_reqs[rid]
+        return masks
+
+    def _drop_released(self) -> None:
+        with self._released_lock:
+            released, self._released = self._released, set()
+        for rid in released:
+            self._guided_reqs.pop(rid, None)
+
+    # -- penalties, bias, seeds ---------------------------------------------
+
+    def _penalty_row(self, seq, W: int):
+        """One row's penalty/bias window material (``JaxEngine._penalty_row``),
+        or None for a row without penalties or bias.
+
+        ``entries``: (token, generated count, in context): logit_bias ids
+        first, then every distinct generated token by frequency (not yet
+        cut to W). ``prestatic``: the prompt's distinct tokens, most recent
+        first, at most 2W (the repetition-penalty backfill). A migrated
+        stream's trailing ``resumed_tokens`` of the prompt were generated
+        by its earlier legs and keep counting as generated."""
+        so = seq.request.sampling_options
+        f = so.frequency_penalty or 0.0
+        p = so.presence_penalty or 0.0
+        r = so.repetition_penalty
+        rep_on = r is not None and r > 0 and r != 1.0
+        lb = so.logit_bias or {}
+        if W <= 0 or not (f or p or rep_on or lb):
+            return None
+        counts = Counter(seq.generated)
+        n_prompt = seq.num_prompt - min(
+            seq.request.resumed_tokens or 0, seq.num_prompt)
+        if n_prompt < seq.num_prompt:
+            counts.update(seq.tokens.tokens()[n_prompt:seq.num_prompt])
+        prompt_set = (set(seq.tokens.tokens()[:n_prompt])
+                      if rep_on else set())
+        entries = [(t, counts.get(t, 0), t in counts or t in prompt_set)
+                   for t in list(lb)[:W]]
+        have = {t for t, _c, _x in entries}
+        for t, c in counts.most_common(W):
+            if t not in have:
+                entries.append((t, c, True))
+                have.add(t)
+        prestatic: list = []
+        if rep_on:
+            seen: set = set()
+            for t in reversed(seq.tokens.tokens()[:seq.num_prompt]):
+                if t not in seen:
+                    seen.add(t)
+                    prestatic.append(t)
+                    if len(prestatic) >= 2 * W:
+                        break
+        return dict(entries=entries, prestatic=prestatic, lb=lb, fp=f,
+                    pp=p, rp=(r if rep_on else 1.0), rep_on=rep_on)
+
+    def _sampling_extras(self, rows, B: int) -> dict:
+        """Per-row penalty/bias windows, seeds, min-p and guided masks
+        (``JaxEngine._sampling_extras``), merged into the step's host
+        arrays; ``{}`` when no row uses any of them, so the common step
+        ships nothing more and takes the batch-wide draw."""
+        W = self.cfg.penalty_window
+        seeds = np.zeros(B, np.int32)
+        ids = np.zeros((B, W), np.int32)
+        cnt = np.zeros((B, W), np.float32)
+        ctx = np.zeros((B, W), np.float32)
+        bias = np.zeros((B, W), np.float32)
+        fp = np.zeros(B, np.float32)
+        pp = np.zeros(B, np.float32)
+        rp = np.ones(B, np.float32)
+        min_p = np.zeros(B, np.float32)
+        any_active = False
+        for i, seq in enumerate(rows):
+            so = seq.request.sampling_options
+            if so.seed is not None:
+                # any integer seed (0 included) maps into [1, 2^31-1];
+                # 0 is the unseeded sentinel
+                seeds[i] = (int(so.seed) % 0x7FFFFFFF) + 1
+                any_active = True
+            if so.min_p:
+                min_p[i] = so.min_p
+                any_active = True
+            row = self._penalty_row(seq, W)
+            if row is None:
+                continue
+            any_active = True
+            fp[i], pp[i], rp[i] = row["fp"], row["pp"], row["rp"]
+            # bias + generated entries, then for repetition the prompt
+            # backfill, to capacity
+            entries = list(row["entries"])
+            have = {t for t, _c, _x in entries}
+            if row["rep_on"] and len(entries) < W:
+                for t in row["prestatic"]:
+                    if t not in have:
+                        entries.append((t, 0, True))
+                        have.add(t)
+                        if len(entries) >= W:
+                            break
+            for j, (t, c, x) in enumerate(entries[:W]):
+                ids[i, j] = t
+                cnt[i, j] = c
+                ctx[i, j] = 1.0 if x else 0.0
+                bias[i, j] = row["lb"].get(t, 0.0)
+        masks = self._guided_masks(rows, B)
+        if not any_active and masks is None:
+            return {}
+        out = dict(seeds=seeds, pen_ids=ids, pen_cnt=cnt, pen_ctx=ctx,
+                   pen_bias=bias, pen_fp=fp, pen_pp=pp, pen_rp=rp,
+                   pen_min_p=min_p)
+        if masks is not None:
+            out["mask_words"] = masks
+        return out
 
     # -- one step ----------------------------------------------------------
 
@@ -181,8 +394,6 @@ class TorchEngine(ScheduledEngineBase):
         arrays["top_k"][i] = so.top_k or 0
         if so.top_p is not None:
             arrays["top_p"][i] = so.top_p
-        if so.min_p:
-            arrays["min_p"][i] = so.min_p
 
     def _empty_arrays(self, B: int, S: int) -> dict:
         return dict(toks=np.zeros((B, S), np.int32),
@@ -192,8 +403,7 @@ class TorchEngine(ScheduledEngineBase):
                     new=np.zeros(B, np.int32),   # pad rows: write nothing
                     temp=np.zeros(B, np.float32),
                     top_k=np.zeros(B, np.int32),
-                    top_p=np.ones(B, np.float32),
-                    min_p=np.zeros(B, np.float32))
+                    top_p=np.ones(B, np.float32))
 
     def _chunk_arrays(self, chunks) -> dict:
         B = _bucket(len(chunks), MIN_BATCH_BUCKET, self.cfg.max_num_seqs)
@@ -212,6 +422,7 @@ class TorchEngine(ScheduledEngineBase):
             a["total"][i] = c.start + c.length
             a["new"][i] = c.length
             self._row_sampling(i, seq, a)
+        a.update(self._sampling_extras([c.seq for c in chunks], B))
         return a
 
     def _decode_arrays(self, seqs) -> dict:
@@ -224,10 +435,12 @@ class TorchEngine(ScheduledEngineBase):
             a["total"][i] = len(seq)
             a["new"][i] = 1
             self._row_sampling(i, seq, a)
+        a.update(self._sampling_extras(seqs, B))
         return a
 
     def _execute_plan(self, plan: StepPlan):
         """Build the padded arrays, run one step, fetch the sampled tokens."""
+        self._drop_released()
         if isinstance(plan, (PrefillBatch, MixedStepBatch)):
             mixed = isinstance(plan, MixedStepBatch)
             if not mixed and plan.ring:
@@ -261,6 +474,7 @@ class TorchEngine(ScheduledEngineBase):
                 f"{type(plan).__name__}: speculative decoding is ROADMAP A8 "
                 "and the fused multi-step block ROADMAP A5")
         plan._step_id = self._step_counter
+        a["step"] = np.array(self._step_counter, np.int64)
         packed = self._step(a, kernel)
         self._step_counter += 1
         self.last_padded = a["toks"].shape
@@ -277,7 +491,9 @@ class TorchEngine(ScheduledEngineBase):
         attention, sample, and return the packed ``[B, 2 + 2K]`` int32
         result (still on the device)."""
         dev = self.device
-        t = {k: torch.from_numpy(v).to(dev, non_blocking=True)
+        # uint32 mask words travel as their int32 bit patterns
+        t = {k: torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32
+                                 else v).to(dev, non_blocking=True)
              for k, v in a.items()}
         impl = self.attention[kernel]
 
@@ -288,13 +504,37 @@ class TorchEngine(ScheduledEngineBase):
         logits, self.pages = self.family.forward(
             self.params, self.model_cfg, t["toks"], t["pos"], self.pages,
             t["table"], t["total"], t["new"], attn_impl=attn)
-        return self._sample_tail(logits, t, use_min_p=bool(a["min_p"].any()))
+        return self._sample_tail(logits, t, draw=bool(a["temp"].max() > 0))
 
     def _sample_tail(self, logits: torch.Tensor, t: dict,
-                     use_min_p: bool) -> torch.Tensor:
+                     draw: bool = True) -> torch.Tensor:
+        """The reference's sampling epilogue (``JaxEngine._sample_tail``):
+        penalties, then bias, then the guided mask on the logits (so the
+        top-K alternatives and logprobs are of the distribution sampled
+        from), the Gumbel draw from ``fold_in(engine key, step)`` (seeded
+        rows from their seed and position), and the packed result. With
+        ``draw`` False (every row greedy, as the host arrays say) the noise
+        is zeros: a greedy row takes candidate 0 whatever the noise, and
+        the draw is some 600 small launches on the card."""
+        logits = logits.float()
         B, V = logits.shape
-        gumbel = gumbel_noise((B, min(TOPK_MAX, V)), self._gen, self.device)
-        min_p = t["min_p"] if use_min_p else None
+        seeds = min_p = None
+        if "seeds" in t:
+            logits = apply_penalties(logits, t["pen_ids"], t["pen_cnt"],
+                                     t["pen_ctx"], t["pen_fp"], t["pen_pp"],
+                                     t["pen_rp"], pen_bias=t["pen_bias"])
+            if "mask_words" in t:
+                # the mask LAST: a penalty or bias reweights inside the
+                # grammar but never resurrects an illegal token
+                logits = apply_vocab_mask(logits, t["mask_words"])
+            seeds, min_p = t["seeds"], t["pen_min_p"]
+        k = min(TOPK_MAX, V)
+        if draw:
+            gumbel = sampling_noise(prng.fold_in(self._rng, t["step"]), B, k,
+                                    seeds=seeds, seed_rng=self._rng,
+                                    seed_pos=t["total"])
+        else:
+            gumbel = torch.zeros((B, k), device=logits.device)
         tokens, logprobs = sample_tokens(logits, gumbel, t["temp"],
                                          t["top_k"], t["top_p"], min_p=min_p)
         cols = [tokens[:, None], logprobs.view(torch.int32)[:, None]]

@@ -121,6 +121,48 @@ def plain_mla_attention(q_lat: torch.Tensor, q_pe: torch.Tensor,
     return pv / torch.clamp(den, min=1e-20)[..., None]
 
 
+LOG2E = 1.4426950408889634
+
+
+def online_attention_rows(qs: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, qpos: torch.Tensor, ctx: int,
+                          chunk: int = 64) -> torch.Tensor:
+    """Chosen (query, head) rows of one sequence and kv head through the
+    online softmax of ``csrc/prefill_sm90.cu``, where it rounds: the
+    context in chunks of ``chunk`` positions from 0, a running max ``m``,
+    ``p = 2^(s log2e - m log2e)`` rounded to bf16 for P.V against the max
+    SO FAR (the plain version rounds against the row's final max), the
+    accumulator and row sum rescaled as the max grows, one division at the
+    end. The TPU kernel rounds p the same way, against its own chunk's
+    running max (``dynamo_tpu/ops/pallas/prefill.py:196-207``).
+
+    qs [R, Dh]: q * sm_scale already rounded to bf16; k, v [T, Dh] the
+    row's context (positions 0..T-1); qpos [R] the rows' positions.
+    Returns bf16 [R, Dh]."""
+    R = qs.shape[0]
+    dev = qs.device
+    m = torch.full((R,), NEG_INF, device=dev)
+    den = torch.zeros(R, device=dev)
+    acc = torch.zeros((R, qs.shape[1]), device=dev)
+    visible = min(ctx, int(qpos.max()) + 1)
+    for c0 in range(0, visible, chunk):
+        t = torch.arange(c0, min(c0 + chunk, k.shape[0]), device=dev)
+        live = (t < ctx)[:, None]
+        kc = torch.where(live, k[t].float(), 0.0)
+        vc = torch.where(live, v[t].float(), 0.0)
+        s = qs.float() @ kc.T                                    # [R, n]
+        s = torch.where((t[None, :] <= qpos[:, None]) & live.T, s, NEG_INF)
+        mx = torch.maximum(m, s.amax(dim=-1))
+        ml = torch.where(mx > NEG_INF / 2, mx * LOG2E, 0.0)
+        scale = torch.exp2(m * LOG2E - ml)
+        m = mx
+        # s * log2e - m log2e as one fused multiply-add, as the kernel
+        p = torch.exp2((s.double() * LOG2E - ml.double()[:, None]).float())
+        den = den * scale + p.sum(dim=-1)
+        acc = acc * scale[:, None] + p.to(torch.bfloat16).float() @ vc
+    return (acc / torch.clamp(den, min=1e-20)[:, None]).to(torch.bfloat16)
+
+
 def row_ulp_error(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """How far a kernel's output is from its plain version, row by row.
 
@@ -137,4 +179,4 @@ def row_ulp_error(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["plain_paged_attention", "plain_mla_attention", "mla_query",
-           "row_ulp_error", "NEG_INF"]
+           "online_attention_rows", "row_ulp_error", "NEG_INF"]

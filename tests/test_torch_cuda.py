@@ -15,7 +15,10 @@ decode kernel: one split, many splits, contexts ending on and either side
 of a split boundary, a window starting inside a split; for the TMA + wgmma
 prefill kernel: S not a multiple of the query tile, pad tiles, a prefix
 whose end is not a multiple of the 64-position kv chunk, window + softcap,
-and page sizes whose TMA boxes are 8, 16 and 64 rows. For the ragged
+and page sizes whose TMA boxes are 8, 16 and 64 rows, and the rows of
+``chip_smoke.py``'s prefix-hit case that sit past 1 ulp of the plain
+version held within 1 ulp of the kernel's own chunked rounding. For the
+ragged
 kernel's split-KV path (short rows spread over several blocks, then
 merged): every G, decode rows whose contexts end on and either side of a
 split boundary and fill the table, window + softcap, and rows with q_len
@@ -177,6 +180,29 @@ def test_prefill_tiles_pads_and_prefix(dev, G):
            q_lens, "paged_prefill")
     _check(paged_prefill_attention_stacked, paged_prefill_plain, args,
            q_lens, "paged_prefill", window=100, softcap=30.0)
+
+
+def test_prefill_prefix_hit_rows_round_as_chunked(dev):
+    """``chip_smoke.py`` phase 2's B2 case (B=4 S=512 with prefix hits,
+    Llama-3.2-3B's heads), rebuilt from the same draws: the rows where the
+    kernel is past 1 ulp from its plain version are a chunking difference.
+    The kernel rounds p to bf16 against the running max of 64-position
+    chunks (as the TPU kernel does per chunk); the plain version rounds
+    against the row's final max. Against ``online_attention_rows``, which
+    rounds as the kernel does, every real row is within 1 ulp."""
+    import chip_smoke as cs
+    case = next(c for name, label, c, _S, _d in cs.kernel_cases(
+        np.random.default_rng(0)) if label == cs.PREFILL_PREFIX_LABEL)
+    worst, flagged = cs.prefill_rows_report(case, 512)
+    # the rows of chip run 1 of PR 6 (NVIDIA H100 80GB HBM3): 2.000, 1.062
+    # and 1.062 ulps from the plain version, <= 0.016 from the chunked
+    # rounding
+    assert {(b, slot, head) for b, slot, head, *_ in flagged} == {
+        (1, 490, 9), (2, 265, 7), (2, 48, 17)}, flagged
+    assert worst["kernel_vs_chunked"] <= 1.0, worst
+    assert worst["kernel_vs_plain"] <= TOL_ULPS, worst
+    assert all(kp <= TOL_ULPS and km <= 1.0
+               for _b, _s, _h, _p, kp, km, _pm in flagged), flagged
 
 
 @pytest.mark.parametrize("ps", [8, 24, 64, 128])

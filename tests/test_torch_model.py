@@ -137,3 +137,42 @@ def test_init_params_seeded_on_device():
     assert a["layers"]["wq"].shape == (cfg.num_layers, cfg.hidden_size,
                                        cfg.q_size)
     assert ("lm_head" in a) == (not cfg.tie_word_embeddings)
+
+
+LLAMA_TREE = {
+    "llama": ("LlamaConfig", dict(tie_word_embeddings=True,
+                                  rope_theta=500000.0,
+                                  rope_scaling={
+                                      "rope_type": "llama3", "factor": 32.0,
+                                      "low_freq_factor": 1.0,
+                                      "high_freq_factor": 4.0,
+                                      "original_max_position_embeddings":
+                                          8192})),
+    "mistral": ("MistralConfig", dict(sliding_window=4096)),
+    "qwen2": ("Qwen2Config", dict(tie_word_embeddings=True)),
+    "qwen3": ("Qwen3Config", dict(head_dim=32)),
+}
+
+
+@pytest.mark.parametrize("family", list(LLAMA_TREE))
+def test_from_hf_matches_reference_field_by_field(family, tmp_path):
+    """The Llama tree's ``from_hf``: a tiny ``*ForCausalLM`` config written
+    by transformers, parsed by both packages, gives equal configs in every
+    field."""
+    import dataclasses
+
+    import transformers
+    name, kw = LLAMA_TREE[family]
+    hf = getattr(transformers, name)(
+        vocab_size=320, hidden_size=64, intermediate_size=160,
+        num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=1024, rms_norm_eps=1e-6,
+        architectures=[name.replace("Config", "ForCausalLM")], **kw)
+    hf.save_pretrained(tmp_path)
+    got = ModelConfig.from_pretrained(str(tmp_path), dtype="float32")
+    want = JModelConfig.from_pretrained(str(tmp_path), dtype="float32")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.model_type == family
+    assert (got.num_layers, got.num_heads, got.num_kv_heads) == (3, 4, 2)
+    assert got.head_dim == kw.get("head_dim", 16)
+    assert got.qk_norm == (family == "qwen3")
