@@ -31,10 +31,23 @@ and suppresses the final result line):
    2 bf16 ulps per row, and the logits within 1.5 times the distance
    between the plain versions and the JAX-style oracle ``ops.attention``,
    which differ only in where they round;
-4. ``TorchEngine`` serving greedy requests at full width: prompts of
-   128-1024 seeded token ids, two sharing a prefix, some arriving while
-   others decode; every request must finish with its tokens, no NaN, and
-   the decode, prefill and ragged kernels must all have launched;
+4. ``TorchEngine`` serving greedy requests at full width with the
+   reference's defaults (pipelined decode, fused blocks of up to 8 steps,
+   each block one CUDA graph replay): prompts of 128-1024 seeded token
+   ids, two sharing a prefix, some arriving while others decode; every
+   request must finish with its tokens, no NaN, fused blocks must run and
+   chain on the device, and the decode, prefill and ragged kernels must
+   all have launched, graph replays counted (the wrappers' counts equal to
+   the engine's attention calls). It prints tok/s, TTFT p50, dispatch ms
+   by step kind, dispatches per token and the graphs captured. Then one
+   block (B=16, ctx 1024, 8 steps; greedy, then sampled with seeds) runs
+   eagerly and as its graph's replay from the same cache: packed output,
+   carry and KV equal bit for bit, and both timed (CUDA events);
+4d. the same serve per step (``pipeline_decode=False``), then pipelined
+   without fusion (``decode_multistep=1``, which must chain steps on the
+   device), each with phase 4's report and its per-request token
+   agreement with phase 4's streams (a differing stream's first differing
+   step and its top-2 logit margin);
 4c. ``TorchEngine`` serving every sampling option at full width: two
    seeded requests, two unseeded with top-p, frequency + presence and
    repetition penalties, a +100 logit bias, a guided JSON schema over a
@@ -70,9 +83,9 @@ Then, with the Llama model freed, DeepSeek-V2-Lite (MLA + MoE):
     forwards that differ in rounding: it prints, per MoE layer, the
     tokens whose routes differ between the forwards, and per layer each
     latent attention's distance to the oracle's on the same inputs;
-4b. ``TorchEngine`` serving DeepSeek-V2-Lite with phase 4's workload: every
-    request finishes with 32 finite-logprob tokens and both latent kernels
-    launch; then phase 4c's sampled workload.
+4b. ``TorchEngine`` serving DeepSeek-V2-Lite with phase 4's workload and
+    checks (both latent kernels launch, fused blocks replayed as graphs),
+    the graph-vs-eager block, phase 4d, then phase 4c's sampled workload.
 
 It imports nothing of JAX and nothing of the JAX package. Every phase
 prints its seconds. The last line is ``{"ok": true, "device": {...}}``; the
@@ -834,11 +847,25 @@ def mla_oracle_latent(cfg, q_lat, q_pe, pages, layer, table, positions,
 # -- phase 4: the engine serving requests ----------------------------------
 
 
-async def serve(engine, n_req=10, max_tokens=32):
+# engine counters a serve reports as its own (the difference over it)
+SERVE_COUNTERS = ("decode_dispatches", "multistep_blocks", "chained_steps",
+                  "mixed_steps")
+
+
+async def serve(engine, n_req=10, max_tokens=32, seed=2):
+    """One serve of greedy requests (prompts made from ``seed``) on a
+    running engine, with a step recorder of its own. Returns (stats per
+    request, wall seconds, the serve's step records, engine counters and
+    graph captures / replays over it)."""
+    from dynamo_tpu_torch.engine.steptrace import StepRecorder
     from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
                                                    SamplingOptions,
                                                    StopConditions)
-    rng = np.random.default_rng(2)
+    engine.steptrace = StepRecorder()      # this serve's steps only
+    before = {k: getattr(engine, k) for k in SERVE_COUNTERS}
+    g = engine.graphs
+    g0 = (len(g), g.replays) if g is not None else (0, 0)
+    rng = np.random.default_rng(seed)
     V = engine.model_cfg.vocab_size
     lens = [1024, 128, 700, 512, 256, 900, 384, 1000, 640, 160][:n_req]
     prompts = [list(map(int, rng.integers(0, V, size=n))) for n in lens]
@@ -853,7 +880,7 @@ async def serve(engine, n_req=10, max_tokens=32):
         if i >= first_n:
             await started.wait()       # arrives while the others decode
         req = PreprocessedRequest(
-            token_ids=prompts[i], request_id=f"r{i}",
+            token_ids=prompts[i], request_id=f"s{seed}r{i}",
             stop_conditions=StopConditions(max_tokens=max_tokens),
             sampling_options=SamplingOptions(temperature=0.0))
         t0 = time.perf_counter()
@@ -866,49 +893,91 @@ async def serve(engine, n_req=10, max_tokens=32):
             fin = out.finish_reason
             if len(toks) >= 4:
                 started.set()
-        stats[i] = dict(ttft=ttft, tokens=toks, logprobs=lps, finish=fin)
+        stats[i] = dict(ttft=ttft, tokens=toks, logprobs=lps, finish=fin,
+                        prompt=prompts[i])
     t0 = time.perf_counter()
     await asyncio.gather(*(one(i) for i in range(n_req)))
     wall = time.perf_counter() - t0
-    await engine.stop()
-    return stats, wall
+    g1 = (len(g), g.replays) if g is not None else (0, 0)
+    info = {k: getattr(engine, k) - before[k] for k in SERVE_COUNTERS}
+    info.update(records=engine.steptrace.snapshot(limit=4096)["records"],
+                captured=g1[0] - g0[0], replays=g1[1] - g0[1])
+    return stats, wall, info
 
 
-def run_serve(engine, **kw):
-    """``serve`` with a deadline: an engine step that raises leaves its
-    requests waiting forever, and the phase must fail instead."""
-    return asyncio.run(asyncio.wait_for(serve(engine, **kw), SERVE_TIMEOUT_S))
+def run_serve(engine, seeds=(2,), **kw):
+    """``serve`` once per seed, one after the other on ``engine``, then
+    stop it; with a deadline: an engine step that raises leaves its
+    requests waiting forever, and the phase must fail instead. Returns
+    each serve's result."""
+    async def serves():
+        try:
+            return [await serve(engine, seed=s, **kw) for s in seeds]
+        finally:
+            await engine.stop()
+    return asyncio.run(asyncio.wait_for(serves(),
+                                        SERVE_TIMEOUT_S * len(seeds)))
 
 
-def phase_engine(params, cfg):
-    """Serve ``serve()``'s workload; every request must finish with its 32
-    tokens and finite logprobs, and each of the family's kernels must have
-    launched. Returns those kernels' launch counts over the serve."""
-    from dynamo_tpu_torch.engine.steptrace import (StepRecorder,
-                                                   set_step_recorder)
+# the engine sizes of phases 4, 4b and 4d
+SERVE_SIZES = dict(num_pages=4096, page_size=PS, max_num_seqs=32,
+                   max_prefill_chunk=512, max_prefill_seqs=8,
+                   max_context=4096)
+# phase 4's two serves: the first captures the block graphs its shapes
+# need, the second (other prompts, the same lengths) finds them captured,
+# as a serving engine does after its first requests; phase 4d serves the
+# second's prompts
+COLD_SEED, WARM_SEED = 2, 3
+
+
+def serve_engine(params, cfg, seeds, **engine_kw):
+    """A fresh ``TorchEngine`` (the reference's defaults but for
+    ``engine_kw``) serving ``serve()``'s workload once per seed; returns
+    (engine, the serves' results, the family's kernel launches over all
+    of them)."""
     from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
                                                       TorchEngineConfig)
     from dynamo_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
-    set_step_recorder(StepRecorder())      # this serve's steps only
-    engine = TorchEngine(cfg, params, TorchEngineConfig(
-        num_pages=4096, page_size=PS, max_num_seqs=32, max_prefill_chunk=512,
-        max_prefill_seqs=8, max_context=4096), device="cuda")
+    engine = TorchEngine(cfg, params,
+                         TorchEngineConfig(**SERVE_SIZES, **engine_kw),
+                         device="cuda")
     reset_launch_counts()
-    stats, wall = run_serve(engine)
+    served = run_serve(engine, seeds)
     torch.cuda.synchronize()
     counts = {k: LAUNCHES[k] for k in engine.kernel_launches}
+    return engine, served, counts
+
+
+def serve_report(stats, wall, info, tag):
+    """Print one serve's tok/s, TTFT p50 / max, dispatch ms by step kind,
+    dispatches per token, and the graphs it captured and replayed; returns
+    the count of fused blocks chained on the device."""
+    recs = info["records"]
     by_kind = {}
-    for rec in engine.steptrace.snapshot(limit=4096)["records"]:
+    for rec in recs:
         by_kind.setdefault(rec["kind"], []).append(rec["dispatch_ms"])
+    chained_blocks = sum(1 for r in recs
+                         if r["kind"] == "multistep" and r["chained"])
     for kind, ms in sorted(by_kind.items()):
-        log(f"[engine] steps kind={kind} n={len(ms)} dispatch_ms "
-            f"median={float(np.median(ms)):.2f} max={max(ms):.2f}")
+        log(f"[{tag}] steps kind={kind} n={len(ms)} dispatch_ms "
+            f"median={float(np.median(ms)):.2f} max={max(ms):.2f} "
+            f"sum={sum(ms):.1f}")
     n_tok = sum(len(s["tokens"]) for s in stats.values())
     ttfts = sorted(s["ttft"] for s in stats.values())
-    log(f"[engine] {len(stats)} requests, {n_tok} tokens in {wall:.3f} s: "
+    cap_s = sum(r["compile_ms"] for r in recs) / 1e3
+    log(f"[{tag}] {len(stats)} requests, {n_tok} tokens in {wall:.3f} s: "
         f"{n_tok / wall:.1f} tok/s; TTFT p50={ttfts[len(ttfts) // 2]:.3f} s "
-        f"max={ttfts[-1]:.3f} s; mixed_steps={engine.mixed_steps} "
-        f"launches={counts}")
+        f"max={ttfts[-1]:.3f} s; {len(recs)} dispatches "
+        f"({len(recs) / n_tok:.3f} per token); decode_dispatches="
+        f"{info['decode_dispatches']} multistep_blocks="
+        f"{info['multistep_blocks']} (chained {chained_blocks}) "
+        f"chained_steps={info['chained_steps']} mixed_steps="
+        f"{info['mixed_steps']}; graphs captured {info['captured']} in "
+        f"{cap_s:.2f} s, replayed {info['replays']}")
+    return chained_blocks
+
+
+def check_stats(stats, cfg):
     for i, s in sorted(stats.items()):
         if len(s["tokens"]) != 32 or s["finish"] is None \
                 or s["finish"].value != "length":
@@ -918,10 +987,153 @@ def phase_engine(params, cfg):
             raise AssertionError(f"request {i}: non-finite logprobs")
         if any(not (0 <= t < cfg.vocab_size) for t in s["tokens"]):
             raise AssertionError(f"request {i}: token out of vocab")
+
+
+def phase_engine(params, cfg):
+    """Serve ``serve()``'s workload twice on one engine with the
+    reference's defaults (pipelined, fused blocks of up to 8 steps, each
+    one CUDA graph replay): cold (the serve captures the graphs its shapes
+    need) and warm (other prompts of the same lengths: the graphs are
+    there). Every request must finish with its 32 tokens and finite
+    logprobs, fused blocks must have run and chained on the device, and
+    each of the family's kernels must have launched, replays counted (the
+    wrappers' ``LAUNCHES`` equal to the engine's attention calls). Then
+    the graph of one block against the same block run eagerly
+    (``graph_vs_eager``). Returns the kernels' launch counts over both
+    serves and the warm serve's streams."""
+    engine, served, counts = serve_engine(params, cfg,
+                                          (COLD_SEED, WARM_SEED))
+    chained = 0
+    for (stats, wall, info), tag in zip(served, ("cold", "warm")):
+        chained += serve_report(stats, wall, info, f"engine {tag}")
+        check_stats(stats, cfg)
+    log(f"[engine] launches={counts}")
     for k, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} never launched while serving")
-    return counts
+    if counts != engine.kernel_launches:
+        raise AssertionError(f"kernel launches {counts} are not the "
+                             f"attention calls {engine.kernel_launches}")
+    if engine.multistep_blocks <= 0 or chained <= 0:
+        raise AssertionError("the serves ran no fused block chained on the "
+                             "device")
+    graph_vs_eager(engine)
+    return counts, served[1][0]
+
+
+# -- graph vs eager: one fused block -----------------------------------------
+
+GRAPH_B, GRAPH_CTX, GRAPH_W = 16, 1024, 8
+
+
+def block_inputs(engine, draw):
+    """A fused block's inputs at B=16 rows of 1024 positions, each row on
+    pages of its own, every row alive: greedy, or (``draw``) sampled at
+    T=0.8, top-p 0.9, half the rows seeded. Returns (inputs, the pages
+    the block writes)."""
+    B, n = GRAPH_B, GRAPH_CTX // PS + 1
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(7)
+    table = torch.zeros((B, engine.table_width), dtype=torch.int32,
+                        device=dev)
+    table[:, :n] = 1 + torch.arange(B * n, device=dev,
+                                    dtype=torch.int32).reshape(B, n)
+    i32 = dict(dtype=torch.int32, device=dev)
+    x = {"table": table,
+         "tok": torch.randint(0, engine.model_cfg.vocab_size, (B, 1),
+                              generator=g, device=dev, dtype=torch.int32),
+         "pos": torch.full((B, 1), GRAPH_CTX - 1, **i32),
+         "total": torch.full((B,), GRAPH_CTX, **i32),
+         "alive": torch.ones(B, dtype=torch.bool, device=dev),
+         "budget": torch.full((B,), 1 << 20, **i32),
+         "min_gate": torch.zeros(B, **i32),
+         "stop_ids": torch.full((B, 1), -1, **i32),
+         "temp": torch.full((B,), 0.8 if draw else 0.0, device=dev),
+         "top_k": torch.zeros(B, **i32),
+         "top_p": torch.full((B,), 0.9 if draw else 1.0, device=dev),
+         "step0": torch.tensor(5, dtype=torch.int64, device=dev)}
+    if draw:
+        x["seeds"] = torch.where(torch.arange(B, device=dev) % 2 == 0,
+                                 torch.arange(B, device=dev) + 1, 0
+                                 ).to(torch.int32)
+        x["min_p"] = torch.zeros(B, device=dev)
+    return x, table[:, :n].reshape(-1).long()
+
+
+def graph_vs_eager(engine):
+    """One fused block of 8 steps at B=16, ctx 1024 (greedy, then sampled
+    with seeds), run eagerly and as its CUDA graph's replay from the same
+    cache: packed output, carry and the KV the block wrote must be equal
+    bit for bit. Then each is timed (CUDA events around one call, median
+    of 5): the eager body launches every kernel from Python, the replay
+    launches one graph; the per-token device ms is the block's over 8."""
+    for draw in (False, True):
+        x, ids = block_inputs(engine, draw)
+        saved = engine.pages[:, ids].clone()
+        out_e = {k: v.clone() for k, v in
+                 engine._block(x, GRAPH_W, draw).items()}
+        kv_e = engine.pages[:, ids].clone()
+        engine.pages[:, ids] = saved
+        fresh = len(engine.graphs or ())
+        out_g = engine._run_block(x, GRAPH_W, draw, report=False)
+        kv_g = engine.pages[:, ids].clone()
+        bad = [k for k in out_e if not torch.equal(out_e[k], out_g[k])]
+        if not torch.equal(kv_e, kv_g):
+            bad.append("kv")
+        label = "sampled" if draw else "greedy"
+        if bad:
+            raise AssertionError(f"graph replay differs from the eager "
+                                 f"block ({label}) in {bad}")
+        eager = time_ms_per_call(lambda _l: engine._block(x, GRAPH_W, draw),
+                                 reps=5)
+        graph = time_ms_per_call(
+            lambda _l: engine._run_block(x, GRAPH_W, draw, report=False),
+            reps=5)
+        engine.pages[:, ids] = saved
+        log(f"[graphs] block B={GRAPH_B} ctx={GRAPH_CTX} w={GRAPH_W} "
+            f"{label}: replay equals eager bit for bit (packed, carry, KV; "
+            f"{len(engine.graphs or ()) - fresh} capture); eager {eager:.3f} ms, "
+            f"graph {graph:.3f} ms per block = {eager / GRAPH_W:.3f} / "
+            f"{graph / GRAPH_W:.3f} ms per token ({eager / graph:.1f}x)")
+
+
+# -- phase 4d: the same serve, per step ----------------------------------------
+
+
+def phase_per_step(params, cfg, fused):
+    """Phase 4d: ``serve()``'s workload per step, unpipelined
+    (``pipeline_decode=False``: one step, one fetch) and then pipelined
+    without fusion (``decode_multistep=1``: step N+1 chained on the device
+    while N is fetched), each on a fresh engine with the prompts of phase
+    4's warm serve, each with phase 4's report and its per-request token
+    agreement with that serve's fused streams ``fused``; where a stream
+    differs, its first differing step and the top-2 logit margin there
+    (one forward of the prefix alone). The pipelined serve must chain."""
+    for tag, kw in (("per-step", dict(pipeline_decode=False)),
+                    ("pipelined", dict(decode_multistep=1))):
+        engine, served, _counts = serve_engine(params, cfg, (WARM_SEED,),
+                                               **kw)
+        stats, wall, info = served[0]
+        serve_report(stats, wall, info, tag)
+        check_stats(stats, cfg)
+        same = 0
+        for i, s in sorted(stats.items()):
+            a, b = s["tokens"], fused[i]["tokens"]
+            diff = [j for j, (p, q) in enumerate(zip(a, b)) if p != q]
+            if not diff:
+                same += 1
+                continue
+            m = first_step_margin(engine, s["prompt"], a, diff[0],
+                                  dict(temperature=0.0))
+            log(f"[{tag}] r{i}: {len(diff)} of {len(a)} tokens differ from "
+                f"the fused serve; first at step {diff[0]}, top-2 margin "
+                f"there {m:.4e}")
+        log(f"[{tag}] {same} of {len(stats)} requests token for token as "
+            "the fused serve")
+        if tag == "pipelined" and info["chained_steps"] <= 0:
+            raise AssertionError("the pipelined serve chained no step")
+        del engine
+        gc.collect()
 
 
 # -- phase 4c: every sampling option, served --------------------------------
@@ -1034,11 +1246,12 @@ def check_guided(tokens, finish, vocab, eos):
 
 
 def first_step_margin(engine, prompt, tokens, k, so):
-    """The seeded request's draw at generated step ``k`` (the first where a
-    lone serve and the batched serve differ), recomputed from a forward of
-    its prompt and first ``k`` tokens alone: the gap between the best and
-    second best Gumbel-perturbed score (logit / T + noise) among the top
-    candidates."""
+    """The request's draw at generated step ``k`` (the first where two
+    serves differ), recomputed from a forward of its prompt and first ``k``
+    tokens alone: the gap between the best and second best
+    Gumbel-perturbed score (logit / T + noise) among the top candidates of
+    a seeded request, the gap between the two best logits of a greedy
+    one."""
     from dynamo_tpu_torch.ops import prng
     from dynamo_tpu_torch.ops.sampling import (TOPK_MAX, _masked_candidates,
                                                sampling_noise)
@@ -1054,6 +1267,9 @@ def first_step_margin(engine, prompt, tokens, k, so):
     logits, _ = engine.family.forward(
         engine.params, cfg, t([ids]), t([list(range(n))]), pages, table,
         t([n]), t([n]), attn_impl=engine.attention[kernel])
+    if not so["temperature"]:
+        top2 = torch.topk(logits.float()[0], 2).values
+        return float(top2[0] - top2[1])
     temp = torch.tensor([so["temperature"]], device="cuda")
     scaled, _idx = _masked_candidates(logits.float(), temp,
                                       t([0]), torch.ones(1, device="cuda"))
@@ -1246,7 +1462,9 @@ def phase_sampled(params, cfg, time_sampler):
 
 def phase_profile(params, cfg):
     """``--profile`` only: device time by kernel over a short serving run
-    (4 requests of 256 prompt tokens, 16 new tokens each), from
+    (4 requests of 128-1024 prompt tokens, 16 new tokens each) on an
+    engine with the reference's defaults, after a first serve of other
+    prompts of the same lengths has captured its block graphs, from
     ``torch.profiler``; the device's busy share is the summed kernel time
     over the run's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1255,16 +1473,27 @@ def phase_profile(params, cfg):
     engine = TorchEngine(cfg, params, TorchEngineConfig(
         num_pages=1024, page_size=PS, max_num_seqs=32, max_prefill_chunk=512,
         max_context=4096), device="cuda")
-    run_serve(engine, n_req=2, max_tokens=4)                # warm up
-    engine = TorchEngine(cfg, params, TorchEngineConfig(
-        num_pages=1024, page_size=PS, max_num_seqs=32, max_prefill_chunk=512,
-        max_context=4096), device="cuda")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_serve(engine, n_req=4, max_tokens=16)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+
+    async def serves():
+        try:
+            await serve(engine, n_req=4, max_tokens=16, seed=5)  # warm up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _s, _w, info = await serve(engine, n_req=4, max_tokens=16,
+                                           seed=6)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            return prof, wall, info
+        finally:
+            await engine.stop()
+
+    prof, wall, info = asyncio.run(asyncio.wait_for(serves(),
+                                                    2 * SERVE_TIMEOUT_S))
+    log(f"[profile] profiled serve: {info['multistep_blocks']} fused "
+        f"blocks, {info['captured']} graphs captured, {info['replays']} "
+        f"replayed, {len(info['records'])} dispatches")
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) is not None
             and "CUDA" in str(e.device_type)]
@@ -1272,8 +1501,12 @@ def phase_profile(params, cfg):
                                getattr(e, "self_cuda_time_total", 0))
     rows.sort(key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows) / 1e6
+    n_kernels = sum(e.count for e in rows)
+    steps = sum(max(1, r["width"]) for r in info["records"])
     log(f"[profile] wall={wall:.3f} s device busy={busy:.3f} s "
-        f"({100 * busy / wall:.1f}%)")
+        f"({100 * busy / wall:.1f}%); {n_kernels} kernels over "
+        f"{steps} model steps ({n_kernels / steps:.0f} per step, "
+        f"{1e3 * busy / n_kernels:.4f} ms each on average)")
     # the 12 largest, then the kernels in anonymous namespaces that fell
     # below them: the port's own (csrc/*.cu) among them; a template's name
     # carries its "void " return type, a plain function's does not
@@ -1437,8 +1670,12 @@ def model_phases(name, cfg, impls, strict_logits, failures, profile):
         run_phase(f"forward {name}",
                   lambda: phase_forward(params, cfg, impls, strict_logits),
                   failures)
-        counts = run_phase(f"engine {name}",
+        served = run_phase(f"engine {name}",
                            lambda: phase_engine(params, cfg), failures)
+        counts, fused = served if served else (None, None)
+        if fused:
+            run_phase(f"per-step {name}",
+                      lambda: phase_per_step(params, cfg, fused), failures)
         sampled = run_phase(
             f"sampled {name}",
             lambda: phase_sampled(params, cfg, cfg.vocab_size == SAMPLER_V),

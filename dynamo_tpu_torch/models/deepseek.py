@@ -33,8 +33,10 @@ A13), ``forward_unrolled`` (one forward over the stacked cache serves), and
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, Dict, Optional, Tuple
+from types import SimpleNamespace
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -92,8 +94,30 @@ def yarn_freqs(cfg: ModelConfig) -> Tuple[np.ndarray, float]:
     return inv_freq.astype(np.float32), float(attention_factor)
 
 
+_YARN_FIELDS = ("qk_rope_head_dim", "rope_theta", "rope_scaling_factor",
+                "rope_orig_max_position", "max_position_embeddings",
+                "rope_attention_factor", "rope_mscale", "rope_mscale_all_dim",
+                "rope_beta_fast", "rope_beta_slow")
+
+
+def yarn_table(cfg: ModelConfig, device) -> Tuple[torch.Tensor, float]:
+    """``yarn_freqs`` with inv_freq as a float32 tensor on ``device``, made
+    once per (rope config, device): every layer of the forward reads it,
+    and an upload there would wait for the device (and could not be
+    captured in a CUDA graph)."""
+    return _yarn_table(tuple(getattr(cfg, f) for f in _YARN_FIELDS),
+                       str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=16)
+def _yarn_table(fields: tuple, device: str) -> Tuple[torch.Tensor, float]:
+    inv, scale = yarn_freqs(SimpleNamespace(**dict(zip(_YARN_FIELDS,
+                                                       fields))))
+    return torch.from_numpy(inv).to(device), scale
+
+
 def rope_interleaved(x: torch.Tensor, positions: torch.Tensor, theta: float,
-                     inv_freq: Optional[np.ndarray] = None,
+                     inv_freq: Union[np.ndarray, torch.Tensor, None] = None,
                      scale: float = 1.0,
                      interleaved: bool = True) -> torch.Tensor:
     """RoPE in either DeepSeek convention, scaled by the yarn
@@ -106,6 +130,8 @@ def rope_interleaved(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if inv_freq is None:
         inv = 1.0 / (theta ** (torch.arange(0, D, 2, dtype=torch.float32,
                                             device=dev) / D))
+    elif isinstance(inv_freq, torch.Tensor):
+        inv = inv_freq
     else:
         inv = torch.as_tensor(np.asarray(inv_freq, np.float32), device=dev)
     ang = positions.to(torch.float32)[..., None] * inv       # [B, S, D/2]
@@ -263,7 +289,7 @@ def _mla_qkv(cfg: ModelConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor,
         q = x @ lp["wq"]
     q = q.reshape(B, S, nh, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
-    inv_freq, att_scale = yarn_freqs(cfg)
+    inv_freq, att_scale = yarn_table(cfg, h.device)
     q_pe = rope_interleaved(q_pe, positions, cfg.rope_theta,
                             inv_freq=inv_freq, scale=att_scale,
                             interleaved=cfg.rope_interleave)
@@ -542,4 +568,5 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 __all__ = ["init_params", "params_from_jax", "forward", "make_pages",
-           "yarn_freqs", "rope_interleaved", "PAGES_PER_CHUNK"]
+           "yarn_freqs", "yarn_table", "rope_interleaved",
+           "PAGES_PER_CHUNK"]

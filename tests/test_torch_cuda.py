@@ -32,7 +32,11 @@ side of a split boundary in a mixed batch, page sizes 8/24/64, latent and
 rope widths 128/16, 256/128, 384/0 and 512/64, rings of 2, 3 and 4
 stages (the depth a geometry's shared memory allows), bf16 and f32
 queries, and its refusals (a latent wider than its register-held
-output, half-precision or strided queries).
+output, half-precision or strided queries). For ``TorchEngine``'s fused
+decode block (B1's and B4's engines): a graph replay equal bit for bit to
+the same block run eagerly, replays counted as launches, the fetch of one
+step waiting on that step's event and not on the stream, and a fused
+serve token for token as the per-step serve.
 """
 
 import numpy as np
@@ -468,3 +472,203 @@ def test_mla_wrappers_reject_what_kernels_do_not_take(dev):
     args[0] = torch.repeat_interleave(args[0], 2, dim=-1)[..., ::2]
     with pytest.raises(ValueError, match="rows must be contiguous"):
         mla_paged_prefill_stacked(*args)
+
+
+# -- the fused decode block as a CUDA graph (TorchEngine) ---------------------
+
+BLOCK_W = 4
+
+
+def _block_engine(dev, mla):
+    """A two-layer bf16 engine on the card whose decode runs B1 (Llama
+    tree, 8 query heads over 2 kv heads) or B4 (DeepSeek MLA, 16 heads,
+    latent 128, rope 16)."""
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.models.config import ModelConfig
+    base = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                num_layers=2, head_dim=128, dtype="bfloat16")
+    if mla:
+        cfg = ModelConfig(**base, num_heads=16, num_kv_heads=1,
+                          model_type="deepseek_v2", q_lora_rank=0,
+                          kv_lora_rank=128, qk_rope_head_dim=16,
+                          qk_nope_head_dim=32, v_head_dim=32, num_experts=4,
+                          num_experts_per_tok=2, moe_intermediate_size=64,
+                          n_shared_experts=1, first_k_dense_replace=1,
+                          routed_scaling_factor=1.0)
+    else:
+        cfg = ModelConfig(**base, num_heads=8, num_kv_heads=2)
+    return TorchEngine.random_init(
+        cfg, TorchEngineConfig(num_pages=160, page_size=16, max_num_seqs=8,
+                               max_context=512), seed=1, device=dev)
+
+
+def _block_inputs(eng, dev, draw, ctxs=(37, 200, 5, 480)):
+    """A block's inputs over rows of the given contexts, each on pages of
+    its own, random tokens; sampled (T 0.8, top-p 0.9, half the rows
+    seeded) when ``draw``."""
+    B = len(ctxs)
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.zeros((B, eng.table_width), dtype=torch.int32,
+                        device=dev)
+    n = eng.table_width
+    table[:] = 1 + torch.arange(B * n, device=dev,
+                                dtype=torch.int32).reshape(B, n)
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    x = {"table": table,
+         "tok": torch.randint(0, eng.model_cfg.vocab_size, (B, 1),
+                              generator=g, device=dev, dtype=torch.int32),
+         "pos": (ctx - 1)[:, None], "total": ctx,
+         "alive": torch.ones(B, dtype=torch.bool, device=dev),
+         "budget": torch.full((B,), 1 << 20, **i32),
+         "min_gate": torch.zeros(B, **i32),
+         "stop_ids": torch.full((B, 1), -1, **i32),
+         "temp": torch.full((B,), 0.8 if draw else 0.0, device=dev),
+         "top_k": torch.zeros(B, **i32),
+         "top_p": torch.full((B,), 0.9 if draw else 1.0, device=dev),
+         "step0": torch.tensor(11, dtype=torch.int64, device=dev)}
+    if draw:
+        x["seeds"] = torch.tensor([5, 0, 9, 0][:B], **i32)
+        x["min_p"] = torch.zeros(B, device=dev)
+    return x
+
+
+@pytest.mark.parametrize("draw", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("mla", [False, True], ids=["B1", "B4"])
+def test_block_replay_equals_eager_block(dev, mla, draw):
+    """One fused block run eagerly and as its graph's replay, from the same
+    cache: the packed output, the carry and every KV page but the garbage
+    page (which the capture's warm-up writes) are equal bit for bit; the
+    replay counts its decode launches (the wrappers count in Python, which
+    a replay does not run), and a second block of the shape replays
+    without a capture."""
+    from dynamo_tpu_torch.ops.kernels import reset_launch_counts
+    eng = _block_engine(dev, mla)
+    g = torch.Generator(device=dev).manual_seed(0)
+    eng.pages.copy_(torch.randn(eng.pages.shape, generator=g, device=dev))
+    saved = eng.pages.clone()
+    x = _block_inputs(eng, dev, draw)
+    want = {k: v.clone() for k, v in
+            eng._block(x, BLOCK_W, draw).items()}
+    want_kv = eng.pages.clone()
+    assert not torch.equal(want_kv[:, 1:], saved[:, 1:])
+    L = eng.model_cfg.num_layers
+    k = eng.decode_kernel
+    for rep in range(2):
+        eng.pages.copy_(saved)
+        reset_launch_counts()
+        calls = eng.kernel_launches[k]
+        got = eng._run_block(x, BLOCK_W, draw)
+        torch.cuda.synchronize()
+        assert len(eng.graphs) == 1 and eng.graphs.replays == rep + 1
+        for name, v in want.items():
+            assert torch.equal(got[name], v), (rep, name)
+        assert torch.equal(eng.pages[:, 1:], want_kv[:, 1:]), rep
+        # the first call also warmed the body up (real launches, dead rows)
+        warm = BLOCK_W * L if rep == 0 else 0
+        assert LAUNCHES[k] == BLOCK_W * L + warm, (rep, LAUNCHES)
+        assert eng.kernel_launches[k] - calls == BLOCK_W * L + warm
+    assert [e["kind"] for e in eng.drain_compile_events()] == ["multistep"]
+
+
+def test_fetch_waits_for_its_own_step_only(dev):
+    """``fetch_packed`` of step N returns while step N+1 is still queued
+    behind a second of device work: it waits on step N's event, not on the
+    stream; each handle has a pinned buffer of its own."""
+    import time
+    eng = _block_engine(dev, False)
+    host = np.arange(12, dtype=np.int32).reshape(2, 6)
+    step_n = torch.from_numpy(host).to(dev)
+    h1 = eng._stage(step_n)
+    torch.cuda._sleep(int(2e9))          # about a second on the card
+    h2 = eng._stage(step_n + 1)
+    assert h1.slot is not h2.slot
+    t0 = time.perf_counter()
+    sampled, _lps, extras = eng.fetch_packed(h1)
+    waited = time.perf_counter() - t0
+    assert not h2.event.query(), "step N+1 finished before N was fetched"
+    assert waited < 0.5, waited
+    np.testing.assert_array_equal(sampled, host[:, 0])
+    np.testing.assert_array_equal(extras["top_ids"], host[:, 2:4])
+    sampled2, _lps, _x = eng.fetch_packed(h2)
+    np.testing.assert_array_equal(sampled2, host[:, 0] + 1)
+
+
+GUIDED_SCHEMA = {"mode": "json_schema", "schema": {
+    "type": "object", "properties": {"ok": {"type": "boolean"},
+                                     "n": {"type": "integer"}},
+    "required": ["ok", "n"]}}
+
+
+def _byte_vocab(V):
+    """ids 1-127 single ASCII bytes, the rest 2-4-byte JSON-ish strings or
+    None (special); id 0 the EOS."""
+    rng = np.random.default_rng(0)
+    alphabet = list(b'{}[]":, 0123456789abcdefghijklmnoptrue')
+    toks = [None] + [bytes([b]) for b in range(1, 128)]
+    for _ in range(128, V):
+        toks.append(None if rng.random() < 0.1 else bytes(
+            rng.choice(alphabet, size=int(rng.integers(2, 5))).tolist()))
+    return toks
+
+
+def test_fused_serve_matches_per_step_on_the_card(dev):
+    """A small greedy, seeded, penalized and guided workload served with
+    the defaults (fused blocks replayed as graphs, pipelined; the guided
+    row on its grammar's device table) and per step
+    (``pipeline_decode=False``) on the card: the same tokens, graphs
+    captured and replayed, and the wrappers' launch counts equal to the
+    engine's attention calls (replays counted)."""
+    import asyncio
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.ops.kernels import reset_launch_counts
+    from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
+                                                   SamplingOptions,
+                                                   StopConditions)
+    rows = [("m0", [1, 2, 3, 4, 5], 5, dict(temperature=0.0)),
+            ("m1", [2, 3, 4, 5, 6], 11, dict(temperature=0.0)),
+            ("s", [9, 8, 7], 13, dict(temperature=1.0, seed=5)),
+            ("p", [4, 4, 4], 10, dict(temperature=0.0,
+                                      frequency_penalty=0.7,
+                                      logit_bias={3: 2.0})),
+            ("g", [3, 4, 5], 16, dict(temperature=0.7,
+                                      guided=GUIDED_SCHEMA))]
+
+    async def serve(eng):
+        async def one(rid, prompt, n, so):
+            req = PreprocessedRequest(
+                token_ids=prompt, request_id=rid,
+                stop_conditions=StopConditions(max_tokens=n),
+                sampling_options=SamplingOptions(**so),
+                eos_token_ids=[0] if rid == "g" else [])
+            return [t async for f in eng.generate(req) for t in f.token_ids]
+        try:
+            return await asyncio.gather(*(one(*r) for r in rows))
+        finally:
+            await eng.stop()
+
+    base = _block_engine(dev, False)
+    out = {}
+    for name, kw in (("fused", {}), ("per_step",
+                                     dict(pipeline_decode=False))):
+        eng = TorchEngine(base.model_cfg, base.params, TorchEngineConfig(
+            num_pages=160, page_size=16, max_num_seqs=8, max_context=512,
+            max_prefill_chunk=32, min_prefill_bucket=4, **kw), device=dev)
+        eng.enable_guided(_byte_vocab(eng.model_cfg.vocab_size), [0])
+        reset_launch_counts()
+        out[name] = asyncio.run(serve(eng))
+        torch.cuda.synchronize()
+        assert {k: LAUNCHES[k] for k in eng.kernel_launches} \
+            == eng.kernel_launches
+        if name == "fused":
+            assert eng.multistep_blocks > 0 and len(eng.graphs) > 0
+            assert eng.graphs.replays == eng.multistep_blocks
+            assert any(name == "gt_trans" for key in eng.graphs.graphs
+                       for name, _shape, _dtype in key[1]), \
+                "no block ran the guided table"
+            assert not eng.scheduler.multistep_fallbacks.get("guided_table")
+            assert eng.guided_parity_mismatches == 0
+    assert out["fused"] == out["per_step"]
+    assert [len(t) for t in out["fused"][:4]] == [5, 11, 13, 10]

@@ -442,7 +442,8 @@ async def test_engine_greedy_streams_match_jax_engine():
     jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(
         attn_impl="scan", decode_multistep=1, pipeline_decode=False,
         **SIZES))
-    teng = TorchEngine(cfg, tparams, TorchEngineConfig(**SIZES),
+    teng = TorchEngine(cfg, tparams, TorchEngineConfig(
+        decode_multistep=1, pipeline_decode=False, **SIZES),
                        device="cpu")
     ref = await _workload(jeng, JRequest, JSampling, JStop)
     got = await _workload(teng, TRequest, TSampling, TStop)

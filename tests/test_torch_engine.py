@@ -3,10 +3,12 @@ port's package rules.
 
 - Engine parity: the same weights and the same greedy requests through
   ``JaxEngine(attn_impl="scan", decode_multistep=1, pipeline_decode=False)``
-  and ``TorchEngine(device="cpu")`` must stream identical token ids and
-  finish reasons. The requests cross ``max_prefill_chunk``, one arrives
-  after decoding has begun (mixed prefill + decode steps), and a later one
-  shares an earlier prompt's prefix (a prefix-cache hit).
+  and ``TorchEngine(device="cpu")``, configured per step the same way
+  (``tests/test_torch_multistep.py`` holds the fused path), must stream
+  identical token ids and finish reasons. The requests cross
+  ``max_prefill_chunk``, one arrives after decoding has begun (mixed
+  prefill + decode steps), and a later one shares an earlier prompt's
+  prefix (a prefix-cache hit).
 - Sampled parity: unseeded (the batch-wide draw), seeded, penalized,
   biased, min-p and guided requests must stream the same tokens in both
   engines (the port draws JAX's threefry noise with the reference's key
@@ -69,7 +71,9 @@ def _engines():
         **SIZES))
     teng = TorchEngine(cfg, tllama.params_from_jax(np_tree, cfg,
                                                    device="cpu"),
-                       TorchEngineConfig(**SIZES), device="cpu")
+                       TorchEngineConfig(decode_multistep=1,
+                                         pipeline_decode=False, **SIZES),
+                       device="cpu")
     return jeng, teng
 
 
