@@ -61,7 +61,36 @@ and suppresses the final result line):
    bit-equal, Gumbel noise within 1 ulp, tokens equal) and
    ``TorchEngine._sample_tail`` is timed alone at B=32.
 
-Then, with the Llama model freed, DeepSeek-V2-Lite (MLA + MoE):
+Then, with the Llama model freed:
+
+5. Llama-3.2-3B served through the port's entry points, at full width and
+   depth in bf16 (random weights from a seed): this script writes a model
+   directory (``config.json`` at the published widths, a SentencePiece
+   ``tokenizer.model`` of 128256 pieces, a chat template), starts the
+   port's coordinator, one torch worker (phase 4's engine sizes, system
+   server on) and the port's frontend as three processes (every serving
+   package must import: rung (a)), and is their HTTP client: a warming
+   pass, then the identity pass (4 greedy chat completions one at a time,
+   2 streamed; a completion with echo + logprobs, which the worker scores
+   through the prefill kernel; 2 embeddings) served twice, every answer
+   equal, every chat finished by length (or EOS); then timed windows of
+   phase 4's own traffic (its ten prompts as token ids in streamed
+   completions, 32 tokens each, six at once and four released at a
+   stream's fourth token): its cold seed, then its warm seed and two more
+   of the same lengths, each printing tok/s, the client's TTFT and the
+   part of it spent outside the worker's engine (the client's mean TTFT
+   less the worker's queue + prefill stage spans over the window), beside
+   phase 4's warm in-process numbers on the same requests. The worker's
+   ``/metrics`` must show the decode, prefill and ragged kernels launched
+   (its ``dynamo_worker_kernel_launches_total`` read just before the
+   identity passes and just after the timed ones). Each process's log
+   tail is printed on failure; all are stopped in a ``finally``;
+5b. the loader: two full-width Llama-3.2-3B layers and the tied embedding
+   (1.19 GB of bf16) written as safetensors by this script's own header
+   writer, read onto the card by ``models/hf_loader.py``: bit for bit,
+   with its time.
+
+Then DeepSeek-V2-Lite (MLA + MoE):
 
 2b. each latent (MLA) kernel against its plain version at V2-Lite's
     shapes (nh=16, dkv=512, dr=64, page 16, bf16), NaN in the garbage page:
@@ -90,8 +119,9 @@ Then, with the Llama model freed, DeepSeek-V2-Lite (MLA + MoE):
 It imports nothing of JAX and nothing of the JAX package. Every phase
 prints its seconds. The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels, each with its launches from its own
-model's greedy serve (``launches``) and sampled serve
-(``launches_sampled``).
+model's greedy serve (``launches``), sampled serve (``launches_sampled``)
+and, for the Llama tree's three, phase 5's worker
+(``launches_serve_entry``).
 """
 
 from __future__ import annotations
@@ -100,6 +130,8 @@ import asyncio
 import gc
 import json
 import math
+import os
+import struct
 import subprocess
 import sys
 import time
@@ -126,6 +158,7 @@ L2_BYTES = 50 * 2 ** 20        # H100 L2
 MAX_FLUSH_LAYERS = 64
 SLEEP_CYCLES_PER_S = 2.0e9     # torch.cuda._sleep spins clock cycles
 SERVE_TIMEOUT_S = 300          # a serve takes seconds; a stuck one fails
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -852,6 +885,24 @@ SERVE_COUNTERS = ("decode_dispatches", "multistep_blocks", "chained_steps",
                   "mixed_steps")
 
 
+# phase 4's workload (also phase 5's timed windows, sent over HTTP):
+# prompt lengths, the requests that start at once, and the count of tokens
+# a stream has when the rest are released (so they arrive mid-decode)
+SERVE_LENS = (1024, 128, 700, 512, 256, 900, 384, 1000, 640, 160)
+SERVE_FIRST_N, SERVE_RELEASE_AT = 6, 4
+
+
+def serve_prompts(V: int, seed: int, n_req: int = len(SERVE_LENS)):
+    """Phase 4's prompts: seeded token ids of ``SERVE_LENS``; request 3
+    shares request 0's first 512 tokens (a prefix-cache hit)."""
+    rng = np.random.default_rng(seed)
+    prompts = [list(map(int, rng.integers(0, V, size=n)))
+               for n in SERVE_LENS[:n_req]]
+    if n_req > 3:
+        prompts[3] = prompts[0][:512] + prompts[3][:256]
+    return prompts
+
+
 async def serve(engine, n_req=10, max_tokens=32, seed=2):
     """One serve of greedy requests (prompts made from ``seed``) on a
     running engine, with a step recorder of its own. Returns (stats per
@@ -865,19 +916,12 @@ async def serve(engine, n_req=10, max_tokens=32, seed=2):
     before = {k: getattr(engine, k) for k in SERVE_COUNTERS}
     g = engine.graphs
     g0 = (len(g), g.replays) if g is not None else (0, 0)
-    rng = np.random.default_rng(seed)
-    V = engine.model_cfg.vocab_size
-    lens = [1024, 128, 700, 512, 256, 900, 384, 1000, 640, 160][:n_req]
-    prompts = [list(map(int, rng.integers(0, V, size=n))) for n in lens]
-    # request 3 shares request 0's first 512 tokens (a prefix-cache hit)
-    if n_req > 3:
-        prompts[3] = prompts[0][:512] + prompts[3][:256]
-    first_n = 6
+    prompts = serve_prompts(engine.model_cfg.vocab_size, seed, n_req)
     started = asyncio.Event()
     stats = {}
 
     async def one(i):
-        if i >= first_n:
+        if i >= SERVE_FIRST_N:
             await started.wait()       # arrives while the others decode
         req = PreprocessedRequest(
             token_ids=prompts[i], request_id=f"s{seed}r{i}",
@@ -891,7 +935,7 @@ async def serve(engine, n_req=10, max_tokens=32, seed=2):
             toks += out.token_ids
             lps += list(out.log_probs or [])
             fin = out.finish_reason
-            if len(toks) >= 4:
+            if len(toks) >= SERVE_RELEASE_AT:
                 started.set()
         stats[i] = dict(ttft=ttft, tokens=toks, logprobs=lps, finish=fin,
                         prompt=prompts[i])
@@ -1017,6 +1061,12 @@ def phase_engine(params, cfg):
     if engine.multistep_blocks <= 0 or chained <= 0:
         raise AssertionError("the serves ran no fused block chained on the "
                              "device")
+    stats, wall, _info = served[1]
+    ttfts = sorted(s["ttft"] for s in stats.values())
+    PHASE4_WARM[cfg.model_type] = {
+        "tok_s": sum(len(s["tokens"]) for s in stats.values()) / wall,
+        "ttft_p50": ttfts[len(ttfts) // 2], "ttft_max": ttfts[-1],
+        "ttft_mean": float(np.mean(ttfts))}
     graph_vs_eager(engine)
     return counts, served[1][0]
 
@@ -1621,6 +1671,567 @@ def phase_sweep():
         f"{kernel_breakdown(run, c['layers'])}")
 
 
+# -- phase 5: serve through the entry points ---------------------------------
+
+# Rung (a) of the entry-point phase: every serving package imports on the
+# card's host (msgpack, aiohttp, pydantic, jinja2, prometheus_client,
+# tokenizers; checked on the first chip call of this slice), so the port's
+# coordinator, one torch worker and the port's frontend run as three OS
+# processes and this script is their HTTP client. A missing package fails.
+SERVE_PACKAGES = ("msgpack", "aiohttp", "pydantic", "jinja2",
+                  "prometheus_client", "tokenizers")
+ENTRY_TOKENS = 32
+ENTRY_CHAT_WORDS = (200, 96, 320, 160)      # identity pass chats, in words
+ENTRY_TIMEOUT_S = 240                        # a process start or a request
+ENTRY_TEMPLATE = ("{% for m in messages %}<|{{ m['role'] }}|>"
+                  "{{ m['content'] }}<|end|>{% endfor %}"
+                  "{% if add_generation_prompt %}<|assistant|>{% endif %}")
+# phase 4's warm in-process serve, printed beside phase 5's client numbers
+PHASE4_WARM = {}
+# phase 5's timed windows over HTTP, each phase 4's ten requests of one
+# seed: its cold seed (the worker meets these shapes first), then its warm
+# seed and two more of the same lengths (the spread between windows)
+ENTRY_WINDOWS = (("cold", COLD_SEED), ("warm", WARM_SEED),
+                 ("warm", WARM_SEED + 1), ("warm", WARM_SEED + 2))
+
+
+def _varint(v: int) -> bytes:
+    out = b""
+    while True:
+        b, v = v & 0x7F, v >> 7
+        if not v:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _pb_field(num: int, wire: int, payload: bytes) -> bytes:
+    return _varint((num << 3) | wire) + payload
+
+
+def _pb_bytes(num: int, payload: bytes) -> bytes:
+    return _pb_field(num, 2, _varint(len(payload)) + payload)
+
+
+def sentencepiece_model(V: int) -> bytes:
+    """A SentencePiece unigram ``ModelProto`` of ``V`` pieces (the
+    protobuf layout ``preprocessor/sp_tokenizer.py`` reads: repeated
+    ``SentencePiece {piece=1, score=2, type=3}`` at field 1,
+    ``TrainerSpec {model_type=3}`` at field 2): ``<unk>``, ``<s>``,
+    ``</s>`` (id 2, the EOS), the 256 byte-fallback pieces, then filler
+    words ``▁w<i>`` up to the model's vocab, so every id detokenizes."""
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(f"<0x{b:02X}>", -20.0, 6) for b in range(256)]
+    pieces += [(f"▁w{i}", -10.0, 1) for i in range(V - len(pieces))]
+    out = []
+    for piece, score, ptype in pieces:
+        body = (_pb_bytes(1, piece.encode()) +
+                _pb_field(2, 5, np.float32(score).tobytes()) +
+                _pb_field(3, 0, _varint(ptype)))
+        out.append(_pb_bytes(1, body))
+    return b"".join(out) + _pb_bytes(2, _pb_field(3, 0, _varint(1)))
+
+
+def write_entry_model(path: str, cfg) -> None:
+    """A model directory the worker and the frontend read: ``config.json``
+    at ``cfg``'s widths (Llama-3.2-3B's published ones), the SentencePiece
+    ``tokenizer.model`` and a chat template. No weights: the worker runs
+    ``--random-weights``."""
+    os.makedirs(path, exist_ok=True)
+    hf = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+          "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+          "intermediate_size": cfg.intermediate_size,
+          "num_hidden_layers": cfg.num_layers,
+          "num_attention_heads": cfg.num_heads,
+          "num_key_value_heads": cfg.num_kv_heads,
+          "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+          "rms_norm_eps": cfg.rms_norm_eps,
+          "max_position_embeddings": cfg.max_position_embeddings,
+          "tie_word_embeddings": cfg.tie_word_embeddings,
+          "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": "bfloat16"}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    with open(os.path.join(path, "tokenizer.model"), "wb") as f:
+        f.write(sentencepiece_model(cfg.vocab_size))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"chat_template": ENTRY_TEMPLATE, "eos_token": "</s>"}, f)
+
+
+class Child:
+    """One process of the serving stack, its output in a log file; started
+    in a session of its own so ``stop`` ends it with whatever it started."""
+
+    def __init__(self, name: str, module: str, args, logdir: str,
+                 env_extra=None):
+        self.name = name
+        self.log_path = os.path.join(logdir, f"{name}.log")
+        env = dict(os.environ, PYTHONUNBUFFERED="1",
+                   PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        env.update(env_extra or {})
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", module] + list(args), cwd=ROOT, env=env,
+            stdout=self._log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+
+    def text(self) -> str:
+        with open(self.log_path, errors="replace") as f:
+            return f.read()
+
+    def wait_for(self, needle: str, timeout: float = ENTRY_TIMEOUT_S):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if needle in self.text():
+                return
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"{self.name} exited with "
+                                   f"{self.proc.returncode}")
+            time.sleep(0.1)
+        raise TimeoutError(f"{self.name}: no {needle!r} in {timeout} s")
+
+    def tail(self, n: int = 40) -> str:
+        return "\n".join(self.text().splitlines()[-n:])
+
+    def stop(self) -> None:
+        import signal
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGTERM)
+                self.proc.wait(timeout=20)
+            except (ProcessLookupError, subprocess.TimeoutExpired):
+                pass
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait()
+        self._log.close()
+
+
+def free_port() -> int:
+    """A free local port from the repo's ``tests/procutils.py``, loaded by
+    its path: a ``tests`` package installed in site-packages shadows the
+    repo's ``tests`` directory, which has no ``__init__.py``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "procutils", os.path.join(ROOT, "tests", "procutils.py"))
+    procutils = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(procutils)
+    return procutils.free_port()
+
+
+def http_post(url: str, body: dict) -> dict:
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"content-type":
+                                          "application/json"})
+    with urllib.request.urlopen(req, timeout=ENTRY_TIMEOUT_S) as resp:
+        return json.loads(resp.read())
+
+
+def http_stream(url: str, body: dict, on_text=None) -> dict:
+    """A streamed chat or legacy completion read as it arrives: its text,
+    finish reason, usage (chat only), the client's TTFT (the first chunk
+    with text) and the count of chunks with text; ``on_text`` is called
+    with that count at each of them."""
+    import urllib.request
+    body = dict(body, stream=True, stream_options={"include_usage": True})
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"content-type":
+                                          "application/json"})
+    t0 = time.perf_counter()
+    ttft, parts, finish, usage = None, [], None, None
+    with urllib.request.urlopen(req, timeout=ENTRY_TIMEOUT_S) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            chunk = json.loads(line[6:])
+            usage = chunk.get("usage") or usage
+            for choice in chunk.get("choices") or []:
+                text = (choice.get("text")
+                        or (choice.get("delta") or {}).get("content"))
+                if text:
+                    if ttft is None:
+                        ttft = time.perf_counter() - t0
+                    parts.append(text)
+                    if on_text is not None:
+                        on_text(len(parts))
+                finish = choice.get("finish_reason") or finish
+    return {"text": "".join(parts), "finish": finish, "usage": usage,
+            "ttft": ttft, "chunks": len(parts),
+            "seconds": time.perf_counter() - t0}
+
+
+def scrape_metrics(sys_port: int) -> dict:
+    """Every sample of the worker's ``/metrics``: series -> value."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{sys_port}/metrics",
+                                timeout=60) as resp:
+        text = resp.read().decode()
+    return {line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1])
+            for line in text.splitlines()
+            if line and not line.startswith("#")}
+
+
+def scrape_launches(sys_port: int) -> dict:
+    """The worker's ``dynamo_worker_kernel_launches_total`` by kernel."""
+    head = 'dynamo_worker_kernel_launches_total{kernel="'
+    return {k[len(head):-2]: v for k, v in scrape_metrics(sys_port).items()
+            if k.startswith(head)}
+
+
+def worker_ttft_s(before: dict, after: dict, n_req: int) -> float:
+    """The worker's own mean time from a request's arrival at the engine
+    to its first token over a window of ``n_req`` requests: the ``queue``
+    and ``prefill`` stage spans (``dynamo_tpu_stage_duration_seconds``)
+    between two scrapes, which must count every request once."""
+    def d(stat, stage):
+        key = f'dynamo_tpu_stage_duration_seconds_{stat}{{stage="{stage}"}}'
+        return after.get(key, 0.0) - before.get(key, 0.0)
+    n = d("count", "prefill")
+    if n != n_req:
+        raise AssertionError(f"the worker recorded {n} prefill stages for "
+                             f"{n_req} requests")
+    return (d("sum", "queue") + d("sum", "prefill")) / n
+
+
+def entry_prompts(seed: int):
+    rng = np.random.default_rng(seed)
+    return [" ".join(f"w{x}" for x in rng.integers(0, 100000, size=n))
+            for n in ENTRY_CHAT_WORDS]
+
+
+def entry_requests(base: str, model: str, seed: int) -> dict:
+    """The identity pass: 4 greedy chat completions one after another
+    (requests 2 and 3 streamed), then a completion with echo + logprobs
+    (prompt scoring) and an embeddings call. Returns every answer."""
+    out = {}
+    for i, text in enumerate(entry_prompts(seed)):
+        body = {"model": model, "max_tokens": ENTRY_TOKENS,
+                "temperature": 0,
+                "messages": [{"role": "user", "content": text}]}
+        if i < 2:
+            r = http_post(f"{base}/v1/chat/completions", body)
+            c = r["choices"][0]
+            out[f"chat{i}"] = {"text": c["message"]["content"],
+                               "finish": c["finish_reason"],
+                               "usage": r["usage"]}
+        else:
+            r = http_stream(f"{base}/v1/chat/completions", body)
+            out[f"chat{i}"] = {k: r[k] for k in ("text", "finish", "usage")}
+    r = http_post(f"{base}/v1/completions", {
+        "model": model, "prompt": entry_prompts(seed + 100)[2],
+        "max_tokens": 1, "temperature": 0, "echo": True, "logprobs": 2})
+    out["echo"] = r["choices"][0]["logprobs"]
+    r = http_post(f"{base}/v1/embeddings", {
+        "model": model, "input": entry_prompts(seed + 200)[:2]})
+    out["embed"] = [d["embedding"] for d in r["data"]]
+    return out
+
+
+def check_entry_answers(ans: dict, hidden: int) -> None:
+    for i in range(len(ENTRY_CHAT_WORDS)):
+        a = ans[f"chat{i}"]
+        n = a["usage"]["completion_tokens"]
+        if a["finish"] == "length" and n != ENTRY_TOKENS or \
+                a["finish"] == "stop" and not 0 < n <= ENTRY_TOKENS or \
+                a["finish"] not in ("length", "stop"):
+            raise AssertionError(f"chat{i}: finish {a['finish']} after {n} "
+                                 f"tokens")
+    lps = ans["echo"]["token_logprobs"]
+    if lps[0] is not None or not all(math.isfinite(x) for x in lps[1:]) \
+            or len(lps) < 300:
+        raise AssertionError(f"echo logprobs: {len(lps)} values, "
+                             f"first {lps[:3]}")
+    if len(ans["embed"]) != 2 or any(len(v) != hidden or not all(
+            math.isfinite(x) for x in v) for v in ans["embed"]):
+        raise AssertionError("embeddings: wrong count, width or values")
+
+
+def entry_window(base: str, model: str, V: int, seed: int) -> dict:
+    """One timed window over HTTP with phase 4's own traffic: its ten
+    prompts (``serve_prompts(V, seed)``, sent as token ids in streamed
+    ``/v1/completions``), 32 greedy tokens each with EOS ignored (phase
+    4's requests carry none), the first six at once and the other four
+    released when a stream has its fourth chunk of text (one token each,
+    or more where the detokenizer held a byte piece). Returns tok/s, the
+    wall and every request's client TTFT."""
+    import threading
+    prompts = serve_prompts(V, seed)
+    res = [None] * len(prompts)
+    started = threading.Event()
+
+    def seen(n):
+        if n >= SERVE_RELEASE_AT:
+            started.set()
+
+    def one(i):
+        if i >= SERVE_FIRST_N:
+            started.wait(ENTRY_TIMEOUT_S)
+        try:
+            res[i] = http_stream(f"{base}/v1/completions", {
+                "model": model, "prompt": prompts[i],
+                "max_tokens": ENTRY_TOKENS, "temperature": 0,
+                "nvext": {"ignore_eos": True}}, on_text=seen)
+        except Exception as e:                  # reported below
+            res[i] = {"error": repr(e)}
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(ENTRY_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    bad = [(i, r) for i, r in enumerate(res)
+           if r is None or r.get("finish") != "length" or r["ttft"] is None]
+    if bad:
+        raise AssertionError(f"timed window (seed {seed}): {bad}")
+    # every stream finished by length: ENTRY_TOKENS tokens each
+    n_tok = ENTRY_TOKENS * len(res)
+    ttfts = sorted(r["ttft"] for r in res)
+    return {"tok_s": n_tok / wall, "ttft_p50": ttfts[len(ttfts) // 2],
+            "ttft_max": ttfts[-1], "ttft_mean": float(np.mean(ttfts)),
+            "tokens": n_tok, "wall": wall, "n": len(res)}
+
+
+def phase_serve_entry() -> dict:
+    """Llama-3.2-3B at full width and depth, bf16 random weights, served
+    by the port's coordinator, one torch worker (phase 4's engine sizes)
+    and the port's frontend, as three processes, over HTTP: a warming
+    pass, then the identity pass twice (equal answers: the warm pass
+    filled the prefix cache both then hit alike), then the timed windows
+    (``ENTRY_WINDOWS``: phase 4's own requests, cold, then warm three
+    times), each with the part of the client's TTFT spent outside the
+    worker's engine. The worker's ``/metrics`` must show B1, B2 and B3
+    launched between just before the identity passes and just after the
+    timed ones; returns those launch counts."""
+    import importlib.util
+    from dynamo_tpu_torch.models.config import ModelConfig
+    missing = [m for m in SERVE_PACKAGES
+               if importlib.util.find_spec(m) is None]
+    if missing:
+        raise AssertionError(f"serving packages missing here: {missing}")
+    cfg = llama_cfg()
+    work = os.path.join(ROOT, "build", "serve_entry")
+    model_dir = os.path.join(work, "llama32_3b")
+    write_entry_model(model_dir, cfg)
+    back = ModelConfig.from_pretrained(model_dir)
+    off = [f for f in ("model_type", "vocab_size", "hidden_size",
+                       "intermediate_size", "num_layers", "num_heads",
+                       "num_kv_heads", "head_dim", "rope_theta",
+                       "rms_norm_eps", "max_position_embeddings",
+                       "tie_word_embeddings", "attention_bias", "qk_norm",
+                       "num_experts", "kv_lora_rank", "dtype")
+           if getattr(back, f) != getattr(cfg, f)]
+    if off:
+        raise AssertionError(f"the written config.json reads back with "
+                             f"other {off}")
+    ports = [free_port() for _ in range(3)]
+    coord = f"127.0.0.1:{ports[0]}"
+    sizes = []
+    for k in ("num_pages", "page_size", "max_num_seqs", "max_prefill_chunk",
+              "max_context"):
+        sizes += [f"--{k.replace('_', '-')}", str(SERVE_SIZES[k])]
+    children = []
+    t0 = time.perf_counter()
+    try:
+        children.append(Child("coordinator",
+                              "dynamo_tpu_torch.runtime.coordinator",
+                              ["--host", "127.0.0.1", "--port",
+                               str(ports[0])], work))
+        children[-1].wait_for("coordinator listening")
+        children.append(Child(
+            "worker", "dynamo_tpu_torch.worker.main",
+            ["--coordinator", coord, "--model-path", model_dir,
+             "--random-weights", "--dtype", "bfloat16"] + sizes, work,
+            {"DYN_SYSTEM_ENABLED": "1", "DYN_SYSTEM_PORT": str(ports[2])}))
+        children.append(Child(
+            "frontend", "dynamo_tpu_torch.frontend.main",
+            ["--coordinator", coord, "--http-host", "127.0.0.1",
+             "--http-port", str(ports[1])], work))
+        children[1].wait_for("torch worker serving model")
+        children[2].wait_for("frontend listening")
+        base = f"http://127.0.0.1:{ports[1]}"
+        import urllib.request
+        model, deadline = None, time.monotonic() + ENTRY_TIMEOUT_S
+        while model is None and time.monotonic() < deadline:
+            with urllib.request.urlopen(f"{base}/v1/models") as resp:
+                data = json.loads(resp.read())["data"]
+            model = data[0]["id"] if data else time.sleep(0.2)
+        log(f"[serve-entry] stack up in {time.perf_counter() - t0:.1f} s "
+            f"(model {model}, worker pid {children[1].proc.pid}, "
+            f"{len(scrape_launches(ports[2]))} kernels counted on the "
+            f"worker's /metrics)")
+        t1 = time.perf_counter()
+        entry_requests(base, model, seed=5)
+        log(f"[serve-entry] warming pass {time.perf_counter() - t1:.1f} s")
+        before = scrape_launches(ports[2])
+        t1 = time.perf_counter()
+        first = entry_requests(base, model, seed=5)
+        seq_s = time.perf_counter() - t1
+        second = entry_requests(base, model, seed=5)
+        for key in first:
+            if first[key] != second[key]:
+                raise AssertionError(f"{key} differs between two serves of "
+                                     f"the same requests")
+        check_entry_answers(first, cfg.hidden_size)
+        n_seq = sum(first[f"chat{i}"]["usage"]["completion_tokens"]
+                    for i in range(len(ENTRY_CHAT_WORDS)))
+        log(f"[serve-entry] identity pass: 4 chat completions one at a time "
+            f"(2 streamed) + echo/logprobs over "
+            f"{len(first['echo']['token_logprobs'])} tokens + 2 embeddings "
+            f"in {seq_s:.3f} s ({n_seq} chat tokens), served twice: equal; "
+            f"finish {[first[f'chat{i}']['finish'] for i in range(4)]}")
+        warm = []
+        for tag, seed in ENTRY_WINDOWS:
+            m0 = scrape_metrics(ports[2])
+            r = entry_window(base, model, cfg.vocab_size, seed)
+            r["engine"] = worker_ttft_s(m0, scrape_metrics(ports[2]), r["n"])
+            r["hop"] = r["ttft_mean"] - r["engine"]
+            log(f"[serve-entry] timed {tag} (phase 4's requests, seed "
+                f"{seed}): {r['tokens']} tokens in {r['wall']:.4f} s: "
+                f"{r['tok_s']:.2f} tok/s; client TTFT p50="
+                f"{r['ttft_p50']:.4f} s max={r['ttft_max']:.4f} s mean="
+                f"{r['ttft_mean']:.4f} s; the worker's engine "
+                f"{r['engine']:.4f} s; outside it (frontend, RPC, HTTP) "
+                f"{r['hop'] * 1e3:.2f} ms per request "
+                f"({r['hop'] / r['ttft_mean']:.1%})")
+            if tag == "warm":
+                warm.append(r)
+        hops = [r["hop"] * 1e3 for r in warm]
+        toks = [r["tok_s"] for r in warm]
+        log(f"[serve-entry] warm windows: {len(warm)} x {warm[0]['n']} "
+            f"requests; outside the engine mean {float(np.mean(hops)):.2f} "
+            f"ms per request (windows {min(hops):.2f}-{max(hops):.2f}); "
+            f"{min(toks):.2f}-{max(toks):.2f} tok/s; client TTFT p50 "
+            f"{min(r['ttft_p50'] for r in warm):.4f}-"
+            f"{max(r['ttft_p50'] for r in warm):.4f} s")
+        p4 = PHASE4_WARM.get("llama")
+        if p4:
+            log(f"[serve-entry] beside phase 4 in process (warm, seed "
+                f"{WARM_SEED}, the same requests): {p4['tok_s']:.2f} tok/s, "
+                f"TTFT p50={p4['ttft_p50']:.4f} s max={p4['ttft_max']:.4f} "
+                f"s mean={p4['ttft_mean']:.4f} s")
+        after = scrape_launches(ports[2])
+        delta = {k: int(after[k] - before.get(k, 0)) for k in after}
+        log(f"[serve-entry] worker kernel launches over the identity "
+            f"passes and the timed windows: {delta}")
+        for k in ("paged_decode", "paged_prefill", "ragged_mixed"):
+            if delta.get(k, 0) <= 0:
+                raise AssertionError(f"kernel {k} never launched in the "
+                                     f"worker")
+        return delta
+    except Exception:
+        for c in children:
+            log(f"[serve-entry] last 40 lines of {c.name}:\n{c.tail()}")
+        raise
+    finally:
+        for c in reversed(children):
+            c.stop()
+
+
+# -- the loader on the card ----------------------------------------------------
+
+ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A ``.safetensors`` file of CPU ``tensors`` (8 bytes of header
+    length, the JSON header padded to 8 bytes, the raw little-endian
+    data). Returns its size in bytes."""
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.uint8).numpy().data)
+    return 8 + len(head) + off
+
+
+def phase_loader() -> None:
+    """Two full-width Llama-3.2-3B layers and the tied embedding (about
+    1.2 GB of bf16, random from a seed) written as a safetensors file with
+    this script's own header writer, read onto the card by the port's
+    loader: every leaf equal to the tensor written, bit for bit (after the
+    ``[out, in]`` -> ``[in, out]`` transpose and the layer stacking)."""
+    from dynamo_tpu_torch.models.hf_loader import load_hf_params
+    from dynamo_tpu_torch.models.config import ModelConfig
+    cfg = ModelConfig.llama32_3b(num_layers=2)
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(*shape):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * 0.02).to(torch.bfloat16)
+
+    H, I, q, kv = (cfg.hidden_size, cfg.intermediate_size, cfg.q_size,
+                   cfg.kv_size)
+    want = {("embed",): rand(cfg.vocab_size, H), ("final_norm",): rand(H)}
+    hf = {"model.embed_tokens.weight": ("embed",),
+          "model.norm.weight": ("final_norm",)}
+    per_layer = {"input_layernorm": ("attn_norm", (H,), False),
+                 "self_attn.q_proj": ("wq", (q, H), True),
+                 "self_attn.k_proj": ("wk", (kv, H), True),
+                 "self_attn.v_proj": ("wv", (kv, H), True),
+                 "self_attn.o_proj": ("wo", (H, q), True),
+                 "post_attention_layernorm": ("mlp_norm", (H,), False),
+                 "mlp.gate_proj": ("w_gate", (I, H), True),
+                 "mlp.up_proj": ("w_up", (I, H), True),
+                 "mlp.down_proj": ("w_down", (H, I), True)}
+    tensors = {}
+    for name, path in hf.items():
+        tensors[name] = want[path].cpu()
+    stacked = {}
+    for l in range(cfg.num_layers):
+        for hf_name, (leaf, shape, transpose) in per_layer.items():
+            t = rand(*shape)
+            tensors[f"model.layers.{l}.{hf_name}.weight"] = t.cpu()
+            stacked.setdefault(leaf, []).append(t.t() if transpose else t)
+    for leaf, ts in stacked.items():
+        want[("layers", leaf)] = torch.stack(ts)
+    del stacked
+    work = os.path.join(ROOT, "build", "loader_check")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "model.safetensors")
+    t0 = time.perf_counter()
+    size = write_safetensors(path, tensors)
+    del tensors
+    log(f"[loader] wrote {size / 2 ** 30:.3f} GiB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = load_hf_params(cfg, work, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = 0
+        for tree_path, w in want.items():
+            leaf = got
+            for k in tree_path:
+                leaf = leaf[k]
+            if leaf.dtype != torch.bfloat16 or leaf.shape != w.shape or \
+                    not torch.equal(leaf.view(torch.int16),
+                                    w.view(torch.int16)):
+                raise AssertionError(f"loaded {tree_path} differs from the "
+                                     f"tensor written")
+            n += 1
+        log(f"[loader] read {size / 2 ** 30:.3f} GiB onto the card in "
+            f"{dt:.2f} s ({size / dt / 1e9:.2f} GB/s), {n} leaves bit for "
+            f"bit equal to the tensors written")
+    finally:
+        os.remove(path)
+
+
 SOURCES = {
     "paged_decode": ("dynamo_tpu_torch/ops/kernels/csrc/decode.cu",
                      "dynamo_tpu/ops/pallas/decode.py:69"),
@@ -1737,6 +2348,7 @@ def main() -> int:
         return 1 if failures else 0
     counts = {k: 0 for k in SOURCES}
     sampled = {k: 0 for k in SOURCES}
+    entry = {}
     profile = "--profile" in args
     if not failures:
         # one model on the card at a time: each is freed before the next
@@ -1747,6 +2359,11 @@ def main() -> int:
             c, sc = model_phases(name, cfg, impls, strict, failures, profile)
             counts.update(c)
             sampled.update(sc)
+            if name == "llama32_3b":
+                # the entry points, with the in-process model freed
+                entry = run_phase("serve-entry", phase_serve_entry,
+                                  failures) or {}
+                run_phase("loader", phase_loader, failures)
     if failures:
         log(f"[fail] phases failed: {failures}")
         return 1
@@ -1757,6 +2374,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
             "launches_sampled": sampled[name],
+            "launches_serve_entry": entry.get(name),
             "max_abs_err": row["max_abs_err"],
             "max_err_ulps": row["max_err_ulps"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "ms_per_call": row["ms_per_call"],

@@ -11,6 +11,13 @@ kernels for ``sm_90a`` (``ops/kernels/``: paged decode, chunked prefill,
 ragged mixed steps, and latent MLA decode and prefill), one for each Pallas
 kernel of the reference.
 
+Its entry points are the reference's: ``python -m
+dynamo_tpu_torch.runtime.coordinator``, ``...frontend.main`` and
+``...worker.main`` (the serving half copied from the reference's JAX-free
+modules, the worker serving ``TorchEngine`` with weights from
+``models/hf_loader.py``), and ``python -m dynamo_tpu_torch.run
+in=http|text|stdin|batch:FILE out=torch|echo``.
+
 The package imports ``torch`` and never ``jax`` or ``dynamo_tpu``. Its entry
 points run on the GPU unless the caller passes ``device="cpu"``, where every
 kernel wrapper computes its plain PyTorch version instead (the CPU tests).

@@ -48,14 +48,28 @@ Decode, with the reference's defaults (``pipeline_decode``,
   records an event; ``fetch_packed`` waits on that event only, so a fetch
   of step N never waits for step N+1.
 
+Beside the scheduler, as the reference's worker serves them on its aux
+plane: ``embed`` (the family's dense ``encode``, mean-pooled) and
+``score`` (prompt logprobs and top-n alternatives through the paged
+chunked-prefill forward against scratch pages, its logits window covering
+each full chunk; on the GPU its attention is the prefill kernel). On the
+GPU both run on the loop's exclusive lane, between dispatches.
+``stats`` adds the MoE drop count (0: the dense backend drops nothing).
+The decode knobs left ``None`` in ``TorchEngineConfig`` resolve at build
+from ``RuntimeConfig`` and the short-form env (``DYN_DECODE_MULTISTEP``,
+``DYN_MIXED_BATCH``, ``DYN_DECODE_PROGRESS``), as the reference's do.
+
 Refused rather than approximated: speculative decoding (ROADMAP A8) and
 sequence-parallel ring prefill (A13).
 """
 
 from __future__ import annotations
 
+import asyncio
+import inspect
 import json
 import logging
+import os
 import threading
 import time
 import weakref
@@ -161,14 +175,84 @@ class TorchEngineConfig:
     # step-at-a-time decode (and turns fusion off too)
     pipeline_decode: bool = True
     # fused decode: at most this many decode steps per block (the
-    # scheduler narrows the width per batch); 1 turns fusion off
-    decode_multistep: int = DECODE_MULTISTEP
+    # scheduler narrows the width per batch); 1 turns fusion off. None
+    # resolves DYN_DECODE_MULTISTEP / RuntimeConfig.decode_multistep
+    # (default 8) when the engine is built
+    decode_multistep: Optional[int] = None
     # mixed prefill+decode dispatch (decode rows ride prefill steps as
-    # length-1 ragged chunks); False restores the strict alternation
-    mixed_batch: bool = True
+    # length-1 ragged chunks); False restores the strict alternation.
+    # None resolves RuntimeConfig.mixed_batch, then DYN_MIXED_BATCH
+    mixed_batch: Optional[bool] = None
     # with mixed batching off: at most K-1 prefill-only steps in a row
-    # while decode rows wait
-    decode_progress_every: int = 2
+    # while decode rows wait. None resolves
+    # RuntimeConfig.decode_progress_every, then DYN_DECODE_PROGRESS
+    decode_progress_every: Optional[int] = None
+    # prompt scoring (completions echo + logprobs) length cap; 0 = use
+    # max_context. Scoring runs the paged chunked-prefill forward against
+    # a scratch cache allocated beside the serving pool, so the default
+    # stays bounded
+    score_max_tokens: int = 4096
+
+
+# prompt-scoring chunk: each full chunk of the prompt is one forward whose
+# logits window covers the whole chunk (the reference's _SCORE_CHUNK)
+_SCORE_CHUNK = 256
+
+# defaults for the mixed-dispatch knobs (see TorchEngineConfig)
+MIXED_BATCH = True
+DECODE_PROGRESS_EVERY = 2
+
+
+def _runtime_default(attr: str, fallback):
+    """RuntimeConfig field (dataclass -> TOML -> ``DYN_RUNTIME_*`` env)
+    with the shared error discipline: a bad TOML/env must not break an
+    engine build. Resolved at engine build, not at import, so
+    monkeypatched env changes take effect."""
+    try:
+        from dynamo_tpu_torch.utils.config import RuntimeConfig
+        return getattr(RuntimeConfig.load(), attr)
+    except Exception:  # noqa: BLE001
+        logger.warning("bad runtime config; %s falls back to %r",
+                       attr, fallback, exc_info=True)
+        return fallback
+
+
+def _env_int_default(env: str, val: int) -> int:
+    """Short-form env override for an int knob; malformed values keep
+    the resolved default instead of breaking the engine build."""
+    raw = os.environ.get(env)
+    try:
+        return int(raw) if raw is not None else val
+    except (TypeError, ValueError):
+        logger.warning("malformed %s %r; using %d", env, raw, val)
+        return val
+
+
+def mixed_batch_default() -> bool:
+    """Defaults layer for the mixed-dispatch enable flag:
+    ``RuntimeConfig.mixed_batch``, then the short-form ``DYN_MIXED_BATCH``
+    env wins."""
+    val = bool(_runtime_default("mixed_batch", MIXED_BATCH))
+    raw = os.environ.get("DYN_MIXED_BATCH")
+    if raw is not None:
+        val = raw.strip().lower() not in ("0", "false", "no", "off", "")
+    return val
+
+
+def decode_progress_default() -> int:
+    """Defaults layer for the decode-progress guarantee K
+    (``RuntimeConfig.decode_progress_every``, then the short-form
+    ``DYN_DECODE_PROGRESS`` env wins)."""
+    val = _runtime_default("decode_progress_every", DECODE_PROGRESS_EVERY)
+    return max(0, _env_int_default("DYN_DECODE_PROGRESS", int(val)))
+
+
+def decode_multistep_default() -> int:
+    """Defaults layer for the fused-decode width
+    (``RuntimeConfig.decode_multistep``, then the short-form
+    ``DYN_DECODE_MULTISTEP`` env wins)."""
+    val = _runtime_default("decode_multistep", DECODE_MULTISTEP)
+    return max(1, _env_int_default("DYN_DECODE_MULTISTEP", int(val)))
 
 
 def _bucket(n: int, lo: int, hi: int) -> int:
@@ -243,7 +327,12 @@ class TorchEngine(ScheduledEngineBase):
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.attention = MLA_ATTENTION if self.mla else ATTENTION
         self.decode_kernel = "mla_decode" if self.mla else "paged_decode"
-        self.multistep = max(1, int(self.cfg.decode_multistep))
+        self.multistep = (max(1, int(self.cfg.decode_multistep))
+                          if self.cfg.decode_multistep is not None
+                          else decode_multistep_default())
+        self.mixed_batch = (bool(self.cfg.mixed_batch)
+                            if self.cfg.mixed_batch is not None
+                            else mixed_batch_default())
         super().__init__(
             num_pages=self.cfg.num_pages, page_size=self.cfg.page_size,
             max_num_seqs=self.cfg.max_num_seqs,
@@ -251,8 +340,11 @@ class TorchEngine(ScheduledEngineBase):
             max_context=self.cfg.max_context,
             max_prefill_seqs=self.cfg.max_prefill_seqs,
             decode_multistep=self.multistep,
-            mixed_batch=bool(self.cfg.mixed_batch),
-            decode_progress_every=int(self.cfg.decode_progress_every))
+            mixed_batch=self.mixed_batch,
+            decode_progress_every=(
+                int(self.cfg.decode_progress_every)
+                if self.cfg.decode_progress_every is not None
+                else decode_progress_default()))
         # fused-path gates for penalized/guided rows: the scheduler narrows
         # block widths by the penalty window's remaining capacity and asks
         # whether a row's grammar lowered to a device table
@@ -1281,6 +1373,157 @@ class TorchEngine(ScheduledEngineBase):
             ev, self._pending_compiles = self._pending_compiles, []
         return ev
 
+    def stats(self):
+        """The scheduler's metrics with the MoE drop count, as
+        ``JaxEngine.stats``."""
+        m = super().stats()
+        m.worker_stats.moe_dropped_tokens = self.moe_dropped_total()
+        return m
+
+    def moe_dropped_total(self) -> int:
+        """Cumulative MoE dispatch overflow count: 0, since the port runs
+        the dense expert backend only, which drops nothing (the capacity
+        dispatch backend is ROADMAP A11)."""
+        return 0
+
+    # -- one-shot surfaces: embeddings and prompt scoring ------------------
+
+    async def _beside_loop(self, fn, *args):
+        """Run ``fn`` off the scheduler. On the GPU it runs on the loop's
+        exclusive lane (``run_exclusive``: between dispatches, on the step
+        threads' card): a fused block's graph capture on the step thread
+        fails if another thread launches work meanwhile (PyTorch's default
+        stream is the legacy stream, which joins every capture), and its
+        one-stream order keeps a replay's writes and this work's apart. On
+        the CPU it runs in a thread beside the loop, as the reference's
+        ``asyncio.to_thread``."""
+        if self.device.type == "cuda":
+            return await self.run_exclusive(fn, *args)
+        return await asyncio.to_thread(fn, *args)
+
+    def _padded_tokens(self, token_lists, S: int):
+        B = len(token_lists)
+        toks = np.zeros((B, S), np.int32)
+        mask = np.zeros((B, S), bool)
+        for i, ids in enumerate(token_lists):
+            n = min(len(ids), S)
+            toks[i, :n] = ids[:n]
+            mask[i, :n] = True
+        return toks, mask
+
+    @torch.no_grad()
+    def _embed_batch(self, token_lists) -> np.ndarray:
+        """Mean-pooled hidden-state embeddings ``[B, H]`` float32 (the
+        reference's ``_embed_batch``: the family's dense ``encode`` at the
+        prefill bucket of the longest prompt; no KV cache)."""
+        encode = getattr(self.family, "encode", None)
+        if encode is None:
+            raise NotImplementedError(
+                f"{self.model_cfg.model_type} has no embedding path")
+        S = _bucket(max(len(t) for t in token_lists),
+                    self.cfg.min_prefill_bucket, self.cfg.max_prefill_chunk)
+        toks, mask = self._padded_tokens(token_lists, S)
+        self._use_device()
+        out = encode(self.params, self.model_cfg,
+                     _upload(toks, self.device), _upload(mask, self.device))
+        return out.cpu().numpy()
+
+    async def embed(self, token_lists) -> np.ndarray:
+        return await self._beside_loop(self._embed_batch, token_lists)
+
+    def _score_batch(self, token_lists):
+        """Per-token prompt logprobs (the OpenAI ``echo`` + logprobs
+        surface): a list of (lps, top_ids [n, top_n], top_lps [n, top_n])
+        per input; index 0 has no context (lp 0). The reference's
+        ``_score_batch``: the family's paged chunked-prefill forward
+        against scratch pages, ``logits_window`` covering each full chunk,
+        so its attention is the prefill kernel's."""
+        if not token_lists:
+            return []
+        cap = (self.cfg.score_max_tokens or self.cfg.max_context)
+        cap = min(cap, self.cfg.max_context)
+        longest = max(len(t) for t in token_lists)
+        if longest > cap:
+            # name the knob(s) that bind, as the reference does
+            smt = self.cfg.score_max_tokens
+            if not smt or smt > self.cfg.max_context:
+                knob = "max_context"
+            elif smt < self.cfg.max_context:
+                knob = "score_max_tokens"
+            else:
+                knob = "score_max_tokens AND max_context"
+            raise ValueError(
+                f"prompt of {longest} tokens exceeds the scoring cap "
+                f"{cap} (score_max_tokens="
+                f"{self.cfg.score_max_tokens or 'max_context'}, "
+                f"max_context {self.cfg.max_context}) — raise {knob} "
+                "to score longer prompts")
+        if "logits_window" not in inspect.signature(
+                self.family.forward).parameters:
+            raise NotImplementedError(
+                f"{self.model_cfg.model_type} has no prompt-scoring "
+                "path (forward lacks logits_window)")
+        chunk = _SCORE_CHUNK
+        S = max(chunk, -(-longest // chunk) * chunk)
+        toks, _ = self._padded_tokens(token_lists, S)
+        lps, tids, tlps = self._score_impl(toks)
+        return [(lps[i, :len(t)], tids[i, :len(t)], tlps[i, :len(t)])
+                for i, t in enumerate(token_lists)]
+
+    @torch.no_grad()
+    def _score_impl(self, tokens_np: np.ndarray):
+        """The reference's ``_score_impl`` with its ``lax.scan`` over
+        chunks written out. Every chunk is full (S is a multiple of the
+        chunk), so ``new_lens`` is uniform and the window is the whole
+        chunk; pad positions write KV into the row's own scratch pages past
+        its real length, where no real position attends."""
+        cfg = self.model_cfg
+        dev = self.device
+        self._use_device()
+        B, S = tokens_np.shape
+        chunk = _SCORE_CHUNK
+        ps = self.cfg.page_size
+        per_row = -(-S // ps)
+        pages = self.family.make_pages(cfg, B * per_row + 1, ps, device=dev)
+        table = (1 + torch.arange(B * per_row, dtype=torch.int32,
+                                  device=dev)).reshape(B, per_row)
+        tokens = _upload(tokens_np, dev)
+        # position p's logits predict tokens[p + 1]: shifted once, so the
+        # last slot of a chunk reaches across the chunk boundary
+        tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
+        top_n = max(1, min(self.cfg.num_top_logprobs or 1, cfg.vocab_size))
+        attn = self._attn["mla_prefill" if self.mla else "paged_prefill"]
+        new = torch.full((B,), chunk, dtype=torch.int32, device=dev)
+        t_lp, top_id, top_lp = [], [], []
+        for ci in range(S // chunk):
+            sl = slice(ci * chunk, (ci + 1) * chunk)
+            pos = torch.arange(sl.start, sl.stop, dtype=torch.int32,
+                               device=dev)[None].expand(B, chunk)
+            total = torch.full((B,), sl.stop, dtype=torch.int32, device=dev)
+            logits, _ = self.family.forward(
+                self.params, cfg, tokens[:, sl].contiguous(),
+                pos.contiguous(), pages, table, total, new, attn_impl=attn,
+                logits_window=chunk)
+            lsm = torch.log_softmax(logits.float(), dim=-1)  # [B, c, V]
+            t_lp.append(torch.gather(lsm, -1, tgt[:, sl, None])[..., 0])
+            vals, ids = top_k_stable(lsm.reshape(B * chunk, -1), top_n)
+            top_lp.append(vals.reshape(B, chunk, top_n))
+            top_id.append(ids.to(torch.int32).reshape(B, chunk, top_n))
+        # position j - 1 predicts token j; index 0 has no context, and the
+        # wrapped last target drops out with the same shift
+        t_lp, top_id, top_lp = (torch.cat(x, dim=1).cpu().numpy()
+                                for x in (t_lp, top_id, top_lp))
+        target_lps = np.concatenate(
+            [np.zeros((B, 1), np.float32), t_lp[:, :-1]], axis=1)
+        top_ids = np.concatenate(
+            [np.zeros((B, 1, top_n), np.int32), top_id[:, :-1]], axis=1)
+        top_lps = np.concatenate(
+            [np.zeros((B, 1, top_n), np.float32), top_lp[:, :-1]], axis=1)
+        return target_lps, top_ids, top_lps
+
+    async def score(self, token_lists):
+        return await self._beside_loop(self._score_batch, token_lists)
+
     def _use_device(self) -> None:
         """Dispatches run on the loop's pool threads: make this engine's
         card the thread's current device."""
@@ -1311,4 +1554,6 @@ def _params_to(params, device):
     return params.to(device)
 
 
-__all__ = ["TorchEngine", "TorchEngineConfig"]
+__all__ = ["TorchEngine", "TorchEngineConfig", "decode_multistep_default",
+           "mixed_batch_default", "decode_progress_default",
+           "DECODE_MULTISTEP", "MIXED_BATCH", "DECODE_PROGRESS_EVERY"]

@@ -541,7 +541,8 @@ def _layer_step(cfg: ModelConfig, lp, h, positions, total_lens, new_lens,
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, pages: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
-            new_lens: torch.Tensor, attn_impl: Optional[Callable] = None
+            new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
+            logits_window: int = 1
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward over the stacked latent cache: the dense stack, then the MoE
     stack, one shared cache.
@@ -550,7 +551,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cache, written in place; page_table: [B, P]; total_lens: [B] context
     including the new tokens; new_lens: [B] real new tokens per row.
     ``attn_impl`` takes the MLA signature (module docstring); None runs the
-    oracle. Returns (logits [B, V] float32, pages)."""
+    oracle. Returns (logits float32 at each row's last ``logits_window``
+    real new tokens, ``[B, V]`` or ``[B, W, V]``, and pages)."""
     K = cfg.first_k_dense_replace
     h = params["embed"][tokens.long()]
     stacks = []
@@ -564,7 +566,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             lp = {k: v[i] for k, v in layers.items()}
             h = _layer_step(cfg, lp, h, positions, total_lens, new_lens,
                             page_table, pages, first + i, moe, attn_impl)
-    return _logits(cfg, params, h, new_lens), pages
+    return _logits(cfg, params, h, new_lens, window=logits_window), pages
 
 
 __all__ = ["init_params", "params_from_jax", "forward", "make_pages",

@@ -11,7 +11,9 @@ JAX package donated it to the jitted step for the same effect.
 
 Plain matrix products stay ``torch.matmul`` (the reference leaves them to
 XLA, outside any Pallas kernel). Only the last real token's logits are
-computed, ``[B, V]`` in float32, from model-dtype operands.
+computed, ``[B, V]`` in float32, from model-dtype operands — or the last
+``logits_window`` tokens' for prompt scoring. ``encode`` is the dense
+(non-paged) forward of the embeddings surface.
 """
 
 from __future__ import annotations
@@ -164,29 +166,43 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor,
-            new_lens: torch.Tensor) -> torch.Tensor:
-    """float32 logits [B, V] at each row's last real new token."""
+            new_lens: torch.Tensor, window: int = 1) -> torch.Tensor:
+    """float32 logits at each row's last ``window`` real new positions:
+    ``[B, V]`` for ``window == 1`` (every serving step), ``[B, W, V]``
+    for ``window = W > 1`` (prompt scoring; positions before a row's
+    first new token clamp to slot 0, as the reference's do)."""
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    last = torch.clamp(new_lens.long() - 1, min=0)
-    h_sel = h[torch.arange(h.shape[0], device=h.device), last]   # [B, H]
+    rows = torch.arange(h.shape[0], device=h.device)
+    if window == 1:
+        last = torch.clamp(new_lens.long() - 1, min=0)
+        h_sel = h[rows, last]                                     # [B, H]
+    else:
+        offs = torch.arange(window, device=h.device)[None, :]
+        idx = torch.clamp(new_lens.long()[:, None] - window + offs, min=0)
+        h_sel = h[rows[:, None], idx]                             # [B, W, H]
     lm_head = params.get("lm_head")
     if lm_head is None:
         lm_head = params["embed"].t()
-    return _mm_f32(h_sel, lm_head)
+    if window == 1:
+        return _mm_f32(h_sel, lm_head)
+    B, W, H = h_sel.shape
+    return _mm_f32(h_sel.reshape(B * W, H), lm_head).reshape(B, W, -1)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, pages: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
-            new_lens: torch.Tensor, attn_impl: Optional[Callable] = None
+            new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
+            logits_window: int = 1
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward over the stacked paged cache.
 
     tokens/positions: [B, S] (pads masked via new_lens); pages: the cache,
     written in place; page_table: [B, P]; total_lens: [B] context including
     the new tokens; new_lens: [B] real new tokens per row. ``attn_impl``
-    takes ``paged_attention``'s signature. Returns (logits [B, V] float32,
-    pages).
+    takes ``paged_attention``'s signature. Returns (logits float32 at each
+    row's last ``logits_window`` real new tokens — ``[B, V]`` for a window
+    of 1, else ``[B, W, V]`` — and pages).
     """
     sm_scale = cfg.head_dim ** -0.5
     attn_impl = attn_impl or paged_attention
@@ -199,8 +215,50 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         attn = attn_impl(q, pages, l, page_table, positions, total_lens,
                          sm_scale)
         h = _finish_layer(cfg, lp, h, attn)
-    return _logits(cfg, params, h, new_lens), pages
+    return _logits(cfg, params, h, new_lens, window=logits_window), pages
 
 
-__all__ = ["init_params", "params_from_jax", "forward", "make_pages",
-           "torch_dtype"]
+def _dense_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Causal dense (non-paged) forward of the one-shot embeddings
+    surface: attention over the prompt itself in plain PyTorch, float32
+    scores ``[B, H, S, S]`` per layer (the reference computes it outside
+    any Pallas kernel too), so callers bound S. Returns the final-norm
+    hidden states ``[B, S, H]``."""
+    B, S = tokens.shape
+    dev = tokens.device
+    sm_scale = cfg.head_dim ** -0.5
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S)
+    h = params["embed"][tokens.long()]
+    causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=dev))
+    attn_mask = causal[None, None] & mask[:, None, None, :]      # [B,1,S,S]
+    rep = cfg.num_heads // cfg.num_kv_heads
+    layers = params["layers"]
+    for l in range(cfg.num_layers):
+        lp = {k: v[l] for k, v in layers.items()}
+        q, k, v = _project_qkv(cfg, lp, h, positions)
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                              k.float()) * sm_scale
+        scores = torch.where(attn_mask, scores,
+                             torch.tensor(-1e30, device=dev))
+        probs = torch.softmax(scores, dim=-1)
+        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+        h = _finish_layer(cfg, lp, h, attn.to(h.dtype))
+    return _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+
+
+def encode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """Embeddings: the mean-pooled final hidden state over each row's real
+    tokens, float32 ``[B, H]`` (tokens / mask ``[B, S]``)."""
+    h = _dense_hidden(params, cfg, tokens, mask)
+    m = mask.float()[..., None]
+    return (h.float() * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+
+
+__all__ = ["init_params", "params_from_jax", "forward", "encode",
+           "make_pages", "torch_dtype"]

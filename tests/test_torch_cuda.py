@@ -672,3 +672,165 @@ def test_fused_serve_matches_per_step_on_the_card(dev):
             assert eng.guided_parity_mismatches == 0
     assert out["fused"] == out["per_step"]
     assert [len(t) for t in out["fused"][:4]] == [5, 11, 13, 10]
+
+
+# -- the serving entry points on the card ---------------------------------------
+
+
+def test_loader_onto_the_card_bit_for_bit(dev, tmp_path):
+    """A two-layer bf16 Llama checkpoint written by ``chip_smoke.py``'s
+    header writer, read by the port's loader onto the card and onto the
+    CPU: equal bit for bit to each other and to the tensors written."""
+    import chip_smoke as cs
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.models.hf_loader import load_hf_params
+    cfg = ModelConfig.tiny(dtype="bfloat16", tie_word_embeddings=False)
+    g = torch.Generator().manual_seed(0)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    shapes = {"input_layernorm": (H,), "self_attn.q_proj": (cfg.q_size, H),
+              "self_attn.k_proj": (cfg.kv_size, H),
+              "self_attn.v_proj": (cfg.kv_size, H),
+              "self_attn.o_proj": (H, cfg.q_size),
+              "post_attention_layernorm": (H,), "mlp.gate_proj": (I, H),
+              "mlp.up_proj": (I, H), "mlp.down_proj": (H, I)}
+    tensors = {"model.embed_tokens.weight": (cfg.vocab_size, H),
+               "model.norm.weight": (H,),
+               "lm_head.weight": (cfg.vocab_size, H)}
+    for l in range(cfg.num_layers):
+        for name, shape in shapes.items():
+            tensors[f"model.layers.{l}.{name}.weight"] = shape
+    tensors = {k: torch.randn(s, generator=g).to(torch.bfloat16)
+               for k, s in tensors.items()}
+    cs.write_safetensors(str(tmp_path / "model.safetensors"), tensors)
+    on_card = load_hf_params(cfg, str(tmp_path), device=dev)
+    on_cpu = load_hf_params(cfg, str(tmp_path), device="cpu")
+    assert on_card["layers"]["wq"].is_cuda
+    want_wq = torch.stack([tensors[f"model.layers.{l}.self_attn.q_proj"
+                                   ".weight"].t()
+                           for l in range(cfg.num_layers)])
+    assert torch.equal(on_cpu["layers"]["wq"].view(torch.int16),
+                       want_wq.view(torch.int16))
+    assert torch.equal(on_cpu["lm_head"].view(torch.int16),
+                       tensors["lm_head.weight"].t().view(torch.int16))
+    for k in ("embed", "final_norm", "lm_head"):
+        assert torch.equal(on_card[k].cpu().view(torch.int16),
+                           on_cpu[k].view(torch.int16)), k
+    for k, v in on_cpu["layers"].items():
+        assert torch.equal(on_card["layers"][k].cpu().view(torch.int16),
+                           v.view(torch.int16)), k
+
+
+def test_score_on_the_card_through_b2(dev):
+    """``TorchEngine.score`` on the card (B2 through its wrapper) against
+    the same engine's weights scoring on the CPU (the plain version):
+    per prompt, the logprobs within 2 bf16 ulps of the row's largest."""
+    import asyncio
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.ops.kernels import reset_launch_counts
+    card = _block_engine(dev, False)
+    cpu = TorchEngine(card.model_cfg,
+                      {k: (v.cpu() if isinstance(v, torch.Tensor) else
+                           {kk: vv.cpu() for kk, vv in v.items()})
+                       for k, v in card.params.items()},
+                      TorchEngineConfig(num_pages=160, page_size=16,
+                                        max_num_seqs=8, max_context=512),
+                      device="cpu")
+    rng = np.random.default_rng(0)
+    toks = [list(map(int, rng.integers(1, 512, size=n)))
+            for n in (300, 17, 256)]
+    async def score_on_card():
+        # on the card score runs on the engine loop's exclusive lane
+        try:
+            return await card.score(toks)
+        finally:
+            await card.stop()
+
+    reset_launch_counts()
+    got = asyncio.run(score_on_card())
+    torch.cuda.synchronize()
+    # two chunks of 256 for the longest prompt, every layer through B2
+    assert LAUNCHES["paged_prefill"] == 2 * card.model_cfg.num_layers
+    want = asyncio.run(cpu.score(toks))
+    for (lps, tids, tlps), (wl, wt, wtl), t in zip(got, want, toks):
+        assert lps.shape == (len(t),) and np.all(np.isfinite(lps))
+        err = row_ulp_error(torch.from_numpy(lps)[None],
+                            torch.from_numpy(wl)[None])
+        assert float(err.max()) <= TOL_ULPS, float(err.max())
+        # the top-n alternatives: their logprobs by the same rule, and
+        # their ids equal wherever the CPU run's neighbours stand further
+        # apart than the two runs may each move them; the last rank's
+        # next alternative is not returned, so it is left out
+        assert tlps.shape == wtl.shape == tids.shape == wt.shape
+        assert np.all(np.isfinite(tlps))
+        err = row_ulp_error(torch.from_numpy(tlps).reshape(1, -1),
+                            torch.from_numpy(wtl).reshape(1, -1))
+        assert float(err.max()) <= TOL_ULPS, float(err.max())
+        tol = TOL_ULPS * 2.0 ** (np.floor(np.log2(np.abs(wtl).max())) - 7)
+        gap = wtl[:, :-1] - wtl[:, 1:]
+        clear = np.ones(wt.shape, dtype=bool)
+        clear[:, :-1] &= gap > 2 * tol
+        clear[:, 1:] &= gap > 2 * tol
+        clear[:, -1] = False
+        assert clear[1:].any()
+        assert np.array_equal(tids[clear], wt[clear]), \
+            np.argwhere((tids != wt) & clear)[:8]
+
+
+def test_worker_process_answers_on_the_card(tmp_path):
+    """The port's coordinator, a torch worker on the card (bf16 random
+    weights, head_dim 128) and the port's frontend as processes: one chat
+    completion answered, B1 and B2 launched in the worker."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    import chip_smoke as cs
+    from dynamo_tpu_torch.models.config import ModelConfig
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=8, num_kv_heads=2,
+                      head_dim=128, dtype="bfloat16",
+                      max_position_embeddings=1024)
+    model = str(tmp_path / "tiny")
+    cs.write_entry_model(model, cfg)
+    coord, http, sysp = cs.free_port(), cs.free_port(), cs.free_port()
+    kids = []
+    try:
+        kids.append(cs.Child("coordinator",
+                             "dynamo_tpu_torch.runtime.coordinator",
+                             ["--host", "127.0.0.1", "--port", str(coord)],
+                             str(tmp_path)))
+        kids[-1].wait_for("coordinator listening")
+        kids.append(cs.Child(
+            "worker", "dynamo_tpu_torch.worker.main",
+            ["--coordinator", f"127.0.0.1:{coord}", "--model-path", model,
+             "--random-weights", "--num-pages", "128", "--max-context",
+             "512", "--max-num-seqs", "4"], str(tmp_path),
+            {"DYN_SYSTEM_ENABLED": "1", "DYN_SYSTEM_PORT": str(sysp)}))
+        kids.append(cs.Child(
+            "frontend", "dynamo_tpu_torch.frontend.main",
+            ["--coordinator", f"127.0.0.1:{coord}", "--http-host",
+             "127.0.0.1", "--http-port", str(http)], str(tmp_path)))
+        kids[1].wait_for("torch worker serving model")
+        kids[2].wait_for("frontend listening")
+        import json
+        import time
+        import urllib.request
+        base = f"http://127.0.0.1:{http}"
+        for _ in range(100):
+            with urllib.request.urlopen(f"{base}/v1/models") as resp:
+                if json.loads(resp.read())["data"]:
+                    break
+            time.sleep(0.1)
+        r = cs.http_post(f"{base}/v1/chat/completions", {
+            "model": "tiny", "max_tokens": 8, "temperature": 0,
+            "messages": [{"role": "user", "content": "w1 w2 w3"}]})
+        assert r["choices"][0]["finish_reason"] in ("length", "stop")
+        assert 0 < r["usage"]["completion_tokens"] <= 8
+        launches = cs.scrape_launches(sysp)
+        assert launches["paged_prefill"] > 0 and launches["paged_decode"] > 0
+    except Exception:
+        for k in kids:
+            print(f"--- {k.name}\n{k.tail()}")
+        raise
+    finally:
+        for k in reversed(kids):
+            k.stop()

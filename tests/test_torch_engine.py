@@ -15,7 +15,8 @@ port's package rules.
   schedule), and a seeded request the same alone as in a batch.
 - Admission: the port refuses only what ``JaxEngine`` refuses.
 - Import hygiene: every module of ``dynamo_tpu_torch`` imports with JAX
-  made unimportable, and loads nothing of ``dynamo_tpu``.
+  made unimportable, and loads nothing of ``dynamo_tpu``; no import
+  statement of the port or of ``chip_smoke.py`` names either.
 - Device rule: without a GPU, an entry point not told ``device="cpu"``
   raises.
 """
@@ -276,7 +277,11 @@ import dynamo_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__,
                                               "dynamo_tpu_torch.")]
 assert {"dynamo_tpu_torch.ops.prng", "dynamo_tpu_torch.ops.sampling",
-        "dynamo_tpu_torch.engine.guided"} <= set(mods), mods
+        "dynamo_tpu_torch.engine.guided", "dynamo_tpu_torch.worker.main",
+        "dynamo_tpu_torch.frontend.main", "dynamo_tpu_torch.run",
+        "dynamo_tpu_torch.runtime.coordinator",
+        "dynamo_tpu_torch.models.hf_loader",
+        "dynamo_tpu_torch.http.service"} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 bad = sorted(k for k in sys.modules
@@ -288,7 +293,32 @@ print(len(mods))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    assert int(res.stdout.strip()) >= 80
+
+
+def test_port_sources_never_import_jax_or_reference():
+    """No import statement anywhere in the port's sources or in
+    ``chip_smoke.py`` (function-level imports included, which importing
+    the modules does not run) names ``jax`` or ``dynamo_tpu``."""
+    import ast
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "dynamo_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 80
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "dynamo_tpu"), \
+                    f"{path}:{node.lineno} imports {name}"
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):

@@ -160,22 +160,25 @@ async def test_cancel_mid_block_reclaims_pages(samp):
 
 
 def test_config_defaults_are_the_reference_defaults():
+    # the decode knobs stay None in both configs and resolve when the
+    # engine is built (RuntimeConfig, then the short-form env, then the
+    # reference's defaults): no DYN_* variable is set here
     port, ref = TorchEngineConfig(), JaxEngineConfig()
-    resolved = {"decode_multistep": jeng_mod.DECODE_MULTISTEP,
-                "mixed_batch": jeng_mod.MIXED_BATCH,
-                "decode_progress_every": jeng_mod.DECODE_PROGRESS_EVERY}
     names = {f.name for f in dataclasses.fields(ref)}
     shared = [f.name for f in dataclasses.fields(port) if f.name in names]
-    assert {"pipeline_decode", "decode_multistep", "min_decode_bucket",
-            "guided_table_bytes"} <= set(shared)
+    assert {"pipeline_decode", "decode_multistep", "mixed_batch",
+            "decode_progress_every", "min_decode_bucket",
+            "guided_table_bytes", "score_max_tokens"} <= set(shared)
     for name in shared:
-        want = resolved.get(name, getattr(ref, name))
-        assert getattr(port, name) == want, name
+        assert getattr(port, name) == getattr(ref, name), name
     assert DECODE_MULTISTEP == jeng_mod.DECODE_MULTISTEP
     eng = port_engine()
     assert eng.supports_pipelining and eng.supports_multistep
     assert eng.multistep == DECODE_MULTISTEP
     assert eng.scheduler.cfg.decode_multistep == DECODE_MULTISTEP
+    assert eng.scheduler.cfg.mixed_batch == jeng_mod.MIXED_BATCH
+    assert eng.scheduler.cfg.decode_progress_every == \
+        jeng_mod.DECODE_PROGRESS_EVERY
     assert eng.scheduler.cfg.guided_fuse_check is not None
 
 
