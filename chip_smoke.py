@@ -1832,16 +1832,16 @@ def http_post(url: str, body: dict) -> dict:
 
 def http_stream(url: str, body: dict, on_text=None) -> dict:
     """A streamed chat or legacy completion read as it arrives: its text,
-    finish reason, usage (chat only), the client's TTFT (the first chunk
-    with text) and the count of chunks with text; ``on_text`` is called
-    with that count at each of them."""
+    finish reason, usage (chat only), a chat's logprobs entries, the
+    client's TTFT (the first chunk with text) and the count of chunks with
+    text; ``on_text`` is called with that count at each of them."""
     import urllib.request
     body = dict(body, stream=True, stream_options={"include_usage": True})
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"content-type":
                                           "application/json"})
     t0 = time.perf_counter()
-    ttft, parts, finish, usage = None, [], None, None
+    ttft, parts, finish, usage, lps = None, [], None, None, []
     with urllib.request.urlopen(req, timeout=ENTRY_TIMEOUT_S) as resp:
         for raw in resp:
             line = raw.decode().strip()
@@ -1850,6 +1850,8 @@ def http_stream(url: str, body: dict, on_text=None) -> dict:
             chunk = json.loads(line[6:])
             usage = chunk.get("usage") or usage
             for choice in chunk.get("choices") or []:
+                lps += ((choice.get("logprobs") or {}).get("content")
+                        or [])
                 text = (choice.get("text")
                         or (choice.get("delta") or {}).get("content"))
                 if text:
@@ -1860,7 +1862,7 @@ def http_stream(url: str, body: dict, on_text=None) -> dict:
                         on_text(len(parts))
                 finish = choice.get("finish_reason") or finish
     return {"text": "".join(parts), "finish": finish, "usage": usage,
-            "ttft": ttft, "chunks": len(parts),
+            "ttft": ttft, "chunks": len(parts), "logprobs": lps,
             "seconds": time.perf_counter() - t0}
 
 
@@ -1903,24 +1905,33 @@ def entry_prompts(seed: int):
             for n in ENTRY_CHAT_WORDS]
 
 
+def entry_chats(model: str, seed: int) -> list:
+    """The identity pass's 4 greedy chat completions, each token with its
+    logprob."""
+    return [{"model": model, "max_tokens": ENTRY_TOKENS, "temperature": 0,
+             "logprobs": True,
+             "messages": [{"role": "user", "content": text}]}
+            for text in entry_prompts(seed)]
+
+
 def entry_requests(base: str, model: str, seed: int) -> dict:
-    """The identity pass: 4 greedy chat completions one after another
-    (requests 2 and 3 streamed), then a completion with echo + logprobs
-    (prompt scoring) and an embeddings call. Returns every answer."""
+    """The identity pass: ``entry_chats`` one after another (requests 2
+    and 3 streamed), then a completion with echo + logprobs (prompt
+    scoring) and an embeddings call. Returns every answer."""
     out = {}
-    for i, text in enumerate(entry_prompts(seed)):
-        body = {"model": model, "max_tokens": ENTRY_TOKENS,
-                "temperature": 0,
-                "messages": [{"role": "user", "content": text}]}
+    for i, body in enumerate(entry_chats(model, seed)):
         if i < 2:
             r = http_post(f"{base}/v1/chat/completions", body)
             c = r["choices"][0]
             out[f"chat{i}"] = {"text": c["message"]["content"],
                                "finish": c["finish_reason"],
-                               "usage": r["usage"]}
+                               "usage": r["usage"],
+                               "logprobs": (c.get("logprobs") or {}).get(
+                                   "content") or []}
         else:
             r = http_stream(f"{base}/v1/chat/completions", body)
-            out[f"chat{i}"] = {k: r[k] for k in ("text", "finish", "usage")}
+            out[f"chat{i}"] = {k: r[k] for k in ("text", "finish", "usage",
+                                                 "logprobs")}
     r = http_post(f"{base}/v1/completions", {
         "model": model, "prompt": entry_prompts(seed + 100)[2],
         "max_tokens": 1, "temperature": 0, "echo": True, "logprobs": 2})
@@ -1932,6 +1943,8 @@ def entry_requests(base: str, model: str, seed: int) -> dict:
 
 
 def check_entry_answers(ans: dict, hidden: int) -> None:
+    """Every chat finished by length (or EOS) with a finite logprob per
+    token, finite echo logprobs, two embeddings of the model's width."""
     for i in range(len(ENTRY_CHAT_WORDS)):
         a = ans[f"chat{i}"]
         n = a["usage"]["completion_tokens"]
@@ -1940,6 +1953,10 @@ def check_entry_answers(ans: dict, hidden: int) -> None:
                 a["finish"] not in ("length", "stop"):
             raise AssertionError(f"chat{i}: finish {a['finish']} after {n} "
                                  f"tokens")
+        if len(a["logprobs"]) != n or not all(
+                math.isfinite(e["logprob"]) for e in a["logprobs"]):
+            raise AssertionError(f"chat{i}: {len(a['logprobs'])} logprob "
+                                 f"entries for {n} tokens")
     lps = ans["echo"]["token_logprobs"]
     if lps[0] is not None or not all(math.isfinite(x) for x in lps[1:]) \
             or len(lps) < 300:
@@ -2079,6 +2096,7 @@ def phase_serve_entry() -> dict:
                 raise AssertionError(f"{key} differs between two serves of "
                                      f"the same requests")
         check_entry_answers(first, cfg.hidden_size)
+        ENTRY_ANSWERS["first"] = first
         n_seq = sum(first[f"chat{i}"]["usage"]["completion_tokens"]
                     for i in range(len(ENTRY_CHAT_WORDS)))
         log(f"[serve-entry] identity pass: 4 chat completions one at a time "
@@ -2232,6 +2250,917 @@ def phase_loader() -> None:
         os.remove(path)
 
 
+# -- phase 6: the KV data plane ------------------------------------------------
+
+# 6(a): four prompts of 1024 tokens prefilled on one engine (256 blocks of
+# 16, 470 MB of bf16 KV at Llama-3.2-3B's widths) and moved to another
+KV_PROMPTS, KV_LEN, KV_TOKENS = 4, 1024, 32
+KV_SEED, KV_WARM_SEED = 11, 12
+# 6(b): the decode-first timed windows (phase 4's requests of these seeds)
+DISAGG_WINDOWS = (("cold", COLD_SEED), ("warm", WARM_SEED))
+# 6(c): the streams the drill drains mid-decode (long enough that the
+# drain lands while they decode: a fused block emits 8 tokens at a time)
+DRILL_SEED, DRILL_N, DRILL_TOKENS = 4, 6, 400
+# phase 5's identity answers, which phase 6(b) must reproduce
+ENTRY_ANSWERS = {}
+
+
+def _gbs(nbytes: float, seconds: float) -> str:
+    return f"{nbytes / seconds / 1e9:.2f} GB/s" if seconds > 0 else "n/a"
+
+
+class _NoRpc:
+    """The KV client of an in-process bulk pull: no instance record and no
+    RPC plane, so a pull that fell off the bulk plane fails the check."""
+
+    def get_instance(self, iid):
+        return None
+
+    async def direct(self, payload, iid):
+        raise ConnectionError("no RPC plane in this check: the bulk pull "
+                              "failed")
+
+
+def kv_prompts(V: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(0, V, size=KV_LEN)))
+            for _ in range(KV_PROMPTS)]
+
+
+def _kv_request(prompt, rid, max_tokens=KV_TOKENS, prefill_only=False):
+    from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
+                                                   SamplingOptions,
+                                                   StopConditions)
+    req = PreprocessedRequest(
+        token_ids=list(prompt), request_id=rid,
+        stop_conditions=StopConditions(max_tokens=max_tokens,
+                                       ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0))
+    req.prefill_only = prefill_only
+    return req
+
+
+async def _one(engine, prompt, rid, **kw):
+    frames = [f async for f in engine.generate(_kv_request(prompt, rid,
+                                                           **kw))]
+    return frames
+
+
+def _pages_equal(a, b, hashes) -> bool:
+    """Whether engine ``b`` holds ``a``'s bytes for ``hashes``."""
+    n = len(hashes)
+    pa = a.dispatch_gather_pages(
+        [a.allocator._by_hash[h] for h in hashes])[:, :n]
+    pb = b.dispatch_gather_pages(
+        [b.allocator._by_hash[h] for h in hashes])[:, :n]
+    return bool(torch.equal(pa.view(torch.int16), pb.view(torch.int16)))
+
+
+def _sha(t: torch.Tensor) -> str:
+    import hashlib
+    host = t.contiguous().view(torch.int16).cpu().numpy()
+    return hashlib.sha256(host.tobytes()).hexdigest()
+
+
+IPC_CHILD = r"""
+import hashlib, json, sys, time
+sys.modules["jax"] = None
+import torch
+from dynamo_tpu_torch.engine.transfer import DeviceTransferPlane
+from dynamo_tpu_torch.runtime.codec import unpack
+offers = unpack(open(sys.argv[1], "rb").read())
+plane = DeviceTransferPlane()
+torch.cuda.init()
+out = {"seconds": [], "sha256": []}
+for offer in offers:
+    t0 = time.perf_counter()
+    data = plane.pull(offer)
+    out["seconds"].append(time.perf_counter() - t0)
+    host = data.contiguous().view(torch.int16).cpu().numpy()
+    out["sha256"].append(hashlib.sha256(host.tobytes()).hexdigest())
+    out["bytes"] = data.nbytes
+    del data
+out["jax"] = "jax" in [k for k, v in sys.modules.items() if v is not None]
+print(json.dumps(out))
+"""
+
+
+def phase_kv_local() -> None:
+    """6(a) and 6(d), in this process on the card: Llama-3.2-3B (random
+    bf16 weights from seed 0, phase 4's engine sizes) on three engines that
+    share the weights. A prefills four 1024-token prompts; their 256 blocks
+    move to B through ``export_frames`` and the staged inject pipeline, to
+    C over the bulk plane (a ``KvBlockPuller`` given no direct plane and no
+    RPC plane), to C again, its cache emptied and zeroed, as CRC'd RPC
+    frames, and to a child process (which imports no JAX) over the CUDA IPC
+    plane. Every destination must hold A's bytes. B captured its fused
+    block graphs on other prompts before the inject; its serve of the four
+    prompts after it must replay them (no new capture) with the tokens of
+    A's hot serve. Prints the GB/s of the gather, the frame build, each
+    plane and the commit. Then the KVBM tiers (``phase_kvbm``)."""
+    from dynamo_tpu_torch.engine import transfer as tr
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.runtime.bulk import BulkServer
+    from dynamo_tpu_torch.runtime.codec import pack, release_buffer
+    from dynamo_tpu_torch.runtime.rpc import RpcConnection, RpcServer
+    from dynamo_tpu_torch.worker.disagg import (KV_EXPORT_ENDPOINT,
+                                                KvBlockPuller,
+                                                get_kv_bandwidth_book)
+    cfg = llama_cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    small = dict(SERVE_SIZES, num_pages=512)
+
+    def engine(sizes):
+        return TorchEngine(cfg, params, TorchEngineConfig(**sizes),
+                           device="cuda")
+
+    a, b, c = engine(SERVE_SIZES), engine(SERVE_SIZES), engine(small)
+    prompts = kv_prompts(cfg.vocab_size, KV_SEED)
+    warm = kv_prompts(cfg.vocab_size, KV_WARM_SEED)
+    work = os.path.join(ROOT, "build", "kv_plane")
+    os.makedirs(work, exist_ok=True)
+
+    async def run():
+        try:
+            await transfer_checks()
+        finally:
+            for e in (a, b, c):
+                await e.stop()
+
+    async def transfer_checks():
+        hashes = []
+        for i, p in enumerate(prompts):
+            out = await _one(a, p, f"p{i}", prefill_only=True)
+            hashes += [blk[0] for blk in out[-1].kv_transfer_params["blocks"]]
+        nbytes = len(hashes) * a.pages[:, 0].numel() * 2
+        pages = [a.allocator._by_hash[h] for h in hashes]
+        log(f"[kv-local] {len(hashes)} blocks prefilled on A "
+            f"({nbytes / 1e6:.1f} MB of KV)")
+        # B captures its fused block graphs on other prompts first
+        for i, p in enumerate(warm):
+            await _one(b, p, f"w{i}")
+        captured, replays = len(b.graphs), b.graphs.replays
+        ptr = b.pages.data_ptr()
+
+        def gather_ms():
+            ms = []
+            for _ in range(5):
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                a.dispatch_gather_pages(pages)
+                t1.record()
+                t1.synchronize()
+                ms.append(t0.elapsed_time(t1))
+            return float(np.median(ms))
+        g_ms = await a.run_exclusive(gather_ms)
+
+        def commit_ms():
+            # the commit's device work: the 256 blocks written back in
+            # place over themselves (index_copy_), CUDA events around it
+            vals = a.dispatch_gather_pages(pages)
+            ms = []
+            for _ in range(5):
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                a.scatter_pages_device(pages, vals)
+                t1.record()
+                t1.synchronize()
+                ms.append(t0.elapsed_time(t1))
+            return float(np.median(ms))
+        c_ms = await a.run_exclusive(commit_ms)
+        t0 = time.perf_counter()
+        frames = await a.run_exclusive(tr.export_frames, a, hashes, "layer",
+                                       16)
+        build_s = time.perf_counter() - t0
+        tr.stamp_frame_crcs(frames)
+        wire = []
+        for f in frames:
+            meta = dict(f.obj)
+            meta["_raw"] = np.ascontiguousarray(f.raw).view(
+                np.uint8).tobytes()
+            wire.append(meta)
+        if wire[0]["dtype"] != "bfloat16" or wire[0]["block_shape"] != \
+                [cfg.num_layers, 2, cfg.num_kv_heads, PS, cfg.head_dim]:
+            raise AssertionError(f"frame meta {wire[0]}")
+        pipe = tr.InjectPipeline(b)
+        t0 = time.perf_counter()
+        for meta in wire:
+            await pipe.add_frame(meta)
+        if await pipe.finish() != len(hashes):
+            raise AssertionError("the pipeline injected a partial chain")
+        inj_s = time.perf_counter() - t0
+        if not _pages_equal(a, b, hashes) or b.pages.data_ptr() != ptr:
+            raise AssertionError("B's pages are not A's bytes (or moved)")
+        tm = pipe.timings
+        log(f"[kv-local] gather {g_ms:.3f} ms ({_gbs(nbytes, g_ms / 1e3)}); "
+            f"commit (in-place index_copy_) {c_ms:.3f} ms "
+            f"({_gbs(nbytes, c_ms / 1e3)}); "
+            f"frame build (gather + copy + pinned fetch) {build_s:.3f} s "
+            f"({_gbs(nbytes, build_s)}); inject pipeline {inj_s:.3f} s "
+            f"({_gbs(nbytes, inj_s)}): stage {tm['stage_s']:.3f} s, upload "
+            f"{tm['upload_s']:.3f} s ({_gbs(nbytes, tm['upload_s'])}), "
+            f"commits (exclusive-lane round trips) {tm['scatter_s']:.3f} s "
+            f"in {b.page_scatter_dispatches} scatters; pages bit-equal")
+        # bulk plane: a puller with no direct plane and no RPC fallback
+        srv = BulkServer().start()
+        srv.register(KV_EXPORT_ENDPOINT, tr.serve_kv_export_bulk(
+            a, asyncio.get_running_loop()))
+        try:
+            puller = KvBlockPuller(c, kv_client=_NoRpc())
+            t0 = time.perf_counter()
+            await puller.pull_blocks(hashes, 0, bulk_address=srv.address)
+            bulk_s = time.perf_counter() - t0
+        finally:
+            srv.stop()
+        if puller.last_pull_stats.get("injected") != len(hashes) or \
+                not _pages_equal(a, c, hashes):
+            raise AssertionError(f"bulk pull: {puller.last_pull_stats}")
+        log(f"[kv-local] bulk plane (a puller given no direct plane): "
+            f"{nbytes / 1e6:.1f} MB of KV in {bulk_s:.3f} s "
+            f"({_gbs(nbytes, bulk_s)}, the pull's first socket warm-up "
+            f"included); bandwidth book "
+            f"{get_kv_bandwidth_book().snapshot().get('bulk')}; pages "
+            f"bit-equal")
+        # RPC frames, wire v5 (CRC'd), into C emptied: its cached blocks
+        # evicted and every page zeroed, in place
+        def empty():
+            c.allocator.clear()
+            c.pages.zero_()
+        await c.run_exclusive(empty)
+        if c.allocator.peek_prefix(hashes):
+            raise AssertionError("C still holds the blocks")
+        server = await RpcServer().start()
+        server.register(KV_EXPORT_ENDPOINT, tr.serve_kv_export(a))
+        conn = await RpcConnection(server.address).connect()
+        try:
+            t0 = time.perf_counter()
+            stream = await conn.request(KV_EXPORT_ENDPOINT, {
+                "block_hashes": hashes, "wire": tr.FRAME_WIRE_VERSION})
+            pipe = tr.InjectPipeline(c)
+            n_crc = 0
+            async for frame in stream:
+                n_crc += "crc32" in frame
+                await pipe.add_frame(frame, release=release_buffer)
+            if await pipe.finish() != len(hashes) or n_crc != len(frames):
+                raise AssertionError("RPC frames: partial chain or no crc")
+            rpc_s = time.perf_counter() - t0
+        finally:
+            await conn.close()
+            await server.stop()
+        if not _pages_equal(a, c, hashes):
+            raise AssertionError("C's pages are not A's bytes")
+        log(f"[kv-local] RPC plane: {len(frames)} CRC'd frames in "
+            f"{rpc_s:.3f} s ({_gbs(nbytes, rpc_s)}); pages bit-equal")
+        # the CUDA IPC plane, into a child process that imports no JAX
+        plane = tr.DeviceTransferPlane()
+        offs = [await a.run_exclusive(plane.offer, a, hashes)
+                for _ in range(2)]
+        want = _sha(a.dispatch_gather_pages(pages)[:, :len(hashes)])
+        path = os.path.join(work, "offer.bin")
+        with open(path, "wb") as f:
+            f.write(pack(offs))
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        res = await asyncio.to_thread(
+            subprocess.run, [sys.executable, "-c", IPC_CHILD, path],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=180)
+        for off in offs:
+            plane.ack(off["uuid"])
+        if res.returncode != 0:
+            raise AssertionError(f"IPC child failed:\n{res.stderr[-3000:]}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        if got["sha256"] != [want, want] or got["jax"]:
+            raise AssertionError(f"IPC child: {got}")
+        cold, warm_s = got["seconds"]
+        log(f"[kv-local] device-direct (CUDA IPC) plane: a child process "
+            f"(no JAX) pulled two offers of {got['bytes'] / 1e6:.1f} MB: the "
+            f"first in {cold:.4f} s ({_gbs(got['bytes'], cold)}; the "
+            f"process's first handle open and allocation), the second in "
+            f"{warm_s:.4f} s ({_gbs(got['bytes'], warm_s)}; open + copy + "
+            f"wait); sha256 of both equal to A's pages")
+        # B replays the graphs it captured, over the injected prefix
+        got_t, want_t = [], []
+        for i, p in enumerate(prompts):
+            fb = await _one(b, p, f"b{i}")
+            fa = await _one(a, p, f"a{i}")
+            if (fb[-1].cached_tokens or 0) < KV_LEN - PS:
+                raise AssertionError(f"B's serve of prompt {i} cached "
+                                     f"{fb[-1].cached_tokens} tokens")
+            got_t.append([t for f in fb for t in f.token_ids])
+            want_t.append([t for f in fa for t in f.token_ids])
+        if len(b.graphs) != captured or b.graphs.replays <= replays:
+            raise AssertionError(f"B captured {len(b.graphs) - captured} "
+                                 f"graphs after the inject, replayed "
+                                 f"{b.graphs.replays - replays}")
+        if got_t != want_t:
+            raise AssertionError("B's tokens over the injected KV differ "
+                                 "from A's hot serve")
+        log(f"[kv-local] B after the inject: {len(prompts)} serves replayed "
+            f"{b.graphs.replays - replays} captured blocks, no capture; "
+            f"tokens equal to A's hot serve ({sum(map(len, got_t))} tokens)")
+
+    asyncio.run(asyncio.wait_for(run(), SERVE_TIMEOUT_S))
+    del a, b, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        phase_kvbm(params, cfg)
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_kvbm(params, cfg) -> None:
+    """6(d): ``TieredEngine`` over a card engine whose page pool (200
+    pages) is smaller than the working set, with a host budget of 48
+    blocks and a disk budget under ``build/``: four 1024-token prompts,
+    then four others evict them (spilled to pinned host memory on the
+    spill stream, overflowing to disk); the prompts served again onboard
+    from host and disk with the tokens of a hot cache's serve. Prints the
+    offload GB/s (the spill thread's device->host copies) and the onboard
+    GB/s (host-tier blocks injected in place)."""
+    import shutil
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.engine.transfer import inject_blocks
+    from dynamo_tpu_torch.kvbm import TieredEngine, TieredKvConfig
+    block = cfg.num_layers * 2 * cfg.num_kv_heads * PS * cfg.head_dim * 2
+    prompts = kv_prompts(cfg.vocab_size, KV_SEED)
+    other = kv_prompts(cfg.vocab_size, KV_WARM_SEED)
+    disk = os.path.join(ROOT, "build", "kvbm")
+    shutil.rmtree(disk, ignore_errors=True)
+
+    def engine(pages):
+        return TorchEngine(cfg, params, TorchEngineConfig(
+            **dict(SERVE_SIZES, num_pages=pages)), device="cuda")
+
+    async def run():
+        hot = engine(1024)
+        try:
+            want = []
+            for i, p in enumerate(prompts):
+                await _one(hot, p, f"w{i}")
+                fr = await _one(hot, p, f"h{i}")
+                want.append([t for f in fr for t in f.token_ids])
+        finally:
+            await hot.stop()
+        eng = engine(200)
+        ptr = eng.pages.data_ptr()
+        # synchronous onboarding (prefetch depth 0): every tier-resident
+        # block is back before admission, so the serve computes what the
+        # hot cache's does (the prefetch pipeline's race with the prefill
+        # cursor is held to the hot cache's tokens in the CPU tests)
+        t = TieredEngine(eng, TieredKvConfig(
+            host_budget_bytes=48 * block, disk_budget_bytes=1024 * block,
+            disk_path=disk, prefetch_depth_bytes=0))
+        try:
+            for i, p in enumerate(prompts):
+                await _one(t, p, f"a{i}")
+            for i, p in enumerate(other):
+                await _one(t, p, f"o{i}")
+            t.flush_spills(60.0)
+            if len(t.disk) == 0 or len(t.host) == 0:
+                raise AssertionError(f"tiers host {len(t.host)} disk "
+                                     f"{len(t.disk)} after the spill")
+            got, cached = [], 0
+            for i, p in enumerate(prompts):
+                fr = await _one(t, p, f"b{i}")
+                cached += fr[-1].cached_tokens or 0
+                got.append([x for f in fr for x in f.token_ids])
+            if got != want:
+                raise AssertionError("tokens after onboard differ from the "
+                                     "hot cache's")
+            if t.onboarded <= 0 or eng.pages.data_ptr() != ptr:
+                raise AssertionError(f"onboarded {t.onboarded}")
+            st = t.kvbm_stats()
+            off_b, off_s = (st["kvbm_offload_bytes"],
+                            st["kvbm_offload_seconds"])
+            log(f"[kvbm] pool 200 pages, host {len(t.host)} blocks, disk "
+                f"{len(t.disk)} blocks (disk dropped "
+                f"{st.get('kvbm_disk_corrupt_dropped')}); offloaded "
+                f"{t.offloaded}, onboarded {t.onboarded}, cached "
+                f"{cached} prompt tokens on the second serve; tokens equal "
+                f"to the hot cache's; offload (device->pinned host on the "
+                f"spill stream) {off_b / 1e6:.1f} MB in {off_s:.3f} s "
+                f"({_gbs(off_b, off_s)})")
+            # onboard rate: the host tier's blocks injected in place into
+            # a fresh engine (the synchronous onboard's own call)
+            blocks = [t.host.get(h) for h in list(t.host._blocks)]
+            fresh = engine(200)
+            try:
+                def onboard():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    n = inject_blocks(fresh, blocks)
+                    torch.cuda.synchronize()
+                    return n, time.perf_counter() - t0
+                n, secs = await fresh.run_exclusive(onboard)
+            finally:
+                await fresh.stop()
+            log(f"[kvbm] onboard: {n} host-tier blocks "
+                f"({n * block / 1e6:.1f} MB) injected in place in "
+                f"{secs:.4f} s ({_gbs(n * block, secs)})")
+        finally:
+            await t.stop()
+
+    asyncio.run(asyncio.wait_for(run(), SERVE_TIMEOUT_S))
+    shutil.rmtree(disk, ignore_errors=True)
+
+
+def _worker_args(model_dir, coord, extra):
+    sizes = []
+    for k in ("num_pages", "page_size", "max_num_seqs", "max_prefill_chunk",
+              "max_context"):
+        sizes += [f"--{k.replace('_', '-')}", str(SERVE_SIZES[k])]
+    return (["--coordinator", coord, "--model-path", model_dir,
+             "--random-weights", "--dtype", "bfloat16"] + sizes + extra)
+
+
+def _stats_plane(coord: str, component: str) -> dict:
+    """Every instance's ``__stats__`` of ``component``: endpoint ->
+    counters and ``data``, the worker stats (the ``kv_transfer`` bandwidth
+    book among them)."""
+    from dynamo_tpu_torch.runtime.runtime import DistributedRuntime
+
+    async def run():
+        drt = await DistributedRuntime.create(coordinator=coord)
+        try:
+            return await drt.namespace("dynamo").component(
+                component).scrape_stats()
+        finally:
+            await drt.close()
+    return asyncio.run(run())
+
+
+def _set_disagg_conf(coord: str, conf: dict) -> None:
+    from dynamo_tpu_torch.runtime.runtime import DistributedRuntime
+    from dynamo_tpu_torch.worker.disagg import disagg_conf_key
+
+    async def run():
+        drt = await DistributedRuntime.create(coordinator=coord)
+        try:
+            await drt.coord.put(disagg_conf_key("dynamo"),
+                                json.dumps(conf).encode())
+        finally:
+            await drt.close()
+    asyncio.run(run())
+
+
+def _metric(m: dict, name: str, **labels) -> float:
+    lab = ",".join(f'{k}="{v}"' for k, v in labels.items())
+    return m.get(f"{name}{{{lab}}}" if lab else name, 0.0)
+
+
+class _Stack:
+    """Coordinator, frontend and workers as processes (``Child``), with
+    their system ports; all stopped in ``stop``."""
+
+    def __init__(self, work):
+        self.work = work
+        self.kids = {}
+        self.sys = {}
+        self.coord_port = free_port()
+        self.http_port = free_port()
+        self.coord = f"127.0.0.1:{self.coord_port}"
+        self.base = f"http://127.0.0.1:{self.http_port}"
+
+    def start_coordinator(self):
+        self.kids["coordinator"] = Child(
+            "coordinator", "dynamo_tpu_torch.runtime.coordinator",
+            ["--host", "127.0.0.1", "--port", str(self.coord_port)],
+            self.work)
+        self.kids["coordinator"].wait_for("coordinator listening")
+
+    def start_worker(self, name, args):
+        self.sys[name] = free_port()
+        self.kids[name] = Child(
+            name, "dynamo_tpu_torch.worker.main", args, self.work,
+            {"DYN_SYSTEM_ENABLED": "1",
+             "DYN_SYSTEM_PORT": str(self.sys[name])})
+
+    def start_frontend(self):
+        self.kids["frontend"] = Child(
+            "frontend", "dynamo_tpu_torch.frontend.main",
+            ["--coordinator", self.coord, "--http-host", "127.0.0.1",
+             "--http-port", str(self.http_port)], self.work)
+        self.kids["frontend"].wait_for("frontend listening")
+
+    def model(self) -> str:
+        import urllib.request
+        deadline = time.monotonic() + ENTRY_TIMEOUT_S
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(f"{self.base}/v1/models") as resp:
+                data = json.loads(resp.read())["data"]
+            if data:
+                return data[0]["id"]
+            time.sleep(0.2)
+        raise TimeoutError("no model registered")
+
+    def metrics(self, name) -> dict:
+        return scrape_metrics(self.sys[name])
+
+    def tails(self):
+        for k in self.kids.values():
+            log(f"[disagg] last 40 lines of {k.name}:\n{k.tail()}")
+
+    def stop(self):
+        for k in reversed(list(self.kids.values())):
+            k.stop()
+
+
+def _chat_view(chat: dict) -> tuple:
+    """A chat answer as the model computed it: text, finish, prompt and
+    completion token counts, and each token with its logprob."""
+    return (chat["text"], chat["finish"], chat["usage"]["prompt_tokens"],
+            chat["usage"]["completion_tokens"],
+            [(e["token"], e["logprob"]) for e in chat["logprobs"]])
+
+
+class _BothLegs:
+    """The disaggregated pair's computation on one engine: the prefill
+    leg (``prefill_only``, what the prefill worker runs), then
+    ``_continue_after_first`` (what the decode worker runs), whose prompt
+    finds the leg's blocks in this cache as the decode worker finds the
+    pulled ones."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    async def generate(self, request, ctx=None):
+        from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+        from dynamo_tpu_torch.worker.disagg import _continue_after_first
+        leg = PreprocessedRequest.from_dict(request.to_dict())
+        leg.prefill_only = True
+        first = None
+        async for out in self.engine.generate(leg):
+            if out.finish_reason is not None:
+                first = out
+        async for out in _continue_after_first(self.engine, request, first,
+                                               ctx):
+            yield out
+
+
+def handoff_answers(model_dir: str) -> list:
+    """What the disaggregated pair must answer, computed in this process:
+    the decode worker's own engine (``worker.main.build_engine`` on its
+    arguments: the same seeded weights, sizes and card) behind the local
+    pipeline, each chat run through ``_BothLegs``. Phase 5's four chats,
+    twice in order (the stack's first pass, on a cold cache, then its
+    second, on the prefixes the first left); returns each pass's
+    ``_chat_view``s."""
+    from dynamo_tpu_torch.llm.pipeline import LocalEnginePipeline
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.worker.main import (arm_guided, build_engine,
+                                              build_parser)
+    args = build_parser().parse_args(_worker_args(
+        model_dir, "127.0.0.1:1", ["--disagg", "decode"]))
+    engine = build_engine(args)
+    card = ModelDeploymentCard.from_local_path(model_dir)
+    card.kv_cache_block_size = args.page_size
+    card.num_top_logprobs = args.num_top_logprobs
+    card.penalty_window = engine.cfg.penalty_window
+    arm_guided(engine, card)
+    pipe = LocalEnginePipeline(card, _BothLegs(engine))
+
+    async def chat(body):
+        req = ChatCompletionRequest(**dict(
+            body, stream=True, stream_options={"include_usage": True}))
+        out = {"text": "", "finish": None, "usage": None, "logprobs": []}
+        async for chunk in pipe.generate_chat(req):
+            c = chunk.model_dump()
+            out["usage"] = c.get("usage") or out["usage"]
+            for ch in c.get("choices") or []:
+                out["logprobs"] += (ch.get("logprobs") or {}).get(
+                    "content") or []
+                out["text"] += (ch.get("delta") or {}).get("content") or ""
+                out["finish"] = ch.get("finish_reason") or out["finish"]
+        return _chat_view(out)
+
+    async def run():
+        try:
+            return [[await chat(b) for b in entry_chats(card.name, seed=5)]
+                    for _ in range(2)]
+        finally:
+            await engine.stop()
+    try:
+        return asyncio.run(asyncio.wait_for(run(), SERVE_TIMEOUT_S))
+    finally:
+        del engine, pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _identity_check(stack, model, tag, ref) -> None:
+    """Phase 5's identity pass, one request at a time, twice (the first
+    pass meets a cold cache, the second the prefixes the first left, as
+    phase 5's checked pass did). Each pass's chats must equal ``ref``'s
+    (``handoff_answers``) exactly, token for token and logprob for
+    logprob: the same kernels on the same inputs in the same order. The
+    second pass's echo (but for the generated token's alternatives,
+    which the prefill leg does not hand off), its embeddings and every
+    chat's first token and logprob (the prefill leg's, computed as phase
+    5 computed it) must equal phase 5's. Prints the step where each chat
+    leaves phase 5's tokens: from there on the decode worker continues
+    from its own prefill of the prompt's tail and the handed-off token,
+    where phase 5's worker wrote that token in a decode step."""
+    p5 = ENTRY_ANSWERS.get("first")
+    if p5 is None:
+        raise AssertionError("phase 5's identity answers are missing")
+    n = len(ENTRY_CHAT_WORDS)
+    t0 = time.perf_counter()
+    for i, want in enumerate(ref):
+        ans = entry_requests(stack.base, model, seed=5)
+        check_entry_answers(ans, llama_cfg().hidden_size)
+        for k in range(n):
+            got = _chat_view(ans[f"chat{k}"])
+            if got != want[k]:
+                step = next((j for j, (x, y) in enumerate(zip(got[4],
+                                                             want[k][4]))
+                             if x != y), None)
+                raise AssertionError(
+                    f"{tag} pass {i} chat{k} differs from the pair's "
+                    f"computation in process at token {step}: "
+                    f"{got[4][step] if step is not None else got[:4]} vs "
+                    f"{want[k][4][step] if step is not None else want[k][:4]}")
+    secs = time.perf_counter() - t0
+    echo = {k: (v[:-1] if k == "top_logprobs" else v)
+            for k, v in ans["echo"].items()}
+    if echo != {k: (v[:-1] if k == "top_logprobs" else v)
+                for k, v in p5["echo"].items()} or ans["embed"] != p5["embed"]:
+        raise AssertionError(f"{tag}: the echo or embeddings differ from "
+                             f"phase 5's")
+    leave = []
+    for k in range(n):
+        got, five = (_chat_view(a[f"chat{k}"])[4] for a in (ans, p5))
+        if got[0] != five[0]:
+            raise AssertionError(f"{tag} chat{k}: first token {got[0]} vs "
+                                 f"phase 5's {five[0]}")
+        j = next((j for j, (x, y) in enumerate(zip(got, five))
+                  if x[0] != y[0]), None)
+        dl = max(abs(x[1] - y[1]) for x, y in zip(got[:j], five[:j]))
+        leave.append((j, float(f"{dl:.6g}")))
+    log(f"[disagg] {tag}: two identity passes in {secs:.3f} s, every chat "
+        f"equal to the pair's computation in process, token for token and "
+        f"logprob for logprob ({sum(len(w[4]) for w in ref[0]) * 2} "
+        f"tokens); the echo's {len(ans['echo']['token_logprobs'])} prompt "
+        f"logprobs, 2 embeddings and every chat's first token and logprob "
+        f"equal to phase 5's; where each chat's tokens leave phase 5's "
+        f"(None: never) and the largest logprob difference from phase "
+        f"5's before it: {leave}")
+
+
+def phase_disagg() -> dict:
+    """6(b) and 6(c): Llama-3.2-3B (phase 5's model directory and random
+    weights) served disaggregated by the port's processes: coordinator,
+    frontend, a ``--disagg prefill`` worker and a ``--disagg decode``
+    worker (decode-first; ``max_local_prefill_length`` 0, so every prompt
+    prefills remotely). Phase 5's identity pass, one request at a time and
+    twice, must give what the pair computes, held in this process
+    (``handoff_answers``, computed while the workers start), and phase 5's
+    echo, embeddings and first tokens (``_identity_check``); timed windows
+    of phase 4's ten requests print tok/s, client TTFT p50/mean, the decode
+    worker's remote prefills (device-direct pulls acked, which must equal
+    the requests) and bytes and GB/s per plane (``/metrics`` and the
+    ``kv_transfer`` bandwidth book): every pull must ride the device-direct
+    plane. The prefill worker's ``/metrics`` must show B2 or B3 launched,
+    the decode worker's B1. Then the drain drill (6(c)): a second decode
+    worker joins, ``POST /drain`` lands on the decode worker holding
+    streams mid-decode; every stream finishes, the survivor resumes the
+    frozen streams from pulled KV (``migration_replays{mode="resume"}``,
+    none replayed) and no stream's prefill runs twice (remote prefills over
+    both decode workers equal the streams). Then a fresh stack under
+    ``--disagg-strategy prefill_first``: the identity check again, against
+    the same answers. Returns the Llama kernels' launches in the two
+    workers of the decode-first stack."""
+    cfg = llama_cfg()
+    work = os.path.join(ROOT, "build", "disagg")
+    os.makedirs(work, exist_ok=True)
+    model_dir = os.path.join(ROOT, "build", "serve_entry", "llama32_3b")
+    write_entry_model(model_dir, cfg)
+    stack = _Stack(work)
+    t0 = time.perf_counter()
+    launches = {}
+    try:
+        stack.start_coordinator()
+        stack.start_worker("prefill", _worker_args(
+            model_dir, stack.coord, ["--disagg", "prefill", "--component",
+                                     "prefill"]))
+        stack.start_worker("decode", _worker_args(
+            model_dir, stack.coord, ["--disagg", "decode"]))
+        t1 = time.perf_counter()
+        ref = handoff_answers(model_dir)
+        log(f"[disagg] the pair's computation in process (one engine, "
+            f"both legs): {time.perf_counter() - t1:.1f} s")
+        stack.start_frontend()
+        for name in ("prefill", "decode"):
+            stack.kids[name].wait_for("torch worker serving model")
+        model = stack.model()
+        log(f"[disagg] decode-first stack up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        pre0, dec0 = stack.metrics("prefill"), stack.metrics("decode")
+        _identity_check(stack, model, "decode-first", ref)
+        for tag, seed in DISAGG_WINDOWS:
+            m0 = stack.metrics("decode")
+            r = entry_window(stack.base, model, cfg.vocab_size, seed)
+            m1 = stack.metrics("decode")
+            acks = (_metric(m1, "dynamo_worker_kv_offer_acks_total",
+                            outcome="ok")
+                    - _metric(m0, "dynamo_worker_kv_offer_acks_total",
+                              outcome="ok"))
+            planes = {p: _metric(m1, "dynamo_worker_disagg_kv_bytes_total",
+                                 direction="pulled", plane=p)
+                      - _metric(m0, "dynamo_worker_disagg_kv_bytes_total",
+                                direction="pulled", plane=p)
+                      for p in ("direct", "bulk", "rpc")}
+            book = {}
+            for eps in _stats_plane(stack.coord, "tpu").values():
+                for st in eps.values():
+                    book.update((st.get("data") or {}).get("kv_transfer")
+                                or {})
+            log(f"[disagg] timed {tag} (phase 4's requests, seed {seed}): "
+                f"{r['tokens']} tokens in {r['wall']:.4f} s: "
+                f"{r['tok_s']:.2f} tok/s; client TTFT p50="
+                f"{r['ttft_p50']:.4f} s mean={r['ttft_mean']:.4f} s max="
+                f"{r['ttft_max']:.4f} s; remote prefills (direct pulls "
+                f"acked) {int(acks)}; pulled bytes by plane "
+                f"{ {k: int(v) for k, v in planes.items()} }; bandwidth "
+                f"book {book}")
+            if int(acks) != r["n"]:
+                raise AssertionError(f"{int(acks)} remote prefills for "
+                                     f"{r['n']} requests")
+            if planes["bulk"] or planes["rpc"] or planes["direct"] <= 0:
+                raise AssertionError(f"pulls left the device-direct plane: "
+                                     f"{planes}")
+        pre1, dec1 = stack.metrics("prefill"), stack.metrics("decode")
+        head = 'dynamo_worker_kernel_launches_total{kernel="'
+        for k in ("paged_decode", "paged_prefill", "ragged_mixed"):
+            key = f'{head}{k}"}}'
+            launches[k] = {"prefill": int(pre1.get(key, 0)
+                                          - pre0.get(key, 0)),
+                           "decode": int(dec1.get(key, 0)
+                                         - dec0.get(key, 0))}
+        log(f"[disagg] kernel launches over the identity and timed passes: "
+            f"{launches}")
+        if launches["paged_prefill"]["prefill"] \
+                + launches["ragged_mixed"]["prefill"] <= 0 \
+                or launches["paged_decode"]["decode"] <= 0:
+            raise AssertionError("B2/B3 in the prefill worker or B1 in the "
+                                 "decode worker never launched")
+        drain_drill(stack, model, cfg)
+    except Exception:
+        stack.tails()
+        raise
+    finally:
+        stack.stop()
+    # prefill-first: a fresh stack, the prefill worker the entry point
+    stack = _Stack(os.path.join(work, "prefill_first"))
+    os.makedirs(stack.work, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        stack.start_coordinator()
+        pf = ["--disagg-strategy", "prefill_first"]
+        stack.start_worker("prefill", _worker_args(
+            model_dir, stack.coord,
+            ["--disagg", "prefill", "--component", "prefill"] + pf))
+        stack.start_worker("decode", _worker_args(
+            model_dir, stack.coord, ["--disagg", "decode"] + pf))
+        stack.start_frontend()
+        for name in ("prefill", "decode"):
+            stack.kids[name].wait_for("torch worker serving model")
+        model = stack.model()
+        log(f"[disagg] prefill-first stack up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        m0 = stack.metrics("decode")
+        _identity_check(stack, model, "prefill-first", ref)
+        m1 = stack.metrics("decode")
+        direct = (_metric(m1, "dynamo_worker_disagg_kv_bytes_total",
+                          direction="pulled", plane="direct")
+                  - _metric(m0, "dynamo_worker_disagg_kv_bytes_total",
+                            direction="pulled", plane="direct"))
+        other = sum(_metric(m1, "dynamo_worker_disagg_kv_bytes_total",
+                            direction="pulled", plane=p)
+                    - _metric(m0, "dynamo_worker_disagg_kv_bytes_total",
+                              direction="pulled", plane=p)
+                    for p in ("bulk", "rpc"))
+        log(f"[disagg] prefill-first pulls: {int(direct)} bytes on the "
+            f"device-direct plane, {int(other)} on the host planes")
+        if direct <= 0 or other:
+            raise AssertionError("prefill-first pulls left the "
+                                 "device-direct plane")
+    except Exception:
+        stack.tails()
+        raise
+    finally:
+        stack.stop()
+    return {k: v["prefill"] + v["decode"] for k, v in launches.items()}
+
+
+def drain_drill(stack, model, cfg) -> None:
+    """6(c), on the decode-first stack: see ``phase_disagg``. The local
+    prefill threshold is raised to one page first (the coordinator's
+    hot-reloaded disagg conf), so a resumed stream's partial last block
+    is computed where it resumes, and every prompt still prefills
+    remotely."""
+    import threading
+    _set_disagg_conf(stack.coord, {"max_local_prefill_length": PS})
+    t0 = time.perf_counter()
+    stack.start_worker("decode2", _worker_args(
+        model_dir=os.path.join(ROOT, "build", "serve_entry", "llama32_3b"),
+        coord=stack.coord, extra=["--disagg", "decode"]))
+    stack.kids["decode2"].wait_for("torch worker serving model")
+    time.sleep(2.0)                 # the frontend's router sees it
+    log(f"[drill] a second decode worker joined in "
+        f"{time.perf_counter() - t0:.1f} s")
+    names = ("decode", "decode2")
+    base0 = {n: stack.metrics(n) for n in names}
+    prompts = serve_prompts(cfg.vocab_size, DRILL_SEED, DRILL_N)
+    res = [None] * DRILL_N
+
+    def one(i):
+        try:
+            res[i] = http_stream(f"{stack.base}/v1/completions", {
+                "model": model, "prompt": prompts[i],
+                "max_tokens": DRILL_TOKENS, "temperature": 0,
+                "nvext": {"ignore_eos": True}})
+        except Exception as e:                  # reported below
+            res[i] = {"error": repr(e)}
+
+    def decoded(m):
+        return sum(v for k, v in m.items()
+                   if k.startswith("dynamo_worker_decode_dispatches"))
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(DRILL_N)]
+    for t in threads:
+        t.start()
+    # the drain lands on the first decode worker (its block graphs are
+    # captured, so its streams decode at once) once every drill stream is
+    # routed, every one it holds has pulled its prefill's KV, and it has
+    # decoded since: they are all mid-decode, hundreds of tokens from
+    # their end
+    victim, survivor = names
+
+    def delta(m, n, name, **lab):
+        return _metric(m, name, **lab) - _metric(base0[n], name, **lab)
+    deadline = time.monotonic() + ENTRY_TIMEOUT_S
+    since = None
+    while True:
+        mid, other = stack.metrics(victim), stack.metrics(survivor)
+        held = delta(mid, victim, "dynamo_worker_requests_total",
+                     outcome="admitted")
+        routed = held + delta(other, survivor, "dynamo_worker_requests_total",
+                              outcome="admitted")
+        acks_victim = delta(mid, victim, "dynamo_worker_kv_offer_acks_total",
+                            outcome="ok")
+        if routed == DRILL_N and held >= 1 and acks_victim == held:
+            if since is None:
+                since = decoded(mid)
+            elif decoded(mid) > since:
+                break
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{victim} never decoded the drill streams")
+        time.sleep(0.02)
+    http_post(f"http://127.0.0.1:{stack.sys[victim]}/drain", {})
+    for t in threads:
+        t.join(ENTRY_TIMEOUT_S)
+    bad = [(i, r) for i, r in enumerate(res)
+           if r is None or r.get("finish") != "length"
+           or (r.get("usage") or {}).get("completion_tokens", DRILL_TOKENS)
+           != DRILL_TOKENS]
+    end = stack.metrics(survivor)
+
+    def d(name, **lab):
+        return _metric(end, name, **lab) - _metric(base0[survivor], name,
+                                                    **lab)
+    resumes = d("dynamo_worker_migration_replays_total", mode="resume")
+    replays = d("dynamo_worker_migration_replays_total", mode="replay")
+    acks_survivor = d("dynamo_worker_kv_offer_acks_total", outcome="ok")
+    rpc = d("dynamo_worker_disagg_kv_bytes_total", direction="pulled",
+            plane="rpc")
+    log(f"[drill] {DRILL_N} streams of {DRILL_TOKENS} tokens; {victim} "
+        f"held {int(held)} of them, decoding, when POST /drain hit it; "
+        f"survivor {survivor}: resumed {int(resumes)}, replayed "
+        f"{int(replays)}, pulled {int(rpc)} bytes of frozen KV over RPC; "
+        f"remote prefills {int(acks_victim)} + {int(acks_survivor)}")
+    if bad:
+        raise AssertionError(f"streams lost in the drain: {bad}")
+    if resumes < 1 or replays != 0 or rpc <= 0:
+        raise AssertionError("the survivor did not resume the frozen "
+                             "streams from pulled KV")
+    if int(acks_victim + acks_survivor) != DRILL_N:
+        raise AssertionError("a prefill ran again for a resumed stream")
+    stack.kids[victim].proc.wait(60)
+    log(f"[drill] {victim} exited with {stack.kids[victim].proc.returncode} "
+        f"after its drain")
+
+
 SOURCES = {
     "paged_decode": ("dynamo_tpu_torch/ops/kernels/csrc/decode.cu",
                      "dynamo_tpu/ops/pallas/decode.py:69"),
@@ -2349,6 +3278,7 @@ def main() -> int:
     counts = {k: 0 for k in SOURCES}
     sampled = {k: 0 for k in SOURCES}
     entry = {}
+    disagg = {}
     profile = "--profile" in args
     if not failures:
         # one model on the card at a time: each is freed before the next
@@ -2364,6 +3294,11 @@ def main() -> int:
                 entry = run_phase("serve-entry", phase_serve_entry,
                                   failures) or {}
                 run_phase("loader", phase_loader, failures)
+                # the KV data plane (phase 6), the model freed again
+                t6 = time.perf_counter()
+                run_phase("kv-local", phase_kv_local, failures)
+                disagg = run_phase("disagg", phase_disagg, failures) or {}
+                log(f"[phase] phase 6 {time.perf_counter() - t6:.1f} s")
     if failures:
         log(f"[fail] phases failed: {failures}")
         return 1
@@ -2375,6 +3310,7 @@ def main() -> int:
             "replaces": replaces, "launches": counts[name],
             "launches_sampled": sampled[name],
             "launches_serve_entry": entry.get(name),
+            "launches_disagg": disagg.get(name),
             "max_abs_err": row["max_abs_err"],
             "max_err_ulps": row["max_err_ulps"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "ms_per_call": row["ms_per_call"],

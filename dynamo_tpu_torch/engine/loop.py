@@ -9,8 +9,7 @@ subclasses provide only ``_execute_plan`` — the actual compute for one step:
   hand-written CUDA attention kernels on the GPU.
 
 This module is the port's own copy of ``dynamo_tpu/engine/loop.py``; only
-its imports and the drain-freeze paths (which need KV export, not yet
-ported) differ.
+its imports and prose differ.
 """
 
 from __future__ import annotations
@@ -72,19 +71,6 @@ def migration_token(out: "LLMEngineOutput") -> Optional[dict]:
         return None
     tok = out.kv_transfer_params.get(MIGRATION_KEY)
     return tok if isinstance(tok, dict) else None
-
-
-def _get_export_leases(engine):
-    """KV export leases pin a drained stream's pages for a survivor's
-    pull. The port has no KV export yet (ROADMAP A7): engines that cannot
-    export never reach here, and one that could must not freeze silently."""
-    raise NotImplementedError(
-        "drain with KV export needs the KV transfer port (ROADMAP A7)")
-
-
-def _export_ttl_s() -> float:
-    raise NotImplementedError(
-        "drain with KV export needs the KV transfer port (ROADMAP A7)")
 
 
 class ScheduledEngineBase(EngineBase):
@@ -184,8 +170,7 @@ class ScheduledEngineBase(EngineBase):
     def fetch_packed(self, handle):                 # pragma: no cover - hook
         raise NotImplementedError
 
-    # Optional FUSED decode hooks (the JAX engine implements; the port's
-    # engine leaves them off until ROADMAP A5):
+    # Optional FUSED decode hooks (both engines implement):
     # dispatch_multistep runs ``plan.width`` decode steps in one dispatch
     # (on-device sampling + stop checks) and returns an opaque handle;
     # ``prev_handle`` chains the block from the previous block's on-device
@@ -958,7 +943,8 @@ class ScheduledEngineBase(EngineBase):
             if q is not None:
                 q.put_nowait(out)
         if ttl is not None:
-            mgr = _get_export_leases(self)
+            from dynamo_tpu_torch.engine.transfer import get_export_leases
+            mgr = get_export_leases(self)
             if mgr is not None:
                 mgr.arm_sweep(ttl)
         if counts["resume"] or counts["replay"]:
@@ -972,7 +958,8 @@ class ScheduledEngineBase(EngineBase):
         the per-stream migration frames. Returns (frames, lease_ttl)."""
         sched = self.scheduler
         frames: List[Tuple[str, LLMEngineOutput]] = []
-        mgr = _get_export_leases(self) if can_export else None
+        from dynamo_tpu_torch.engine.transfer import export_ttl_s, get_export_leases
+        mgr = get_export_leases(self) if can_export else None
         ttl = None
         # queued-but-unadmitted requests: nothing computed — replay markers
         while sched.waiting:
@@ -999,7 +986,7 @@ class ScheduledEngineBase(EngineBase):
             resume: dict = {}
             blocks = seq.tokens.blocks[:seq.committed_pages]
             if mgr is not None and blocks and not seq.request.prefill_only:
-                ttl = _export_ttl_s() if ttl is None else ttl
+                ttl = export_ttl_s() if ttl is None else ttl
                 lease, pinned = mgr.grant_sync(
                     [b.block_hash for b in blocks], ttl)
                 sc = seq.request.stop_conditions

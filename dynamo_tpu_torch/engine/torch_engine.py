@@ -364,6 +364,9 @@ class TorchEngine(ScheduledEngineBase):
         self.chained_steps = 0       # of which pipelined (chained) steps
         self.multistep_blocks = 0    # of which fused blocks
         self.mixed_steps = 0         # mixed prefill+decode steps
+        # cache writes of the KV inject paths (engine/transfer.py, kvbm/):
+        # one per scatter, as the reference counts its jitted scatters
+        self.page_scatter_dispatches = 0
         # attention calls routed to each of the family's kernels (per
         # layer, both devices; a graph replay adds what its capture ran)
         self.kernel_launches: Dict[str, int] = {k: 0
@@ -1385,6 +1388,94 @@ class TorchEngine(ScheduledEngineBase):
         the dense expert backend only, which drops nothing (the capacity
         dispatch backend is ROADMAP A11)."""
         return 0
+
+    # -- page IO: KV block export and inject ---------------------------------
+    #
+    # The reference's gather/scatter jits (``jax_engine.py`` page IO) as
+    # PyTorch indexing. Every cache write is in place (``index_copy_``):
+    # the fused blocks' CUDA graphs hold ``self.pages``'s address. Callers
+    # run these on the loop's exclusive lane, whose thread issues them on
+    # the same stream as the steps, so a gather reads what every step
+    # before it wrote and a scatter lands before the next step reads.
+
+    @staticmethod
+    def _pad_page_ids(page_ids) -> np.ndarray:
+        """Pad to the next power of two with page 0 (the garbage page), as
+        the reference pads its jitted gathers."""
+        n = 1
+        while n < len(page_ids):
+            n *= 2
+        return np.asarray(list(page_ids) + [0] * (n - len(page_ids)),
+                          np.int64)
+
+    def _page_index(self, ids) -> torch.Tensor:
+        self._use_device()
+        return _upload(np.asarray(ids, np.int64), self.device)
+
+    def dispatch_gather_pages(self, page_ids,
+                              replicate: bool = True) -> torch.Tensor:
+        """Gather cache pages -> ``[L, n_pad, 2, Hkv, ps, Dh]`` on the
+        cache's device, not waited on. ``replicate`` is the reference's
+        mesh flag; one device has nothing to replicate."""
+        return self.pages.index_select(
+            1, self._page_index(self._pad_page_ids(page_ids)))
+
+    def fetch_host(self, dev: torch.Tensor) -> np.ndarray:
+        """``dev`` on the host as a numpy array (bfloat16 as its uint16
+        bits). On the GPU the copy lands in pinned memory behind the work
+        already queued on this thread's stream, and only its own event is
+        waited on."""
+        from dynamo_tpu_torch.engine.transfer import host_array
+        if dev.device.type != "cuda":
+            return host_array(dev)
+        buf = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        buf.copy_(dev, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return host_array(buf)
+
+    def gather_pages_host(self, page_ids) -> np.ndarray:
+        """Gather + host fetch, trimmed to the real page count."""
+        out = self.dispatch_gather_pages(page_ids)
+        return self.fetch_host(out[:, :len(page_ids)])
+
+    def scatter_pages_device(self, page_ids, vals_dev) -> None:
+        """Write ``vals_dev`` ``[L, n, 2, Hkv, ps, Dh]`` (a tensor, on any
+        device) into cache pages ``page_ids``, in place."""
+        n = len(page_ids)
+        vals = vals_dev[:, :n]
+        if vals.device != self.device:
+            vals = vals.to(self.device, non_blocking=True)
+        elif vals.is_cuda:
+            # made on another stream (an inject upload, a direct pull):
+            # its memory must outlive this stream's read of it
+            vals.record_stream(torch.cuda.current_stream(self.device))
+        self.page_scatter_dispatches += 1
+        self.pages.index_copy_(1, self._page_index(page_ids),
+                               vals.to(self.pages.dtype))
+
+    def scatter_pages_host(self, page_ids, vals) -> None:
+        """Scatter host values ``[L, n, 2, Hkv, ps, Dh]`` (numpy; bfloat16
+        as uint16 bits) into cache pages, in place."""
+        from dynamo_tpu_torch.engine.transfer import host_tensor
+        vals = host_tensor(np.asarray(vals)[:, :len(page_ids)],
+                           self.pages.dtype)
+        self.scatter_pages_device(page_ids, vals)
+
+    def scatter_pages_chunked(self, page_ids, vals,
+                              max_blocks: Optional[int] = None) -> None:
+        """Host-values scatter split into windows of at most ``max_blocks``
+        pages (default: the static ``SCATTER_WINDOW_BLOCKS``; hot paths
+        resolve the configured knob outside the exclusive window and pass
+        it in). Callers hold the exclusive window across all chunks."""
+        if max_blocks is None:
+            from dynamo_tpu_torch.engine.transfer import SCATTER_WINDOW_BLOCKS
+            max_blocks = SCATTER_WINDOW_BLOCKS
+        vals = np.asarray(vals)
+        for i in range(0, len(page_ids), max_blocks):
+            self.scatter_pages_host(page_ids[i:i + max_blocks],
+                                    vals[:, i:i + max_blocks])
 
     # -- one-shot surfaces: embeddings and prompt scoring ------------------
 

@@ -159,9 +159,10 @@ def engine_handler(engine: EngineBase,
                         # evicted before the decode side pulls them nor
                         # stay pinned forever if that decoder crashes —
                         # the puller acks via the kv_export endpoint
-                        raise NotImplementedError(
-                            "disagg prefill export leases need the KV "
-                            "transfer port (ROADMAP A7)")
+                        from dynamo_tpu_torch.engine.transfer import (
+                            stamp_export_lease)
+                        await stamp_export_lease(
+                            engine, out.kv_transfer_params, span=hop)
                     stitcher.close()
                     final = out.to_dict()
                     final[SPANS_FRAME_KEY] = tracer.finish_hop(hop)

@@ -12,13 +12,20 @@ recorder and the step timeline. ``build_parser`` is the reference's, flag
 for flag and default for default, plus ``--device`` (``cuda``; the tests
 pass ``cpu``, where every kernel wrapper computes its plain version).
 
+The KV data plane is the reference's wiring: ``--disagg prefill|decode``
+in both ``--disagg-strategy`` values (the prefill role serves its
+``kv_export`` endpoint on the RPC plane, the bulk plane ``--bulk-host``
+and, on the GPU, the CUDA IPC device-direct plane), ``kv_export`` plus
+``ResumeAdmission`` on every non-prefill worker, the KVBM tiers
+(``--host-cache-bytes`` / ``--disk-cache-bytes``, refused with
+``--disagg decode`` as the reference refuses them), and graceful drain:
+SIGTERM and ``POST /drain`` freeze in-flight streams for a survivor to
+resume from pulled KV.
+
 Flags whose paths are not ported exit non-zero naming their ROADMAP item:
-parallelism over several devices or nodes (A13), disaggregation and the
-KV tiers (A7), ``--quantize`` (A9), speculative decoding (A8), GGUF files
-(A6b), the MoE dispatch backend (A11). Without the KV transfer port (A7)
-the worker serves no ``kv_export`` endpoint and takes no resume tokens: a
-migrated stream replays, and SIGTERM stops the worker without freezing its
-streams for a survivor.
+parallelism over several devices or nodes (A13), ``--quantize`` (A9),
+speculative decoding (A8), GGUF files (A6b), the MoE dispatch backend
+(A11).
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import argparse
 import asyncio
 import functools
 import logging
-import signal
+import os
+import tempfile
 
 import torch
 from prometheus_client.core import CounterMetricFamily
@@ -95,12 +103,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="MoE expert compute: dense (every expert, every "
                         "token); dispatch is not ported (ROADMAP A11)")
     p.add_argument("--host-cache-bytes", type=int, default=0,
-                   help="KVBM G2 host-RAM KV tier budget (0 disables; not "
-                        "ported: ROADMAP A7)")
+                   help="KVBM G2 host-RAM KV tier budget (0 disables)")
     p.add_argument("--disk-cache-bytes", type=int, default=0,
-                   help="KVBM G3 disk KV tier budget (0 disables; not "
-                        "ported: ROADMAP A7)")
-    p.add_argument("--disk-cache-path", default="/tmp/dynamo_tpu_kvbm")
+                   help="KVBM G3 disk KV tier budget (0 disables)")
+    p.add_argument("--disk-cache-path", default=None,
+                   help="KVBM G3 directory (default: this process's own "
+                        "under the temporary directory)")
     p.add_argument("--num-top-logprobs", type=int, default=8,
                    help="alternatives computed per sampled token (serves "
                         "OpenAI top_logprobs up to this; 0 disables)")
@@ -145,8 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-host: local device count override")
     p.add_argument("--disagg", choices=["none", "prefill", "decode"],
                    default="none",
-                   help="disaggregated role (prefill / decode not ported: "
-                        "ROADMAP A7)")
+                   help="disaggregated role: prefill workers serve KV "
+                        "blocks, decode workers pull them")
     p.add_argument("--prefill-component", default="prefill",
                    help="component name of the prefill workers (decode role)")
     p.add_argument("--disagg-strategy", choices=["decode_first",
@@ -179,14 +187,12 @@ def refuse_unported(args: argparse.Namespace) -> None:
         if val > 1:
             raise SystemExit(f"{flag} {val}: multi-GPU parallelism is not "
                              "ported yet (ROADMAP A13)")
-    if args.disagg != "none":
-        raise SystemExit(f"--disagg {args.disagg}: disaggregated serving "
-                         "needs the KV transfer port (ROADMAP A7)")
-    for flag, val in (("--host-cache-bytes", args.host_cache_bytes),
-                      ("--disk-cache-bytes", args.disk_cache_bytes)):
-        if val > 0:
-            raise SystemExit(f"{flag} {val}: the KVBM tiers need the KV "
-                             "transfer port (ROADMAP A7)")
+    if (args.host_cache_bytes > 0 or args.disk_cache_bytes > 0) \
+            and args.disagg == "decode":
+        raise SystemExit(
+            "KVBM tiers with --disagg decode are not supported yet: "
+            "the disagg decode path pulls prefixes from prefill "
+            "workers and bypasses tier onboarding")
     if args.quantize:
         raise SystemExit(f"--quantize {args.quantize}: int8 W8A8 is not "
                          "ported yet (ROADMAP A9)")
@@ -242,6 +248,16 @@ def build_engine(args: argparse.Namespace) -> TorchEngine:
     return TorchEngine(cfg, params, engine_cfg, device=device)
 
 
+def bulk_unix_path(lease_id: int):
+    """The prefill worker's same-host bulk socket: under the temporary
+    directory (``TMPDIR``) and named by process and lease, so no other
+    worker's start unlinks it; None (TCP alone) where the path would
+    pass the 107 bytes a unix socket's address holds."""
+    path = os.path.join(tempfile.gettempdir(),
+                        f"dynamo_tpu_bulk_{os.getpid()}_{lease_id:x}.sock")
+    return path if len(os.fsencode(path)) <= 107 else None
+
+
 class KernelLaunchCollector:
     """Scrape-time counters of the attention kernels:
     ``dynamo_worker_kernel_launches_total{kernel}``, the CUDA launches of
@@ -292,8 +308,48 @@ async def amain(args: argparse.Namespace) -> None:
     engine.on_loop_exit = drt.runtime.shutdown
     engine.scheduler.dp_rank = args.data_parallel_rank
 
+    tiered = None
+    prefix_reader = None
+    if args.host_cache_bytes > 0 or args.disk_cache_bytes > 0:
+        from dynamo_tpu_torch.kvbm.manager import (
+            TieredEngine, TieredKvConfig, default_disk_path,
+            serve_tiered_kv_export)
+        from dynamo_tpu_torch.worker.disagg import KV_EXPORT_ENDPOINT
+        tiered = TieredEngine(engine, TieredKvConfig(
+            host_budget_bytes=max(args.host_cache_bytes, 1),
+            disk_budget_bytes=args.disk_cache_bytes,
+            disk_path=args.disk_cache_path or default_disk_path()))
+        # G4 remote tier: serve this worker's HBM+tier blocks to peers on
+        # the same component, and fetch from peers on a local tier miss.
+        # The disagg-prefill branch below registers the SAME endpoint name
+        # with the tier-aware handler itself.
+        g4_ep = (drt.namespace(args.namespace).component(args.component)
+                 .endpoint(KV_EXPORT_ENDPOINT))
+        if args.disagg != "prefill":
+            await g4_ep.serve(serve_tiered_kv_export(tiered))
+        g4_lease = await drt.primary_lease()
+        tiered.enable_peer_fetch(await g4_ep.client(),
+                                 self_instance_id=g4_lease.lease_id)
+        # fleet-wide KV reuse: admission onboarding pulls from the
+        # best-overlap holder first
+        from dynamo_tpu_torch.kv_router.global_index import (
+            GlobalPrefixIndexReader)
+        prefix_reader = GlobalPrefixIndexReader(drt.kv_store())
+        await prefix_reader.start()
+        tiered.enable_global_index(prefix_reader)
+
+    from dynamo_tpu_torch.worker.disagg import get_kv_bandwidth_book
+
     def worker_stats() -> dict:
-        return engine.stats().to_dict()
+        d = engine.stats().to_dict()
+        if tiered is not None:
+            d["kvbm"] = tiered.kvbm_stats()
+        # per-plane KV-transfer bandwidth EWMAs (bulk/rpc/direct) so the
+        # frontend cost router sees transfer health without a scrape
+        bw = get_kv_bandwidth_book().snapshot()
+        if bw:
+            d["kv_transfer"] = bw
+        return d
 
     event_pump = None
     prefix_pub = None
@@ -316,12 +372,130 @@ async def amain(args: argparse.Namespace) -> None:
 
         engine.kv_event_cb = _kv_event_cb
 
-    await serve_engine(endpoint, engine, stats_provider=worker_stats)
-    # the aux plane (embeddings + prompt scoring) rides beside generate,
-    # so distributed frontends serve /v1/embeddings and completions echo
-    await serve_aux(drt.namespace(args.namespace).component(args.component),
-                    engine)
-    await register_llm(drt, endpoint, card)
+    handler = None
+    prefill_first = args.disagg_strategy == "prefill_first"
+    # graceful drain & live migration (worker/drain.py): workers that hold
+    # decode streams serve their component's kv_export endpoint so a
+    # SURVIVOR can pull a draining peer's pinned sequence KV, and admit
+    # inbound resume tokens through ResumeAdmission. Tiered and
+    # disagg-prefill workers already serve the endpoint.
+    resume_admission = None
+    served_main = None
+    comp = drt.namespace(args.namespace).component(args.component)
+    if args.disagg != "prefill":
+        from dynamo_tpu_torch.engine.transfer import serve_kv_export
+        from dynamo_tpu_torch.worker.disagg import KV_EXPORT_ENDPOINT
+        from dynamo_tpu_torch.worker.drain import ResumeAdmission
+        if tiered is None:
+            await comp.endpoint(KV_EXPORT_ENDPOINT).serve(
+                serve_kv_export(engine))
+        resume_admission = ResumeAdmission(
+            engine, kv_client=await comp.endpoint(KV_EXPORT_ENDPOINT)
+            .client())
+    if args.disagg == "decode":
+        from dynamo_tpu_torch.worker.disagg import DisaggDecodeHandler
+        handler = await DisaggDecodeHandler(
+            engine, drt, args.namespace, args.prefill_component,
+            # prefill-first decode workers never INITIATE remote prefill —
+            # they receive requests with the KV handoff already attached
+            use_queue=not prefill_first,
+            strategy=args.disagg_strategy).start()
+        from dynamo_tpu_torch.llm.register import engine_handler
+        await engine.start()
+        served_main = await endpoint.serve(
+            engine_handler(handler, resume_admission),
+            stats_provider=worker_stats)
+    elif args.disagg == "prefill" and prefill_first:
+        from dynamo_tpu_torch.llm.register import engine_handler
+        from dynamo_tpu_torch.worker.disagg import PrefillFirstHandler
+        pf_lease = await drt.primary_lease()
+        handler = await PrefillFirstHandler(
+            engine, drt, args.namespace, args.decode_component,
+            instance_id=pf_lease.lease_id).start()
+        await engine.start()
+        served_main = await endpoint.serve(engine_handler(handler),
+                                           stats_provider=worker_stats)
+    else:
+        served_main = await serve_engine(
+            endpoint, tiered if tiered is not None else engine,
+            stats_provider=worker_stats,
+            resume_admission=resume_admission)
+    # the aux plane (embeddings + prompt scoring) rides every worker that
+    # serves chat traffic
+    if args.disagg != "prefill" or prefill_first:
+        await serve_aux(comp, engine)
+    bulk_server = None
+    queue_worker = None
+    if args.disagg == "prefill":
+        # the KV block fetch endpoint for decode workers; model_type
+        # prefill so frontends don't route chat traffic here. Bulk KV
+        # bytes ride the raw-socket plane (runtime/bulk.py); the RPC
+        # endpoint stays as the control/fallback path.
+        from dynamo_tpu_torch.engine.transfer import (
+            serve_kv_export, serve_kv_export_bulk)
+        from dynamo_tpu_torch.runtime.bulk import BulkServer
+        from dynamo_tpu_torch.worker.disagg import KV_EXPORT_ENDPOINT
+        kv_ep = comp.endpoint(KV_EXPORT_ENDPOINT)
+        lease = await drt.primary_lease()
+        bulk_server = BulkServer(
+            host=args.bulk_host,
+            unix_path=bulk_unix_path(lease.lease_id),
+            ident=f"{lease.lease_id:x}").start()
+        if tiered is not None:
+            # tier-aware export on BOTH planes
+            from dynamo_tpu_torch.kvbm.manager import (
+                serve_tiered_kv_export, serve_tiered_kv_export_bulk)
+            kv_handler = serve_tiered_kv_export(tiered)
+            bulk_handler = serve_tiered_kv_export_bulk(
+                tiered, asyncio.get_running_loop())
+        else:
+            kv_handler = serve_kv_export(engine)
+            bulk_handler = serve_kv_export_bulk(
+                engine, asyncio.get_running_loop())
+        bulk_server.register(KV_EXPORT_ENDPOINT, bulk_handler)
+        # device-direct plane (CUDA IPC): blocks move card to card with no
+        # host bounce when the decode side shares the host; HBM-resident
+        # blocks only, so the tiered export keeps the host planes
+        direct_address = ""
+        if tiered is None:
+            from dynamo_tpu_torch.engine.transfer import (
+                KV_EXPORT_DIRECT_ENDPOINT, serve_kv_export_direct)
+            from dynamo_tpu_torch.worker.disagg import (
+                make_device_transfer_plane)
+            plane = make_device_transfer_plane(engine)
+            if plane is not None:
+                try:
+                    plane.host = args.bulk_host
+                    direct_address = plane.address
+                    await comp.endpoint(KV_EXPORT_DIRECT_ENDPOINT).serve(
+                        serve_kv_export_direct(engine, plane))
+                except Exception:  # noqa: BLE001 — serving must not die
+                    logger.exception("device-direct KV plane unavailable; "
+                                     "bulk/RPC planes serve")
+                    direct_address = ""
+        await kv_ep.serve(kv_handler, bulk_address=bulk_server.address,
+                          direct_address=direct_address)
+        if prefill_first:
+            # prefill-first: THIS worker is the chat entrypoint; decode
+            # workers are internal. The handler forwards with our bulk
+            # (and device-direct) addresses.
+            handler.bulk_address = bulk_server.address
+            handler.direct_address = direct_address
+            await register_llm(drt, endpoint, card)
+        else:
+            await register_llm(drt, endpoint, card, model_type="prefill")
+            # pull-based prefill queue consumer: decode workers enqueue;
+            # the first free prefill worker takes a job
+            from dynamo_tpu_torch.worker.disagg import PrefillQueueWorker
+            queue_worker = await PrefillQueueWorker(
+                tiered if tiered is not None else engine, drt,
+                args.namespace, instance_id=lease.lease_id,
+                bulk_address=bulk_server.address,
+                direct_address=direct_address).start()
+    elif args.disagg == "decode" and prefill_first:
+        await register_llm(drt, endpoint, card, model_type="decode")
+    else:
+        await register_llm(drt, endpoint, card)
 
     from dynamo_tpu_torch.runtime.system_server import SystemServer
     from dynamo_tpu_torch.utils.tracing import get_tracer
@@ -329,9 +503,12 @@ async def amain(args: argparse.Namespace) -> None:
                                                  get_worker_metrics)
     tracer = get_tracer()
     if not tracer.service:
-        tracer.service = "worker"
+        tracer.service = (f"worker-{args.disagg}" if args.disagg != "none"
+                          else "worker")
     wm = get_worker_metrics()
     wm.attach_tracer(tracer)
+    if tiered is not None:
+        wm.kvbm.attach(tiered.kvbm_stats)
     wm.engine.attach(functools.partial(engine_dispatch_stats, engine))
     wm.steptrace.attach(engine.steptrace.aggregates)
     wm.registry.register(KernelLaunchCollector(engine))
@@ -341,22 +518,41 @@ async def amain(args: argparse.Namespace) -> None:
         system.health.register("engine", ready=True)
         system.attach_coord(drt.coord)
         await system.start()
-    # SIGTERM stops serving cleanly: the lease is revoked on close, so
-    # frontends drop this instance at once (freezing in-flight streams
-    # for a survivor needs the KV transfer port, ROADMAP A7)
-    asyncio.get_running_loop().add_signal_handler(signal.SIGTERM,
-                                                  drt.runtime.shutdown)
+    # graceful drain: SIGTERM (and POST /drain on the system server) stops
+    # new work via the coordinator announcement, freezes in-flight streams
+    # into resume tokens survivors pull the pinned KV for, waits (bounded
+    # by DYN_DRAIN_TIMEOUT_S) for the lease acks, then shuts down
+    from dynamo_tpu_torch.worker.drain import (DrainController,
+                                               install_signal_drain)
+    drain_lease = await drt.primary_lease()
+    resume_extras = {"instance_id": drain_lease.lease_id}
+    if bulk_server is not None:
+        resume_extras["bulk_address"] = bulk_server.address
+    drain = DrainController(
+        engine, served=[se for se in (served_main,) if se is not None],
+        resume_extras=resume_extras, on_drained=drt.runtime.shutdown)
+    install_signal_drain(drain)
+    if system is not None:
+        system.register_drain(drain)
     print(f"torch worker serving model {card.name} on {engine.device} "
           f"(disagg={args.disagg})", flush=True)
     try:
         await drt.runtime.wait_shutdown()
     finally:
+        if queue_worker is not None:
+            await queue_worker.stop()
+        if bulk_server is not None:
+            bulk_server.stop()
         if system is not None:
             await system.stop()
+        if handler is not None:
+            await handler.stop()
         if event_pump is not None:
             event_pump.cancel()
         if prefix_pub is not None:
             await prefix_pub.close()
+        if prefix_reader is not None:
+            await prefix_reader.close()
         await engine.stop()
         await drt.close()
 

@@ -36,7 +36,11 @@ output, half-precision or strided queries). For ``TorchEngine``'s fused
 decode block (B1's and B4's engines): a graph replay equal bit for bit to
 the same block run eagerly, replays counted as launches, the fetch of one
 step waiting on that step's event and not on the stream, and a fused
-serve token for token as the per-step serve.
+serve token for token as the per-step serve. For the KV data plane
+(``engine/transfer.py``, ``kvbm/``): blocks injected in place through the
+pinned staging pipeline under a captured block graph, which replays over
+them with the sender's tokens; a CUDA IPC offer pulled card to card by
+another process, byte for byte; KVBM spills and onboards on the card.
 """
 
 import numpy as np
@@ -834,3 +838,206 @@ def test_worker_process_answers_on_the_card(tmp_path):
     finally:
         for k in reversed(kids):
             k.stop()
+
+
+# -- the KV data plane on the card ----------------------------------------------
+
+
+def _serve_one(eng, prompt, rid, n=24):
+    import asyncio
+    from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
+                                                   SamplingOptions,
+                                                   StopConditions)
+
+    async def run():
+        req = PreprocessedRequest(
+            token_ids=list(prompt), request_id=rid,
+            stop_conditions=StopConditions(max_tokens=n, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0))
+        frames = [f async for f in eng.generate(req)]
+        return [t for f in frames for t in f.token_ids], frames[-1]
+    return run
+
+
+def _prefill_hashes(eng, prompt):
+    from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
+                                                   SamplingOptions,
+                                                   StopConditions)
+
+    async def run():
+        req = PreprocessedRequest(
+            token_ids=list(prompt), request_id="p",
+            stop_conditions=StopConditions(max_tokens=1),
+            sampling_options=SamplingOptions(temperature=0.0))
+        req.prefill_only = True
+        frames = [f async for f in eng.generate(req)]
+        return [b[0] for b in frames[-1].kv_transfer_params["blocks"]]
+    return run
+
+
+def _twin_engines(dev):
+    """Two bf16 engines on the card sharing one set of weights (B1-B3)."""
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    base = _block_engine(dev, False)
+    kw = dict(num_pages=160, page_size=16, max_num_seqs=8, max_context=512,
+              max_prefill_chunk=128, min_prefill_bucket=16)
+    return [TorchEngine(base.model_cfg, base.params, TorchEngineConfig(**kw),
+                        device=dev) for _ in range(2)]
+
+
+def test_inject_keeps_a_captured_block_replay_correct(dev):
+    """B captures its fused block graphs on one prompt, then KV blocks
+    pulled from A are injected in place (frames through the staged,
+    pinned inject pipeline): B's next serve replays the captured graphs
+    (no new capture) over the injected prefix, with the tokens of A's hot
+    serve of the same prompt, and B's pages hold A's bytes."""
+    import asyncio
+    from dynamo_tpu_torch.engine.transfer import (InjectPipeline,
+                                                  export_frames,
+                                                  stamp_frame_crcs)
+    a, b = _twin_engines(dev)
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(1, 500, size=300).tolist()
+    warm = rng.integers(1, 500, size=300).tolist()
+
+    async def run():
+        try:
+            hashes = await _prefill_hashes(a, prompt)()
+            await _serve_one(b, warm, "warm")()
+            captured, replays = len(b.graphs), b.graphs.replays
+            assert captured > 0
+            ptr = b.pages.data_ptr()
+            frames = stamp_frame_crcs(await a.run_exclusive(
+                export_frames, a, hashes, "layer", 4))
+            pipe = InjectPipeline(b, window=8)
+            for f in frames:
+                meta = dict(f.obj)
+                meta["_raw"] = np.ascontiguousarray(f.raw).view(
+                    np.uint8).tobytes()
+                await pipe.add_frame(meta)
+            assert await pipe.finish() == len(hashes) == 18
+            assert b.page_scatter_dispatches == 3
+            got, last = await _serve_one(b, prompt, "b")()
+            want, _ = await _serve_one(a, prompt, "a")()
+            assert last.cached_tokens == 288
+            assert got == want
+            assert len(b.graphs) == captured
+            assert b.graphs.replays > replays
+            assert b.pages.data_ptr() == ptr
+            n = len(hashes)
+            pa = a.dispatch_gather_pages(
+                [a.allocator._by_hash[h] for h in hashes])[:, :n]
+            pb = b.dispatch_gather_pages(
+                [b.allocator._by_hash[h] for h in hashes])[:, :n]
+            assert torch.equal(pa.view(torch.int16), pb.view(torch.int16))
+        finally:
+            await a.stop()
+            await b.stop()
+    asyncio.run(run())
+
+
+def test_cuda_ipc_offer_pull_between_processes(dev, tmp_path):
+    """The device-direct plane: an offer of gathered blocks made here is
+    pulled card to card by another process (which imports no JAX), whose
+    copy hashes to the bytes offered; a second pull from this process is
+    refused (CUDA opens no handle in the process that made it)."""
+    import asyncio
+    import hashlib
+    import os
+    import subprocess
+    import sys
+    from dynamo_tpu_torch.engine.transfer import DeviceTransferPlane
+    from dynamo_tpu_torch.runtime.codec import pack
+    a, b = _twin_engines(dev)
+    prompt = np.random.default_rng(8).integers(1, 500, size=300).tolist()
+    plane = DeviceTransferPlane()
+
+    async def offer():
+        try:
+            hashes = await _prefill_hashes(a, prompt)()
+            out = await a.run_exclusive(plane.offer, a, hashes)
+            data = a.dispatch_gather_pages(
+                [a.allocator._by_hash[h] for h in hashes])[:, :len(hashes)]
+            host = data.contiguous().view(torch.int16).cpu().numpy()
+            return out, hashlib.sha256(host.tobytes()).hexdigest()
+        finally:
+            await a.stop()
+            await b.stop()
+    off, want = asyncio.run(offer())
+    assert off["dtype"] == "bfloat16" and len(off["blocks"]) == 18
+    path = tmp_path / "offer.bin"
+    path.write_bytes(pack(off))
+    code = r"""
+import hashlib, sys
+sys.modules["jax"] = None
+import torch
+from dynamo_tpu_torch.engine.transfer import DeviceTransferPlane
+from dynamo_tpu_torch.runtime.codec import unpack
+offer = unpack(open(sys.argv[1], "rb").read())
+data = DeviceTransferPlane().pull(offer)
+host = data.contiguous().view(torch.int16).cpu().numpy()
+print(hashlib.sha256(host.tobytes()).hexdigest())
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run([sys.executable, "-c", code, str(path)], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == want
+    with pytest.raises(ConnectionError):
+        plane.pull(off)
+    plane.ack(off["uuid"])
+    assert not plane._offers
+
+
+def test_kvbm_offload_onboard_on_the_card(dev, tmp_path):
+    """``TieredEngine`` over a card engine whose page pool (15 usable
+    pages) holds one request: the next request evicts the prompt's
+    blocks, which spill (pinned copies on the spill stream) to host and,
+    past a four-block host budget, to disk; served again, the prompt
+    onboards them in place (synchronous onboarding: the prefetch race
+    with the prefill cursor would change which positions are recomputed)
+    and the serve equals a hot cache's."""
+    import asyncio
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.kvbm import TieredEngine, TieredKvConfig
+    base = _block_engine(dev, False)
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(1, 500, size=200).tolist()
+    other = rng.integers(1, 500, size=200).tolist()
+    cfg = base.model_cfg
+    block = cfg.num_layers * 2 * cfg.num_kv_heads * 16 * cfg.head_dim * 2
+
+    def engine(pages):
+        return TorchEngine(cfg, base.params, TorchEngineConfig(
+            num_pages=pages, page_size=16, max_num_seqs=2, max_context=512,
+            max_prefill_chunk=64, min_prefill_bucket=16), device=dev)
+
+    async def run():
+        hot = engine(64)
+        try:
+            await _serve_one(hot, prompt, "w")()
+            want, _ = await _serve_one(hot, prompt, "h")()
+        finally:
+            await hot.stop()
+        eng = engine(16)
+        ptr = eng.pages.data_ptr()
+        t = TieredEngine(eng, TieredKvConfig(
+            host_budget_bytes=4 * block, disk_budget_bytes=64 * block,
+            disk_path=str(tmp_path), prefetch_depth_bytes=0))
+        try:
+            await _serve_one(t, prompt, "a")()
+            await _serve_one(t, other, "b")()
+            t.flush_spills()
+            assert t.offloaded >= 12 and len(t.disk) >= 1
+            got, last = await _serve_one(t, prompt, "a2")()
+            assert got == want
+            assert t.onboarded >= 1 and last.cached_tokens > 0
+            assert eng.pages.data_ptr() == ptr
+        finally:
+            await t.stop()
+    asyncio.run(run())

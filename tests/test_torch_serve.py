@@ -1,9 +1,11 @@
 """The port's serving entry points against the reference, on the CPU.
 
 - Copies: every module the port copies from the reference's JAX-free
-  serving half equals its reference file once ``dynamo_tpu.`` is rewritten
-  to ``dynamo_tpu_torch.``, but for the named overrides listed here, each
-  of which raises naming its ROADMAP item.
+  serving half and KV data plane equals its reference file once
+  ``dynamo_tpu.`` is rewritten to ``dynamo_tpu_torch.``, but for the named
+  overrides listed here, each of which raises naming its ROADMAP item, and
+  the named differences of the KV data plane's copies (the engine type,
+  the CUDA IPC device-direct plane, bfloat16 blocks carried as uint16).
 - ``TorchEngine.embed`` / ``score`` / ``stats`` against ``JaxEngine``'s on
   the same float32 weights: embeddings within 1e-5 of the largest value,
   prompt logprobs within 2e-6 relative (PyTorch's logsumexp sums in
@@ -22,7 +24,9 @@
   worker serve /v1/models, chat (streamed and not), completions with
   echo + logprobs and embeddings over HTTP, the greedy text equal to the
   reference CLI's; the worker's /metrics counts the attention calls. Flags
-  whose paths are not ported exit non-zero naming their ROADMAP item.
+  whose paths are not ported exit non-zero naming their ROADMAP item; the
+  disaggregation and KVBM flags are accepted, KVBM with ``--disagg decode``
+  refused as the reference refuses it.
 """
 
 import asyncio
@@ -55,40 +59,36 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # -- copies -------------------------------------------------------------------
 
-# every module of the aggregated serving path's import closure that the
-# port copies (worker/main.py, run.py and the package __init__ files of
-# frontend/, worker/ and protocols/ are the port's own)
+# every module of the serving path's import closure that the port copies
+# (worker/main.py, run.py, engine/transfer.py, kvbm/{manager,prefetch}.py
+# and the package __init__ files of frontend/, worker/, protocols/ and
+# kvbm/ are the port's own)
 COPIES = [
     "backend.py", "model_card.py", "frontend/main.py", "http/__init__.py",
     "http/metrics.py", "http/service.py", "kv_router/__init__.py",
     "kv_router/approx.py", "kv_router/global_index.py",
     "kv_router/indexer.py", "kv_router/recorder.py", "kv_router/router.py",
-    "kv_router/scheduler.py", "llm/__init__.py", "llm/model_manager.py",
-    "llm/operators.py", "llm/pipeline.py", "llm/register.py",
-    "models/hub.py", "preprocessor/__init__.py",
+    "kv_router/scheduler.py", "kvbm/tiers.py", "llm/__init__.py",
+    "llm/model_manager.py", "llm/operators.py", "llm/pipeline.py",
+    "llm/register.py", "models/hub.py", "preprocessor/__init__.py",
     "preprocessor/preprocessor.py", "preprocessor/sp_tokenizer.py",
     "preprocessor/template.py", "preprocessor/tokenizer.py",
     "preprocessor/tools.py", "protocols/common.py", "protocols/events.py",
     "protocols/openai.py", "protocols/sse.py", "runtime/__init__.py",
-    "runtime/client.py", "runtime/codec.py", "runtime/component.py",
-    "runtime/coordinator.py", "runtime/kv_store.py",
-    "runtime/push_router.py", "runtime/resilience.py", "runtime/rpc.py",
-    "runtime/runtime.py", "runtime/system_server.py", "utils/aio.py",
-    "utils/config.py", "utils/logging.py", "utils/tracing.py",
-    "utils/testing.py", "worker/events.py", "worker/metrics.py",
+    "runtime/bulk.py", "runtime/client.py", "runtime/codec.py",
+    "runtime/component.py", "runtime/coordinator.py",
+    "runtime/kv_store.py", "runtime/push_router.py",
+    "runtime/resilience.py", "runtime/rpc.py", "runtime/runtime.py",
+    "runtime/system_server.py", "utils/aio.py", "utils/config.py",
+    "utils/logging.py", "utils/tracing.py", "utils/testing.py",
+    "worker/disagg.py", "worker/drain.py", "worker/events.py",
+    "worker/metrics.py",
 ]
 
 # module -> [(text before the hunk, text after it, ROADMAP item, why)]: the
 # hunk between the two anchors raises in the port instead of reaching a
 # module that is not ported
 OVERRIDES = {
-    "llm/register.py": [(
-        "                        # the puller acks via the kv_export "
-        "endpoint\n",
-        "                    stitcher.close()\n                    final = "
-        "out.to_dict()",
-        "A7", "the disagg prefill leg's export lease lives in "
-              "engine/transfer.py (KV transfer)")],
     "model_card.py": [(
         "        or pass ``tokenizer_path`` explicitly.\n        \"\"\"\n",
         "\n\n\n@dataclass\nclass ModelEntry",
@@ -100,14 +100,45 @@ OVERRIDES = {
                "checkpoints (nothing may be downloaded where it runs)")],
 }
 
+# module -> [(reference text, port text, why)]: the named differences of
+# the KV data plane's copies, each substituted into the reference (every
+# occurrence) before the comparison
+_DDTP_REF = ("    return _kv_bw_book\n\n\n", "def disagg_conf_key(")
+NAMED = {
+    "worker/disagg.py": [
+        ("from dynamo_tpu_torch.engine.jax_engine import JaxEngine",
+         "from dynamo_tpu_torch.engine.torch_engine import TorchEngine",
+         "the port's engine"),
+        ("JaxEngine", "TorchEngine", "the port's engine in type hints"),
+        (_DDTP_REF, None,
+         "the device-direct plane is CUDA IPC on a CUDA cache, None on the "
+         "CPU (the reference: jax.experimental.transfer, None without it)"),
+    ],
+    "kvbm/tiers.py": [
+        ("from dynamo_tpu_torch.engine.transfer import BlockPayload\n",
+         "from dynamo_tpu_torch.engine.transfer import BlockPayload, "
+         "host_dtype\n", "bfloat16 blocks ride as uint16 on the host"),
+        ("str(block.data.dtype)", "block.dtype",
+         "the block's wire dtype name, not its host carrier's"),
+        ("np.frombuffer(raw, dtype=np.dtype(dtype))",
+         "np.frombuffer(raw, dtype=host_dtype(dtype))",
+         "a bfloat16 file reads into uint16"),
+        ("parent_hash=parent, data=arr.reshape(shape))",
+         "parent_hash=parent, data=arr.reshape(shape),\n"
+         "                            dtype=dtype)",
+         "the read block keeps its dtype name"),
+    ],
+}
+
 # module -> lines of comments or docstrings reworded in the copy: the
 # reference's comments there cite its own review rounds and pull requests,
-# which say nothing about the port (the code on those lines is unchanged:
-# the test compares syntax trees too)
+# or the JAX transfer API the port replaces (the code on those lines is
+# unchanged: the test compares syntax trees too)
 REWORDED = {"http/service.py": 2, "kv_router/approx.py": 1,
             "llm/operators.py": 1, "preprocessor/preprocessor.py": 1,
             "preprocessor/sp_tokenizer.py": 2, "runtime/codec.py": 1,
             "runtime/coordinator.py": 4, "runtime/resilience.py": 1,
+            "worker/disagg.py": 3, "worker/drain.py": 1,
             "worker/metrics.py": 1}
 
 
@@ -157,6 +188,13 @@ def test_copy_equals_reference(rel):
         ref, _ = _cut(ref, before, after)
         port, hunk = _cut(port, before, after)
         assert "raise " in hunk and f"ROADMAP {item}" in hunk, hunk
+    for old, new, _why in NAMED.get(rel, []):
+        if new is None:  # a whole function: cut the same span from both
+            ref, _ = _cut(ref, *old)
+            port, _ = _cut(port, *old)
+            continue
+        assert old in ref and new in port, (old, new)
+        ref = ref.replace(old, new)
     ref_lines, port_lines = ref.splitlines(), port.splitlines()
     assert len(port_lines) == len(ref_lines)
     differ = [i for i, (a, b) in enumerate(zip(ref_lines, port_lines))
@@ -500,7 +538,7 @@ def test_processes_serve_over_http(model_dir, reference_texts, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--tensor-parallel-size", "2"], "A13"),
-    (["--disagg", "prefill"], "A7"),
+    (["--speculative-num-tokens", "2"], "A8"),
     (["--quantize", "int8"], "A9"),
 ])
 def test_worker_refuses_unported_flags(model_dir, flags, item):
@@ -511,6 +549,27 @@ def test_worker_refuses_unported_flags(model_dir, flags, item):
         capture_output=True, text=True, timeout=120, env=_env(), cwd=REPO)
     assert proc.returncode != 0
     assert f"ROADMAP {item}" in proc.stderr, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--disagg", "prefill"],
+    ["--disagg", "prefill", "--disagg-strategy", "prefill_first"],
+    ["--disagg", "decode"],
+    ["--disagg", "decode", "--disagg-strategy", "prefill_first"],
+    ["--host-cache-bytes", "1048576", "--disk-cache-bytes", "1048576"],
+])
+def test_worker_accepts_kv_data_plane_flags(flags):
+    """The disaggregated roles in both strategies and the KVBM tiers pass
+    the worker's refusal check; KVBM with ``--disagg decode`` is refused
+    as the reference refuses it."""
+    from dynamo_tpu_torch.worker.main import build_parser, refuse_unported
+    args = build_parser().parse_args(["--model-path", "m"] + flags)
+    refuse_unported(args)
+    bad = build_parser().parse_args(
+        ["--model-path", "m", "--disagg", "decode", "--host-cache-bytes",
+         "1"])
+    with pytest.raises(SystemExit, match="--disagg decode"):
+        refuse_unported(bad)
 
 
 def test_deepseek_scores_and_refuses_embeddings():
