@@ -24,7 +24,10 @@ and suppresses the final result line):
    for the prefill kernel's prefix-hit case, the rows past 1 ulp of the
    plain version, each against ``plain.online_attention_rows``, which
    rounds as the kernel does (p against the running max of 64-position
-   chunks, where the plain version uses the row's final max);
+   chunks, where the plain version uses the row's final max); and the
+   shapes of speculation and Gemma-2-27B: B1 and B3 at 32 query heads over
+   16 (G = 2) with a 4096-position window, softcap 50 and contexts up to
+   8192, B2 as a verify step (B = 32, S = K+1 = 5 at G = 3);
 3. the full-width Llama-3.2-3B forward (random weights from a seed) on a
    prefill, a mixed and a decode step, once through the kernels and once
    through their plain versions: every layer's attention must agree within
@@ -59,9 +62,26 @@ and suppresses the final result line):
    reported with the first changed step's margin. On Llama-3.2-3B's vocab
    the sampler on the card is held against the CPU (threefry words
    bit-equal, Gumbel noise within 1 ulp, tokens equal) and
-   ``TorchEngine._sample_tail`` is timed alone at B=32.
+   ``TorchEngine._sample_tail`` is timed alone at B=32;
+4e. int8 W8A8 (``ops/quant.py``) on the Llama weights: the layer weights'
+    bytes against bf16's, phase 3's steps through the kernels and their
+    plain versions on the int8 tree under phase 3's gate (the distance to
+    the bf16 logits printed, not gated), phase 4's serve on an int8 engine
+    (tok/s beside phase 4's) and its block's replay time;
+4f. speculative decoding, K = 4: a verify step's forward (``[2, 5]``,
+    logits window 5) through B2 against the plain versions under phase
+    3's gate; a serve with n-gram drafts on prompts that repeat a span;
+    phase 4d's workload with the proposer fed the per-step serve's greedy
+    streams: drafts must be accepted; acceptance rate, tokens per verify
+    step, tok/s beside the per-step and fused serves, and where each stream
+    leaves the per-step one, with the top-2 margin there.
 
-Then, with the Llama model freed:
+Then, with the Llama model freed, Gemma-2-27B (``ModelConfig.gemma2_27b``,
+46 layers at full width, 54.5 GB of random bf16 weights made on the card):
+its forward on seven steps (``gemma_plan``: a 5633-token row past the
+sliding layers' 4096-position window beside a 1502-token one; prefill,
+mixed and decode) under phase 3's checks, and phase 4's serve fused (cold,
+warm, graph vs eager) and per step; then:
 
 5. Llama-3.2-3B served through the port's entry points, at full width and
    depth in bf16 (random weights from a seed): this script writes a model
@@ -114,14 +134,18 @@ Then DeepSeek-V2-Lite (MLA + MoE):
     latent attention's distance to the oracle's on the same inputs;
 4b. ``TorchEngine`` serving DeepSeek-V2-Lite with phase 4's workload and
     checks (both latent kernels launch, fused blocks replayed as graphs),
-    the graph-vs-eager block, phase 4d, then phase 4c's sampled workload.
+    the graph-vs-eager block, phase 4d, then phase 4c's sampled workload,
+    then phase 4d's first four requests speculating (K = 4) with drafts fed
+    from the per-step streams: verify steps through B5 must accept.
 
 It imports nothing of JAX and nothing of the JAX package. Every phase
 prints its seconds. The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels, each with its launches from its own
-model's greedy serve (``launches``), sampled serve (``launches_sampled``)
-and, for the Llama tree's three, phase 5's worker
-(``launches_serve_entry``).
+model's greedy serve (``launches``), sampled serve (``launches_sampled``),
+speculating serve (``launches_spec``) and, for the Llama tree's three,
+phase 5's worker (``launches_serve_entry``), phase 6's workers
+(``launches_disagg``), the int8 serves (``launches_int8``) and Gemma-2's
+fused serves (``launches_gemma``).
 """
 
 from __future__ import annotations
@@ -240,20 +264,22 @@ def kv_rows_read(q_lens, ctxs, window):
     return rows
 
 
-def make_case(rng, B, q_lens, ctxs, S, window=None, softcap=None):
+def make_case(rng, B, q_lens, ctxs, S, window=None, softcap=None, hq=HQ,
+              hkv=HKV, max_ctx=4096, sm_scale=DH ** -0.5):
     """A paged cache holding each row's context on distinct random pages in
     every layer (as many layers as ``flush_layers`` asks for timing, at
-    least 2; layer 1 is checked), the page table (``max_context // ps``
-    wide, unused entries 0) and bf16 queries at the row's last ``q_len``
-    positions."""
+    least 2; layer 1 is checked), the page table (``max_ctx // ps`` wide,
+    unused entries 0) and bf16 queries at the row's last ``q_len``
+    positions; ``hq`` query heads over ``hkv`` kv heads (Llama-3.2-3B's by
+    default)."""
     L = max(2, flush_layers(kv_rows_read(q_lens, ctxs, window)
-                            * HKV * DH * 2 * 2))
-    P = 4096 // PS
+                            * hkv * DH * 2 * 2))
+    P = max_ctx // PS
     need = sum(-(-c // PS) for c in ctxs)
     N = need + 1
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    pages = torch.randn((L, N, 2, HKV, PS, DH), generator=g, device=dev,
+    pages = torch.randn((L, N, 2, hkv, PS, DH), generator=g, device=dev,
                         dtype=torch.float32).to(torch.bfloat16)
     # the garbage page holds NaN: a kernel that multiplies a masked weight
     # by it instead of selecting would leak NaN into the output
@@ -267,14 +293,14 @@ def make_case(rng, B, q_lens, ctxs, S, window=None, softcap=None):
         table[i, :n] = perm[off:off + n]
         off += n
         positions[i, :q_lens[i]] = np.arange(ctxs[i] - q_lens[i], ctxs[i])
-    q = torch.randn((B, S, HQ, DH), generator=g, device=dev,
+    q = torch.randn((B, S, hq, DH), generator=g, device=dev,
                     dtype=torch.float32).to(torch.bfloat16)
     return dict(q=q, pages=pages, layers=L,
                 table=torch.from_numpy(table).to(dev),
                 positions=torch.from_numpy(positions).to(dev),
                 total=torch.tensor(ctxs, dtype=torch.int32, device=dev),
                 q_lens=list(q_lens), ctxs=list(ctxs), window=window,
-                softcap=softcap, sm_scale=DH ** -0.5)
+                softcap=softcap, sm_scale=sm_scale, hq=hq, hkv=hkv)
 
 
 def work_of(case, S):
@@ -290,11 +316,12 @@ def work_of(case, S):
         for p in range(ctx - ql, ctx):
             first = max(p - win + 1, 0) if win else 0
             pairs += p + 1 - first
-    kv_bytes = kv_rows * HKV * DH * 2 * 2
-    q_bytes = sum(case["q_lens"]) * HQ * DH * 2   # real query slots only
-    out_bytes = B * S * HQ * DH * 2               # pad slots are written zero
+    hq, hkv = case["hq"], case["hkv"]
+    kv_bytes = kv_rows * hkv * DH * 2 * 2
+    q_bytes = sum(case["q_lens"]) * hq * DH * 2   # real query slots only
+    out_bytes = B * S * hq * DH * 2               # pad slots are written zero
     meta = B * (-(-max(case["ctxs"]) // PS)) * 4 + B * 8
-    return kv_bytes + q_bytes + out_bytes + meta, 4 * DH * HQ * pairs
+    return kv_bytes + q_bytes + out_bytes + meta, 4 * DH * hq * pairs
 
 
 def sdpa_inputs(case, S, decode: bool, layer: int):
@@ -304,8 +331,9 @@ def sdpa_inputs(case, S, decode: bool, layer: int):
     T = -(-max(case["ctxs"]) // PS) * PS
     tbl = case["table"][:, :T // PS].long()
     kv = case["pages"][layer][tbl]                  # [B, n, 2, Hkv, ps, Dh]
-    k = kv[:, :, 0].permute(0, 2, 1, 3, 4).reshape(B, HKV, T, DH)
-    v = kv[:, :, 1].permute(0, 2, 1, 3, 4).reshape(B, HKV, T, DH)
+    hkv = case["hkv"]
+    k = kv[:, :, 0].permute(0, 2, 1, 3, 4).reshape(B, hkv, T, DH)
+    v = kv[:, :, 1].permute(0, 2, 1, 3, 4).reshape(B, hkv, T, DH)
     k = torch.nan_to_num(k)
     v = torch.nan_to_num(v)
     q = case["q"][:, :1] if decode else case["q"]
@@ -412,9 +440,33 @@ def kernel_cases(rng):
     yield ("ragged_mixed", "B=8 S=512 2 chunks + 6 decode rows",
            make_case(rng, 8, [512, 512, 1, 1, 1, 1, 1, 1], ctxs, S), S,
            False)
+    # this slice's shapes (after the cases above, whose draws they leave
+    # as they were): Gemma-2-27B's attention (32 query heads over 16 kv
+    # heads, the sliding layers' window 4096, softcap 50, query scale
+    # 144^-0.5, contexts up to its 8192) in B1 and B3, and B2 as the
+    # speculative verify step runs it at Llama-3.2-3B's shapes (S = K+1)
+    gemma = dict(window=GEMMA_WINDOW, softcap=50.0, hq=32, hkv=16,
+                 max_ctx=8192, sm_scale=144.0 ** -0.5)
+    ctxs = [8192, 1] + list(rng.integers(2, 8193, size=30))
+    yield ("paged_decode", GEMMA_DECODE_LABEL,
+           make_case(rng, 32, [1] * 32, ctxs, 1, **gemma), 1, True)
+    K = SPEC_K
+    ctxs = list(rng.integers(K + 2, 4097, size=32))
+    yield ("paged_prefill", SPEC_VERIFY_LABEL,
+           make_case(rng, 32, [K + 1] * 32, ctxs, K + 1), K + 1, False)
+    ctxs = [6000, 512] + list(rng.integers(64, 8193, size=6))
+    yield ("ragged_mixed", GEMMA_MIXED_LABEL,
+           make_case(rng, 8, [512, 512, 1, 1, 1, 1, 1, 1], ctxs, S,
+                     **gemma), S, False)
 
 
 PREFILL_PREFIX_LABEL = "B=4 S=512 prefix hits"
+# Gemma-2-27B's sliding window, and the draft count of the spec phases
+GEMMA_WINDOW = 4096
+SPEC_K = 4
+GEMMA_DECODE_LABEL = "B=32 G=2 window=4096 softcap=50 ctx<=8192"
+SPEC_VERIFY_LABEL = "B=32 S=5 spec verify (K=4, G=3)"
+GEMMA_MIXED_LABEL = "B=8 G=2 window=4096 softcap=50"
 
 
 def phase_kernels(results):
@@ -711,11 +763,93 @@ def mla_impls():
             None)
 
 
-def phase_forward(params, cfg, impls, strict_logits=True):
-    """The same prefill, mixed and decode steps through three forwards,
-    each on its own cache: through the kernels, through the kernels' plain
-    versions, and through the JAX-style oracle (``ops.attention`` for the
-    Llama tree, the DeepSeek forward's own latent attention: float32 scores
+def llama_plan(cfg, rng):
+    """Phase 3's steps on two rows of 1024-token prompts, each on 64 pages
+    of a 200-page cache: a prefill of both rows' first 512 tokens, a mixed
+    step (row 0's next chunk over its cached prefix, row 1 one token) and
+    a decode step. Returns (steps, page table, pages per cache); a step is
+    (label, kind, tokens, positions, total, new, logits window), ``kind``
+    the attention it runs (decode, prefill or mixed)."""
+    P = 4096 // PS
+    table = np.zeros((2, P), np.int32)
+    table[0, :64] = np.arange(1, 65)
+    table[1, :64] = np.arange(65, 129)
+    prompt = rng.integers(0, cfg.vocab_size, size=(2, 1024)).astype(np.int32)
+    S = 512
+    steps = [("prefill", "prefill", prompt[:, :S],
+              np.tile(np.arange(S), (2, 1)), [S, S], [S, S], 1)]
+    toks = np.zeros((2, S), np.int32)
+    pos = np.zeros((2, S), np.int32)
+    toks[0] = prompt[0, S:2 * S]
+    pos[0] = np.arange(S, 2 * S)
+    toks[1, 0] = prompt[1, S]
+    pos[1, 0] = S
+    steps.append(("mixed", "mixed", toks, pos, [2 * S, S + 1], [S, 1], 1))
+    steps.append(("decode", "decode", [[7], [9]], [[2 * S], [S + 1]],
+                  [2 * S + 1, S + 2], [1, 1], 1))
+    return steps, table, 200
+
+
+def spec_plan(cfg, rng):
+    """A speculative verify step at Llama-3.2-3B's widths: phase 3's
+    prefill of two 512-token prompts, then one ``[2, K+1]`` step feeding
+    each row's last token and K drafts through the chunked-prefill
+    attention with a logits window of K+1, as ``TorchEngine._spec_step``
+    runs it."""
+    steps, table, pages = llama_plan(cfg, rng)
+    S, K = 512, SPEC_K
+    drafts = rng.integers(0, cfg.vocab_size, size=(2, K + 1)).astype(
+        np.int32)
+    # the token sampled after the prompt at position S, then the drafts
+    pos = np.tile(np.arange(S, S + K + 1), (2, 1))
+    return [steps[0], ("verify", "prefill", drafts, pos,
+                       [S + K + 1, S + K + 1], [K + 1, K + 1], K + 1)], \
+        table, pages
+
+
+# Gemma-2-27B's forward check: row 0's prompt runs past the sliding
+# layers' window of 4096, row 1's stays short
+GEMMA_LENS = (5633, 1502)
+
+
+def gemma_plan(cfg, rng):
+    """Gemma-2-27B's steps on two rows: five prefill chunks of 1024 tokens
+    take row 0 to 5120 positions (the last chunk's queries see only the
+    window's 4096 positions on the sliding layers) and row 1, beside it,
+    to 1500 in chunks of 350 and a last of 100 (chunks with pad slots);
+    then a mixed step (row 0's next 512 tokens, row 1 one) and a decode
+    step. The page table is 8192 positions wide."""
+    P = 8192 // PS
+    n0, n1 = (-(-(n + 2) // PS) for n in GEMMA_LENS)
+    table = np.zeros((2, P), np.int32)
+    table[0, :n0] = np.arange(1, n0 + 1)
+    table[1, :n1] = np.arange(n0 + 1, n0 + n1 + 1)
+    prompt = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+              for n in GEMMA_LENS]
+    steps = []
+    done = [0, 0]
+    for S, chunks in ([(1024, (1024, 350))] * 4 + [(1024, (1024, 100)),
+                                                    (512, (512, 1)),
+                                                    (1, (1, 1))]):
+        toks = np.zeros((2, S), np.int32)
+        pos = np.zeros((2, S), np.int32)
+        for r, n in enumerate(chunks):
+            toks[r, :n] = prompt[r][done[r]:done[r] + n]
+            pos[r, :n] = np.arange(done[r], done[r] + n)
+            done[r] += n
+        kind = ("decode" if S == 1 else "mixed" if chunks[1] == 1
+                else "prefill")
+        steps.append((f"{kind} S={S} ctx {done[0]}/{done[1]}", kind, toks,
+                      pos, list(done), list(chunks), 1))
+    return steps, table, n0 + n1 + 1
+
+
+def phase_forward(params, cfg, impls, strict_logits=True, plan=llama_plan,
+                  compare=None):
+    """The steps of ``plan`` through three forwards, each on its own
+    cache: through the kernels, through the kernels' plain versions, and
+    through the JAX-style oracle (``ops.attention`` for the Llama tree and
+    Gemma-2, the DeepSeek forward's own latent attention: float32 scores
     from the unrounded query, float32 weights).
 
     Inside the kernel forward every layer's attention is also computed by
@@ -730,7 +864,10 @@ def phase_forward(params, cfg, impls, strict_logits=True):
     ``strict_logits`` off (DeepSeek) the logits gate is reported and the
     per-layer check alone decides: random MoE gates can flip a near-tie
     route between two forwards that differ in rounding, and one flipped
-    route moves the logits by far more than rounding."""
+    route moves the logits by far more than rounding. ``compare`` =
+    (label, params): a fourth forward through the kernels on those weights
+    (the bf16 tree beside an int8 one), whose distance to the kernel
+    forward's logits is printed and gates nothing."""
     from dynamo_tpu_torch.models import deepseek, get_family
     from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
     family = get_family(cfg)
@@ -738,15 +875,14 @@ def phase_forward(params, cfg, impls, strict_logits=True):
     mla = oracle is None
     rng = np.random.default_rng(1)
     dev = "cuda"
-    P = 4096 // PS
     layer_errs = []
     vs_oracle = []          # MLA: per layer, (kernel, plain) vs the oracle
     real_slots = None       # [B, S] bool of the step being run
 
     def checked(name):
-        def attn(*args):
-            out = kernel[name](*args)
-            ref = plain[name](*args)
+        def attn(*args, **kw):
+            out = kernel[name](*args, **kw)
+            ref = plain[name](*args, **kw)
             layer_errs.append(float(row_ulp_error(out, ref).max()))
             if mla:
                 orc = mla_oracle_latent(cfg, *args)
@@ -768,28 +904,14 @@ def phase_forward(params, cfg, impls, strict_logits=True):
 
     impls = {"kernel": checked, "plain": lambda n: plain[n],
              "oracle": lambda n: oracle}
-    caches = {k: family.make_pages(cfg, 200, PS, device=dev) for k in impls}
-    table = np.zeros((2, P), np.int32)
-    table[0, :64] = np.arange(1, 65)
-    table[1, :64] = np.arange(65, 129)
-    prompt = rng.integers(0, cfg.vocab_size, size=(2, 1024)).astype(np.int32)
-    S = 512
-    steps = []
-    # prefill: both rows' first 512 tokens
-    steps.append(("prefill", prompt[:, :S], np.tile(np.arange(S), (2, 1)),
-                  [S, S], [S, S]))
-    # mixed: row 0 its next chunk over its cached prefix, row 1 one token
-    toks = np.zeros((2, S), np.int32)
-    pos = np.zeros((2, S), np.int32)
-    toks[0] = prompt[0, S:2 * S]
-    pos[0] = np.arange(S, 2 * S)
-    toks[1, 0] = prompt[1, S]
-    pos[1, 0] = S
-    steps.append(("mixed", toks, pos, [2 * S, S + 1], [S, 1]))
-    # decode: one token each
-    steps.append(("decode", [[7], [9]], [[2 * S], [S + 1]],
-                  [2 * S + 1, S + 2], [1, 1]))
-    for name, toks, pos, total, new in steps:
+    weights = {k: params for k in impls}
+    if compare is not None:
+        impls["compare"] = lambda n: kernel[n]
+        weights["compare"] = compare[1]
+    steps, table, num_pages = plan(cfg, rng)
+    caches = {k: family.make_pages(cfg, num_pages, PS, device=dev)
+              for k in impls}
+    for name, kind, toks, pos, total, new, window in steps:
         a = [torch.from_numpy(np.asarray(x, np.int32)).to(dev)
              for x in (toks, pos, table, total, new)]
         S_step = a[0].shape[1]
@@ -803,9 +925,10 @@ def phase_forward(params, cfg, impls, strict_logits=True):
             for k, impl in impls.items():
                 routes["on"] = k
                 routes[k] = []
-                logits[k], _ = family.forward(params, cfg, a[0], a[1],
+                logits[k], _ = family.forward(weights[k], cfg, a[0], a[1],
                                               caches[k], a[2], a[3], a[4],
-                                              attn_impl=impl(name))
+                                              attn_impl=impl(kind),
+                                              logits_window=window)
         finally:
             deepseek._gate = gate
             routes["on"] = None
@@ -828,6 +951,13 @@ def phase_forward(params, cfg, impls, strict_logits=True):
                                  f"attention disagree")
         log(f"[forward] {name}: logits ratio kernels-vs-plain / "
             f"plain-vs-oracle = {diff / max(odiff, 1e-30):.3f}")
+        if compare is not None:
+            lc = logits["compare"]
+            same = float((lk.argmax(-1) == lc.argmax(-1)).float().mean())
+            log(f"[forward] {name}: logits vs the {compare[0]} forward "
+                f"max|d|={float((lk - lc).abs().max()):.4e} (max|logits| "
+                f"{float(lc.abs().max()):.4e}), argmax agreement "
+                f"{same:.3f} (reported, not gated)")
         if routes["kernel"]:
             flips = route_flips(routes, real_slots)
             log(f"[forward] {name}: MoE routes differing per layer over "
@@ -846,6 +976,7 @@ def phase_forward(params, cfg, impls, strict_logits=True):
             log(f"[forward] {name}: logits gate exceeded ({diff:.4e} > "
                 f"{tol:.4e}); reported only: the per-layer check decides "
                 f"(random MoE gates can flip a near-tie route)")
+    del caches
 
 
 def route_flips(routes, real_slots):
@@ -903,11 +1034,11 @@ def serve_prompts(V: int, seed: int, n_req: int = len(SERVE_LENS)):
     return prompts
 
 
-async def serve(engine, n_req=10, max_tokens=32, seed=2):
-    """One serve of greedy requests (prompts made from ``seed``) on a
-    running engine, with a step recorder of its own. Returns (stats per
-    request, wall seconds, the serve's step records, engine counters and
-    graph captures / replays over it)."""
+async def serve(engine, n_req=10, max_tokens=32, seed=2, prompts=None):
+    """One serve of greedy requests (prompts made from ``seed``, or
+    ``prompts``) on a running engine, with a step recorder of its own.
+    Returns (stats per request, wall seconds, the serve's step records,
+    engine counters and graph captures / replays over it)."""
     from dynamo_tpu_torch.engine.steptrace import StepRecorder
     from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
                                                    SamplingOptions,
@@ -916,7 +1047,9 @@ async def serve(engine, n_req=10, max_tokens=32, seed=2):
     before = {k: getattr(engine, k) for k in SERVE_COUNTERS}
     g = engine.graphs
     g0 = (len(g), g.replays) if g is not None else (0, 0)
-    prompts = serve_prompts(engine.model_cfg.vocab_size, seed, n_req)
+    if prompts is None:
+        prompts = serve_prompts(engine.model_cfg.vocab_size, seed, n_req)
+    n_req = len(prompts)
     started = asyncio.Event()
     stats = {}
 
@@ -974,19 +1107,21 @@ SERVE_SIZES = dict(num_pages=4096, page_size=PS, max_num_seqs=32,
 COLD_SEED, WARM_SEED = 2, 3
 
 
-def serve_engine(params, cfg, seeds, **engine_kw):
+def serve_engine(params, cfg, seeds, sizes=None, serve_kw=None,
+                 **engine_kw):
     """A fresh ``TorchEngine`` (the reference's defaults but for
-    ``engine_kw``) serving ``serve()``'s workload once per seed; returns
-    (engine, the serves' results, the family's kernel launches over all
-    of them)."""
+    ``engine_kw``; phase 4's sizes unless ``sizes``) serving ``serve()``'s
+    workload once per seed (``serve_kw`` passed on); returns (engine, the
+    serves' results, the family's kernel launches over all of them)."""
     from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
                                                       TorchEngineConfig)
     from dynamo_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
     engine = TorchEngine(cfg, params,
-                         TorchEngineConfig(**SERVE_SIZES, **engine_kw),
+                         TorchEngineConfig(**(sizes or SERVE_SIZES),
+                                           **engine_kw),
                          device="cuda")
     reset_launch_counts()
-    served = run_serve(engine, seeds)
+    served = run_serve(engine, seeds, **(serve_kw or {}))
     torch.cuda.synchronize()
     counts = {k: LAUNCHES[k] for k in engine.kernel_launches}
     return engine, served, counts
@@ -1033,7 +1168,7 @@ def check_stats(stats, cfg):
             raise AssertionError(f"request {i}: token out of vocab")
 
 
-def phase_engine(params, cfg):
+def phase_engine(params, cfg, sizes=None):
     """Serve ``serve()``'s workload twice on one engine with the
     reference's defaults (pipelined, fused blocks of up to 8 steps, each
     one CUDA graph replay): cold (the serve captures the graphs its shapes
@@ -1046,7 +1181,7 @@ def phase_engine(params, cfg):
     (``graph_vs_eager``). Returns the kernels' launch counts over both
     serves and the warm serve's streams."""
     engine, served, counts = serve_engine(params, cfg,
-                                          (COLD_SEED, WARM_SEED))
+                                          (COLD_SEED, WARM_SEED), sizes)
     chained = 0
     for (stats, wall, info), tag in zip(served, ("cold", "warm")):
         chained += serve_report(stats, wall, info, f"engine {tag}")
@@ -1107,7 +1242,9 @@ def block_inputs(engine, draw):
                                  torch.arange(B, device=dev) + 1, 0
                                  ).to(torch.int32)
         x["min_p"] = torch.zeros(B, device=dev)
-    return x, table[:, :n].reshape(-1).long()
+    # the block writes positions GRAPH_CTX - 1 .. + GRAPH_W - 1 of each row
+    first, last = (GRAPH_CTX - 1) // PS, (GRAPH_CTX + GRAPH_W - 2) // PS
+    return x, table[:, first:last + 1].reshape(-1).long()
 
 
 def graph_vs_eager(engine):
@@ -1150,40 +1287,56 @@ def graph_vs_eager(engine):
 # -- phase 4d: the same serve, per step ----------------------------------------
 
 
-def phase_per_step(params, cfg, fused):
+def report_agreement(tag, engine, stats, ref, what):
+    """Each request's token agreement with the same request in ``ref``;
+    where a stream differs, its first differing step and the top-2 logit
+    margin there (one forward of the prefix alone, on ``engine``'s
+    weights). Returns the count of requests token for token as ``ref``."""
+    same = 0
+    for i, s in sorted(stats.items()):
+        a, b = s["tokens"], ref[i]["tokens"]
+        diff = [j for j, (p, q) in enumerate(zip(a, b)) if p != q]
+        if not diff:
+            same += 1
+            continue
+        m = first_step_margin(engine, s["prompt"], a, diff[0],
+                              dict(temperature=0.0))
+        log(f"[{tag}] r{i}: {len(diff)} of {len(a)} tokens differ from "
+            f"{what}; first at step {diff[0]}, top-2 margin there {m:.4e}")
+    log(f"[{tag}] {same} of {len(stats)} requests token for token as "
+        f"{what}")
+    return same
+
+
+PER_STEP_MODES = (("per-step", dict(pipeline_decode=False)),
+                  ("pipelined", dict(decode_multistep=1)))
+
+
+def phase_per_step(params, cfg, fused, modes=PER_STEP_MODES, sizes=None):
     """Phase 4d: ``serve()``'s workload per step, unpipelined
     (``pipeline_decode=False``: one step, one fetch) and then pipelined
     without fusion (``decode_multistep=1``: step N+1 chained on the device
     while N is fetched), each on a fresh engine with the prompts of phase
-    4's warm serve, each with phase 4's report and its per-request token
-    agreement with that serve's fused streams ``fused``; where a stream
-    differs, its first differing step and the top-2 logit margin there
-    (one forward of the prefix alone). The pipelined serve must chain."""
-    for tag, kw in (("per-step", dict(pipeline_decode=False)),
-                    ("pipelined", dict(decode_multistep=1))):
-        engine, served, _counts = serve_engine(params, cfg, (WARM_SEED,),
-                                               **kw)
+    4's warm serve, each with phase 4's report, its launches, and its
+    per-request token agreement with that serve's fused streams ``fused``
+    (``report_agreement``). The pipelined serve must chain. Returns
+    {mode: (streams, tok/s)}."""
+    out = {}
+    for tag, kw in modes:
+        engine, served, counts = serve_engine(params, cfg, (WARM_SEED,),
+                                              sizes, **kw)
         stats, wall, info = served[0]
         serve_report(stats, wall, info, tag)
         check_stats(stats, cfg)
-        same = 0
-        for i, s in sorted(stats.items()):
-            a, b = s["tokens"], fused[i]["tokens"]
-            diff = [j for j, (p, q) in enumerate(zip(a, b)) if p != q]
-            if not diff:
-                same += 1
-                continue
-            m = first_step_margin(engine, s["prompt"], a, diff[0],
-                                  dict(temperature=0.0))
-            log(f"[{tag}] r{i}: {len(diff)} of {len(a)} tokens differ from "
-                f"the fused serve; first at step {diff[0]}, top-2 margin "
-                f"there {m:.4e}")
-        log(f"[{tag}] {same} of {len(stats)} requests token for token as "
-            "the fused serve")
+        log(f"[{tag}] launches={counts}")
+        report_agreement(tag, engine, stats, fused, "the fused serve")
         if tag == "pipelined" and info["chained_steps"] <= 0:
             raise AssertionError("the pipelined serve chained no step")
+        out[tag] = (stats, sum(len(s["tokens"]) for s in stats.values())
+                    / wall)
         del engine
         gc.collect()
+    return out
 
 
 # -- phase 4c: every sampling option, served --------------------------------
@@ -3161,6 +3314,224 @@ def drain_drill(stack, model, cfg) -> None:
         f"after its drain")
 
 
+# -- int8 W8A8, speculative decoding and Gemma-2 ------------------------------
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def phase_int8(params, cfg, _per_step):
+    """Llama-3.2-3B under ``quantize_params`` (int8 W8A8): the weight bytes
+    on the card against the bf16 tree's; phase 3's steps through the
+    kernels and their plain versions, both int8, under phase 3's gate, with
+    the distance to the bf16 kernel forward's logits printed (not gated);
+    then phase 4's greedy serve (cold and warm) on an int8 engine, every
+    kernel launched and every request finished, its warm tok/s beside
+    phase 4's bf16 warm serve in this run, and the fused block's graph
+    against its eager run (``graph_vs_eager``: its time per block beside
+    phase 4's bf16 block). Returns the kernels' launches over the
+    serves."""
+    from dynamo_tpu_torch.ops.quant import quantize_params
+    t0 = time.perf_counter()
+    qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    layer_bf16 = tree_bytes(params["layers"])
+    layer_int8 = tree_bytes(qparams["layers"])
+    log(f"[int8] quantized in {time.perf_counter() - t0:.2f} s: layer "
+        f"weights {layer_int8 / 1e9:.3f} GB (bf16 {layer_bf16 / 1e9:.3f} "
+        f"GB, ratio {layer_int8 / layer_bf16:.3f}); whole tree "
+        f"{tree_bytes(qparams) / 1e9:.3f} GB (bf16 "
+        f"{tree_bytes(params) / 1e9:.3f} GB; the tied embedding stays bf16)")
+    phase_forward(qparams, cfg, llama_impls(), True,
+                  compare=("bf16", params))
+    del qparams
+    gc.collect()
+    engine, served, counts = serve_engine(params, cfg,
+                                          (COLD_SEED, WARM_SEED),
+                                          quantize="int8")
+    for (stats, wall, info), tag in zip(served, ("cold", "warm")):
+        serve_report(stats, wall, info, f"int8 {tag}")
+        check_stats(stats, cfg)
+    log(f"[int8] launches={counts}; engine weights on the card "
+        f"{tree_bytes(engine.params) / 1e9:.3f} GB")
+    for k, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} never launched in the int8 "
+                                 "serve")
+    stats, wall, _info = served[1]
+    tok_s = sum(len(s["tokens"]) for s in stats.values()) / wall
+    bf16 = PHASE4_WARM.get(cfg.model_type, {})
+    log(f"[int8] warm serve {tok_s:.1f} tok/s against the bf16 warm serve's "
+        f"{bf16.get('tok_s', float('nan')):.1f} tok/s in this run")
+    graph_vs_eager(engine)
+    return counts
+
+
+def repeated_span_prompts(ref, span=64, seen=16):
+    """Prompts that repeat a span, made from the per-step serve's streams
+    ``ref``: each prompt, the first ``seen`` tokens the model generated
+    after it, then the prompt's last ``span`` tokens again. Where the
+    model continues the repeated span as it did the first time, the
+    n-gram proposer drafts what followed it then."""
+    return [s["prompt"] + s["tokens"][:seen] + s["prompt"][-span:]
+            for _i, s in sorted(ref.items())]
+
+
+def oracle_proposer(streams):
+    """A proposer that drafts, for a row whose context is a prefix of one
+    of ``streams`` (prompt + greedy tokens), that stream's continuation;
+    None for any other row (the row then decodes plainly)."""
+    def propose(tokens, k, max_n=4, min_n=2):
+        n = len(tokens)
+        for full in streams:
+            if n < len(full) and list(tokens) == full[:n]:
+                cont = full[n:n + k]
+                return cont + [cont[-1]] * (k - len(cont))
+        return None
+    return propose
+
+
+def spec_report(engine, stats, wall, info, tag):
+    """Print a speculating serve's verify steps, drafted rows, acceptance
+    rate and tokens per verify step (per drafted row); returns the
+    engine's spec counters."""
+    serve_report(stats, wall, info, tag)
+    st = engine.stats().spec_decode_stats
+    verify = sum(1 for r in info["records"] if r["kind"] == "spec")
+    rate = st.num_accepted_tokens / max(st.num_draft_tokens, 1)
+    per_row = 1 + st.num_accepted_tokens / max(st.num_drafts, 1)
+    log(f"[{tag}] K={engine.spec_K}: {verify} verify steps, "
+        f"{st.num_drafts} drafted rows, {st.num_draft_tokens} draft tokens, "
+        f"{st.num_accepted_tokens} accepted (rate {rate:.3f}); "
+        f"{per_row:.3f} tokens per drafted row per verify step")
+    return st
+
+
+def phase_spec(params, cfg, per_step):
+    """Speculative decoding at full width, K = 4: a verify step's forward
+    through B2 against its plain forward (``spec_plan``, phase 3's gate);
+    a serve with n-gram drafts on prompts that repeat a span
+    (``repeated_span_prompts``); then phase 4d's per-step workload with
+    the proposer fed the per-step serve's greedy streams (the reference's forced-perfect-drafts test at full
+    width): drafts must be accepted; it prints the acceptance rate, tokens
+    per verify step, tok/s beside the per-step and fused serves of this
+    run, and where each stream first leaves the per-step stream, with the
+    top-2 margin there. Returns the kernels' launches over the forced
+    serve."""
+    import dynamo_tpu_torch.engine.scheduler as sched
+    phase_forward(params, cfg, llama_impls(), True, plan=spec_plan)
+    ref, ref_tok_s = per_step["per-step"]
+    engine, served, _counts = serve_engine(
+        params, cfg, (WARM_SEED,), spec_tokens=SPEC_K, spec_ngram_min=1,
+        serve_kw=dict(prompts=repeated_span_prompts(ref)))
+    stats, wall, info = served[0]
+    check_stats(stats, cfg)
+    spec_report(engine, stats, wall, info, "spec n-gram")
+    del engine
+    propose = sched.propose_ngram
+    sched.propose_ngram = oracle_proposer(
+        [s["prompt"] + s["tokens"] for s in ref.values()])
+    try:
+        engine, served, counts = serve_engine(params, cfg, (WARM_SEED,),
+                                              spec_tokens=SPEC_K)
+    finally:
+        sched.propose_ngram = propose
+    stats, wall, info = served[0]
+    check_stats(stats, cfg)
+    st = spec_report(engine, stats, wall, info, "spec forced")
+    tok_s = sum(len(s["tokens"]) for s in stats.values()) / wall
+    fused = PHASE4_WARM.get(cfg.model_type, {}).get("tok_s", float("nan"))
+    log(f"[spec forced] {tok_s:.1f} tok/s; per-step serve {ref_tok_s:.1f}, "
+        f"fused serve {fused:.1f} tok/s in this run; launches={counts}")
+    report_agreement("spec forced", engine, stats, ref,
+                     "the per-step serve")
+    if st.num_accepted_tokens <= 0:
+        raise AssertionError("no forced draft was accepted")
+    if counts["paged_prefill"] <= 0:
+        raise AssertionError("no verify step ran through B2")
+    return counts
+
+
+def phase_spec_mla(params, cfg, per_step):
+    """DeepSeek-V2-Lite speculating (K = 4) through B5: phase 4's first four
+    requests with the proposer fed the per-step serve's greedy streams;
+    drafts must be accepted and the latent prefill kernel must run the
+    verify steps. Returns the kernels' launches."""
+    import dynamo_tpu_torch.engine.scheduler as sched
+    ref, _tok_s = per_step["per-step"]
+    propose = sched.propose_ngram
+    sched.propose_ngram = oracle_proposer(
+        [s["prompt"] + s["tokens"] for s in ref.values()])
+    try:
+        engine, served, counts = serve_engine(
+            params, cfg, (WARM_SEED,), spec_tokens=SPEC_K,
+            serve_kw=dict(n_req=4))
+    finally:
+        sched.propose_ngram = propose
+    stats, wall, info = served[0]
+    check_stats(stats, cfg)
+    st = spec_report(engine, stats, wall, info, "spec mla")
+    log(f"[spec mla] launches={counts}")
+    report_agreement("spec mla", engine, stats, ref, "the per-step serve")
+    if st.num_accepted_tokens <= 0 or counts["mla_prefill"] <= 0:
+        raise AssertionError("DeepSeek's verify steps accepted nothing or "
+                             "did not run through B5")
+    return counts
+
+
+# Gemma-2-27B's serving sizes: 1280 pages of 16 positions (46 layers x 16
+# kv heads: 6 MB a page, 7.7 GB in all beside the 54.5 GB of weights;
+# enough for phase 4's workload and the graph-vs-eager block's 1041 pages)
+# and its published 8192-position context
+GEMMA_SIZES = dict(SERVE_SIZES, num_pages=1280, max_context=8192)
+
+
+def gemma_phases(failures, profile):
+    """Gemma-2-27B at full width and depth (46 layers) in bf16, random
+    weights made on the card in bf16 a slab at a time: ``gemma_plan``'s
+    forward check (a prompt past the 4096-position window), phase 4's
+    greedy serve fused (cold and warm, graph vs eager) and per step.
+    Returns the kernels' launches over the fused serves."""
+    from dynamo_tpu_torch.models import gemma
+    from dynamo_tpu_torch.models.config import ModelConfig
+    cfg = ModelConfig.gemma2_27b()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t1 = time.perf_counter()
+    params = gemma.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[model] gemma2_27b L={cfg.num_layers} H={cfg.hidden_size} "
+        f"V={cfg.vocab_size} random weights in "
+        f"{time.perf_counter() - t1:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card")
+    counts = None
+    with torch.no_grad():
+        run_phase("forward gemma2_27b",
+                  lambda: phase_forward(params, cfg, llama_impls(), True,
+                                        plan=gemma_plan), failures)
+        served = run_phase("engine gemma2_27b",
+                           lambda: phase_engine(params, cfg, GEMMA_SIZES),
+                           failures)
+        counts, fused = served if served else (None, None)
+        if fused:
+            run_phase("per-step gemma2_27b",
+                      lambda: phase_per_step(params, cfg, fused,
+                                             PER_STEP_MODES[:1],
+                                             GEMMA_SIZES), failures)
+        if profile:
+            run_phase("profile gemma2_27b",
+                      lambda: phase_profile(params, cfg), failures)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts or {}
+
+
 SOURCES = {
     "paged_decode": ("dynamo_tpu_torch/ops/kernels/csrc/decode.cu",
                      "dynamo_tpu/ops/pallas/decode.py:69"),
@@ -3189,14 +3560,22 @@ def run_phase(name, fn, failures):
         failures.append(name)
         return None
     finally:
-        log(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        log(f"[phase] {name} {time.perf_counter() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated "
+            f"on the card after it")
 
 
-def model_phases(name, cfg, impls, strict_logits, failures, profile):
+def model_phases(name, cfg, impls, strict_logits, failures, profile,
+                 extras=()):
     """Random weights for ``cfg`` on the card, then its forward and serving
-    phases (and the profile). Returns the serve's launch counts; the
-    weights are freed before returning."""
+    phases (and the profile), then each of ``extras``: (tag, phase), a
+    phase called with (params, cfg, the per-step serves of phase 4d).
+    Returns the serve's launch counts, the sampled serve's and {tag: the
+    extra phase's result}; the weights are freed before returning."""
     from dynamo_tpu_torch.models import get_family
+    gc.collect()
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
     t1 = time.perf_counter()
     params = get_family(cfg).init_params(cfg, gen, device="cuda")
@@ -3206,6 +3585,7 @@ def model_phases(name, cfg, impls, strict_logits, failures, profile):
         f"{time.perf_counter() - t1:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card")
     counts = None
+    out = {}
     with torch.no_grad():
         run_phase(f"forward {name}",
                   lambda: phase_forward(params, cfg, impls, strict_logits),
@@ -3213,9 +3593,11 @@ def model_phases(name, cfg, impls, strict_logits, failures, profile):
         served = run_phase(f"engine {name}",
                            lambda: phase_engine(params, cfg), failures)
         counts, fused = served if served else (None, None)
+        per_step = None
         if fused:
-            run_phase(f"per-step {name}",
-                      lambda: phase_per_step(params, cfg, fused), failures)
+            per_step = run_phase(f"per-step {name}",
+                                 lambda: phase_per_step(params, cfg, fused),
+                                 failures)
         sampled = run_phase(
             f"sampled {name}",
             lambda: phase_sampled(params, cfg, cfg.vocab_size == SAMPLER_V),
@@ -3223,10 +3605,16 @@ def model_phases(name, cfg, impls, strict_logits, failures, profile):
         if profile:
             run_phase(f"profile {name}", lambda: phase_profile(params, cfg),
                       failures)
+        for tag, fn in extras:
+            if per_step is None:
+                failures.append(f"{tag} {name}: no per-step serve to feed it")
+                continue
+            out[tag] = run_phase(f"{tag} {name}",
+                                 lambda: fn(params, cfg, per_step), failures)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return counts or {}, sampled or {}
+    return counts or {}, sampled or {}, out
 
 
 def main() -> int:
@@ -3279,18 +3667,25 @@ def main() -> int:
     sampled = {k: 0 for k in SOURCES}
     entry = {}
     disagg = {}
+    slice_counts = {"int8": {}, "spec": {}, "gemma": {}}
     profile = "--profile" in args
     if not failures:
         # one model on the card at a time: each is freed before the next
-        for name, cfg, impls, strict in (
-                ("llama32_3b", llama_cfg(), llama_impls(), True),
+        for name, cfg, impls, strict, extras in (
+                ("llama32_3b", llama_cfg(), llama_impls(), True,
+                 (("int8", phase_int8), ("spec", phase_spec))),
                 ("deepseek_v2_lite", ModelConfig.deepseek_v2_lite(),
-                 mla_impls(), False)):
-            c, sc = model_phases(name, cfg, impls, strict, failures, profile)
+                 mla_impls(), False, (("spec", phase_spec_mla),))):
+            c, sc, ex = model_phases(name, cfg, impls, strict, failures,
+                                     profile, extras)
             counts.update(c)
             sampled.update(sc)
+            for tag, got in ex.items():
+                slice_counts[tag].update(got or {})
             if name == "llama32_3b":
-                # the entry points, with the in-process model freed
+                # Gemma-2-27B (54.5 GB of bf16), alone on the card
+                slice_counts["gemma"] = gemma_phases(failures, profile)
+                # the entry points, with the in-process models freed
                 entry = run_phase("serve-entry", phase_serve_entry,
                                   failures) or {}
                 run_phase("loader", phase_loader, failures)
@@ -3311,6 +3706,9 @@ def main() -> int:
             "launches_sampled": sampled[name],
             "launches_serve_entry": entry.get(name),
             "launches_disagg": disagg.get(name),
+            "launches_int8": slice_counts["int8"].get(name),
+            "launches_spec": slice_counts["spec"].get(name),
+            "launches_gemma": slice_counts["gemma"].get(name),
             "max_abs_err": row["max_abs_err"],
             "max_err_ulps": row["max_err_ulps"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "ms_per_call": row["ms_per_call"],

@@ -15,10 +15,24 @@ shape — the reference's choice on its Pallas path. The Llama tree:
 - ``MixedStepBatch`` (prefill chunks + decode rows as length-1 chunks,
   mixed batching on by default): the ragged mixed kernel.
 
-DeepSeek (MLA, ``models/deepseek.py``): S == 1 steps run the latent decode
-kernel, every S > 1 step (prefill and mixed alike) the latent prefill
-kernel, which skips a decode row's pad query tiles itself. On the GPU a
-geometry the latent kernels do not take is refused at construction.
+Gemma-2 (``models/gemma.py``) takes the same three kernels, each layer
+with its sliding window and the attention softcap. DeepSeek (MLA,
+``models/deepseek.py``): S == 1 steps run the latent decode kernel, every
+S > 1 step (prefill and mixed alike) the latent prefill kernel, which
+skips a decode row's pad query tiles itself. On the GPU a geometry the
+kernels do not take is refused at construction.
+
+Speculative decoding (``spec_tokens = K``): the scheduler upgrades a decode
+step whose rows have n-gram drafts to a verify step (``SpecDecodeBatch``):
+one ``[B, K+1]`` forward through the chunked-prefill kernel (the latent one
+for DeepSeek) with a logits window of ``K+1``, the guided masks applied
+once, then ``ops/sampling.spec_verify`` under the step's key, packed as the
+reference packs it. Verify steps run eagerly one at a time, as the
+reference's do; fusion is off under speculation (reason ``"spec"``), while
+plain decode steps between verify steps still chain.
+
+``quantize="int8"`` serves the Llama tree and Gemma-2 with int8 W8A8
+weights (``ops/quant.py``), quantized on the device at construction.
 
 Each step samples on the device with every option the reference serves:
 penalties and logit bias over a per-row window, the guided-decoding
@@ -59,8 +73,8 @@ The decode knobs left ``None`` in ``TorchEngineConfig`` resolve at build
 from ``RuntimeConfig`` and the short-form env (``DYN_DECODE_MULTISTEP``,
 ``DYN_MIXED_BATCH``, ``DYN_DECODE_PROGRESS``), as the reference's do.
 
-Refused rather than approximated: speculative decoding (ROADMAP A8) and
-sequence-parallel ring prefill (A13).
+Refused rather than approximated: sequence-parallel ring prefill (ROADMAP
+A13).
 """
 
 from __future__ import annotations
@@ -84,6 +98,7 @@ from dynamo_tpu_torch.engine.graphs import BlockGraphs
 from dynamo_tpu_torch.engine.guided import (GuidedRequest, GuidedVocab,
                                             build_guided_table,
                                             compile_guided, eos_ok)
+from dynamo_tpu_torch.engine.guided import step as guided_step
 from dynamo_tpu_torch.engine.loop import ScheduledEngineBase
 from dynamo_tpu_torch.engine.scheduler import (DecodeBatch, MixedStepBatch,
                                                MultiStepBatch, PrefillBatch,
@@ -93,7 +108,8 @@ from dynamo_tpu_torch.models import get_family
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import prng
 from dynamo_tpu_torch.ops.kernels import LAUNCHES
-from dynamo_tpu_torch.ops.kernels._wrap import mla_geometry_error
+from dynamo_tpu_torch.ops.kernels._wrap import (gqa_geometry_error,
+                                                mla_geometry_error)
 from dynamo_tpu_torch.ops.kernels.decode import paged_decode_attention_stacked
 from dynamo_tpu_torch.ops.kernels.mla_decode import mla_paged_decode_stacked
 from dynamo_tpu_torch.ops.kernels.mla_prefill import mla_paged_prefill_stacked
@@ -104,7 +120,7 @@ from dynamo_tpu_torch.ops.sampling import (TOPK_MAX, apply_penalties,
                                            apply_vocab_mask, log_softmax_at,
                                            penalty_window_entries,
                                            sample_tokens, sampling_noise,
-                                           top_k_stable,
+                                           spec_verify, top_k_stable,
                                            update_penalty_window)
 from dynamo_tpu_torch.utils.device import resolve_device
 
@@ -192,6 +208,18 @@ class TorchEngineConfig:
     # a scratch cache allocated beside the serving pool, so the default
     # stays bounded
     score_max_tokens: int = 4096
+    # load-time weight quantization: "" (the checkpoint dtype) or "int8"
+    # (W8A8 dynamic, ops/quant.py; the Llama tree and Gemma-2)
+    quantize: str = ""
+    # speculative decoding: n-gram prompt-lookup drafts verified K at a
+    # time in one [B, K+1] step (0 = off). Verify steps do not chain (the
+    # drafts need the sampled tokens on the host); plain decode steps
+    # between them do, the chain broken every spec_chain_break steps so
+    # fresh context gets to draft
+    spec_tokens: int = 0
+    spec_ngram_max: int = 4
+    spec_ngram_min: int = 2
+    spec_chain_break: int = 8
 
 
 # prompt-scoring chunk: each full chunk of the prompt is one forward whose
@@ -300,8 +328,8 @@ class _PinnedSlot:
 
 
 class TorchEngine(ScheduledEngineBase):
-    """Continuous-batching paged-KV engine over a PyTorch Llama-tree or
-    DeepSeek (MLA) model."""
+    """Continuous-batching paged-KV engine over a PyTorch Llama-tree,
+    Gemma-2 or DeepSeek (MLA) model."""
 
     def __init__(self, model_cfg: ModelConfig, params,
                  config: Optional[TorchEngineConfig] = None, device=None):
@@ -310,17 +338,38 @@ class TorchEngine(ScheduledEngineBase):
         self.cfg = config or TorchEngineConfig()
         self.family = get_family(model_cfg)
         self.mla = bool(model_cfg.kv_lora_rank)
-        if self.mla and self.device.type == "cuda":
-            bad = mla_geometry_error(model_cfg.num_heads,
-                                     model_cfg.kv_lora_rank,
-                                     model_cfg.qk_rope_head_dim,
-                                     self.cfg.page_size)
+        if self.device.type == "cuda":
+            if self.mla:
+                what = "latent attention kernels"
+                bad = mla_geometry_error(model_cfg.num_heads,
+                                         model_cfg.kv_lora_rank,
+                                         model_cfg.qk_rope_head_dim,
+                                         self.cfg.page_size)
+            else:
+                what = "attention kernels"
+                bad = gqa_geometry_error(model_cfg.num_heads,
+                                         model_cfg.num_kv_heads,
+                                         model_cfg.head_dim,
+                                         self.cfg.page_size)
             if bad is None and model_cfg.dtype != "bfloat16":
                 bad = f"dtype {model_cfg.dtype}, not bfloat16"
             if bad:
-                raise ValueError(f"{model_cfg.model_type}: the latent "
-                                 f"attention kernels do not take this "
-                                 f"geometry: {bad}")
+                raise ValueError(f"{model_cfg.model_type}: the {what} do "
+                                 f"not take this geometry: {bad}")
+        if self.cfg.quantize:
+            if self.cfg.quantize != "int8":
+                raise ValueError(
+                    f"quantize={self.cfg.quantize!r}: only 'int8' "
+                    "(W8A8 dynamic) is implemented")
+            if self.family.__name__.rsplit(".", 1)[-1] not in ("llama",
+                                                               "gemma"):
+                # the MoE/MLA families' expert/latent matmul sites do not
+                # dispatch through quant.mm
+                raise ValueError(
+                    f"quantize='int8' currently covers the llama family "
+                    f"tree (llama/mistral/qwen dense) and gemma-2; "
+                    f"model_type {model_cfg.model_type!r} is served bf16")
+        self.spec_K = int(self.cfg.spec_tokens or 0)
         if self.device.type == "cuda" and self.device.index is None:
             # a definite index: dispatches run on the loop's pool threads,
             # each of which sets it
@@ -339,6 +388,10 @@ class TorchEngine(ScheduledEngineBase):
             max_prefill_chunk=self.cfg.max_prefill_chunk,
             max_context=self.cfg.max_context,
             max_prefill_seqs=self.cfg.max_prefill_seqs,
+            spec_tokens=self.spec_K,
+            spec_ngram_max=self.cfg.spec_ngram_max,
+            spec_ngram_min=self.cfg.spec_ngram_min,
+            spec_chain_break=self.cfg.spec_chain_break,
             decode_multistep=self.multistep,
             mixed_batch=self.mixed_batch,
             decode_progress_every=(
@@ -351,6 +404,9 @@ class TorchEngine(ScheduledEngineBase):
         self.scheduler.cfg.penalty_window = self.cfg.penalty_window
         self.scheduler.cfg.guided_fuse_check = self._guided_fuse_check
         self.params = _params_to(params, self.device)
+        if self.cfg.quantize:
+            from dynamo_tpu_torch.ops.quant import quantize_params
+            self.params = quantize_params(self.params)
         # the paged cache, written in place by every step and block (a
         # captured graph holds its address: never rebound)
         self.pages = self.family.make_pages(model_cfg, self.cfg.num_pages,
@@ -966,11 +1022,10 @@ class TorchEngine(ScheduledEngineBase):
             return self.fetch_packed_block(self.dispatch_multistep(plan))
         if isinstance(plan, DecodeBatch):
             return self.fetch_packed(self.dispatch_decode(plan))
-        if isinstance(plan, SpecDecodeBatch):
-            raise NotImplementedError(
-                "SpecDecodeBatch: speculative decoding is ROADMAP A8")
         self._use_device()
         self._drop_released()
+        if isinstance(plan, SpecDecodeBatch):
+            return self._execute_spec(plan)
         mixed = isinstance(plan, MixedStepBatch)
         if not mixed and plan.ring:
             raise NotImplementedError(
@@ -1004,8 +1059,156 @@ class TorchEngine(ScheduledEngineBase):
             return np.zeros(B, np.int64), np.zeros(B, np.float32), None
         return self.fetch_packed(self._stage(packed))
 
+    # -- speculative verify ---------------------------------------------------
+
+    def _execute_spec(self, plan: SpecDecodeBatch):
+        """One verify step (the reference's ``SpecDecodeBatch`` branch of
+        ``_execute_plan``): run it, fetch it, and unpack its packed row
+        ``[final_tok, final_lp bits, n_acc, K draft lp bits, S*kt top ids,
+        S*kt top lp bits]`` into (sampled, logprobs, extras)."""
+        a = self._spec_arrays(plan.seqs, plan.drafts)
+        plan._step_id = self._step_counter
+        a["step"] = np.array(self._step_counter, np.int64)
+        packed = self._spec_step(a)
+        self._step_counter += 1
+        self.decode_dispatches += 1
+        self.last_padded = a["toks"].shape
+        host = self._host(self._stage(packed))
+        hostf = host.view(np.float32)
+        B = host.shape[0]
+        K, S = self.spec_K, self.spec_K + 1
+        # the clamp _topk_cols packs with (a vocab narrower than K_top)
+        kt = min(self.cfg.num_top_logprobs, self.model_cfg.vocab_size)
+        extras = {"spec_acc": host[:, 2], "spec_lps": hostf[:, 3:3 + K]}
+        if kt > 0:
+            base = 3 + K
+            extras["spec_top_ids"] = host[
+                :, base:base + S * kt].reshape(B, S, kt)
+            extras["spec_top_lps"] = hostf[
+                :, base + S * kt:base + 2 * S * kt].reshape(B, S, kt)
+        return host[:, 0], hostf[:, 1], extras
+
+    def _spec_arrays(self, seqs, drafts: np.ndarray) -> dict:
+        """Padded host arrays of one verify step ``[B, K+1]``
+        (``JaxEngine._spec_arrays``): row i feeds its last token at
+        position ``len - 1`` (slot 0, the token a plain decode step would
+        write) and its K drafts at ``len .. len + K - 1``; ``total`` covers
+        every fed position, so each draft attends to its prefix; pad rows
+        write nothing. ``gmask`` ``[B, K+1, words]``: the guided rows'
+        per-slot masks, when a row is guided."""
+        K = self.spec_K
+        B = _bucket(len(seqs), self.cfg.min_decode_bucket,
+                    self.cfg.max_num_seqs)
+        S = K + 1
+        a = self._empty_arrays(B, S)
+        a["table"] = np.zeros((B, self.table_width), np.int32)
+        gmask = None
+        for i, seq in enumerate(seqs):
+            a["toks"][i, 0] = seq.tokens.last_token()
+            a["toks"][i, 1:] = drafts[i]
+            a["pos"][i] = np.arange(len(seq) - 1, len(seq) + K)
+            a["table"][i, :len(seq.page_ids)] = seq.page_ids
+            a["total"][i] = len(seq) + K
+            a["new"][i] = S
+            self._row_sampling(i, seq, a)
+            row_masks = self._guided_spec_masks(seq, drafts[i], S)
+            if row_masks is not None:
+                if gmask is None:
+                    gmask = np.full((B, S, self._guided_vocab.words),
+                                    0xFFFFFFFF, np.uint32)
+                gmask[i] = row_masks
+        if gmask is not None:
+            a["gmask"] = gmask
+        return a
+
+    def _guided_spec_masks(self, seq, row_drafts, S: int):
+        """Per-slot allow-masks ``[S, words]`` of one guided row of a
+        verify step (``JaxEngine._guided_spec_masks``): slot j's mask is
+        the automaton's after walking drafts 1..j. A draft the grammar
+        refuses ends the walk: its own slot's mask rejects it, and no later
+        slot is consulted. A drafted EOS leaves the state as it is (as an
+        appended EOS does). None for an unguided or wedged row."""
+        spec = seq.request.sampling_options.guided
+        gv = self._guided_vocab
+        if not spec or gv is None:
+            return None
+        gr = self._guided_req_for(seq, spec)
+        m0 = gr.mask()
+        if m0 is None:
+            return None           # wedged: served unconstrained
+        out = np.full((S, gv.words), 0xFFFFFFFF, np.uint32)
+        out[0] = m0
+        st = gr.state
+        for j, tid in enumerate(row_drafts[:S - 1], start=1):
+            if int(tid) in gv.eos_ids:
+                out[j] = out[j - 1]
+                continue
+            bs = (self._guided_bytes[int(tid)]
+                  if int(tid) < len(self._guided_bytes) else None)
+            if bs is None:
+                break             # a special or illegal draft ends the walk
+            ok = True
+            for b in bs:
+                st2 = guided_step(gr.grammar, st, b)
+                if st2 is None:
+                    ok = False
+                    break
+                st = st2
+            if not ok:
+                break
+            m = gv.mask(gr.grammar, st)
+            if not m.any():
+                # a state with no continuation would NaN the slot's
+                # softmax: left unconstrained (the wedge behaviour)
+                break
+            out[j] = m
+        return out
+
+    def _topk_cols(self, lf: torch.Tensor):
+        """Top-K alternative (ids, logprob bits) of float32 ``lf [R, V]``
+        (the reference's ``_topk_cols``: K clamped to the vocab), the
+        columns both the plain tail and the verify step pack."""
+        kt = min(self.cfg.num_top_logprobs, lf.shape[-1])
+        vals, ids = top_k_stable(lf, kt)
+        return (ids.to(torch.int32),
+                log_softmax_at(lf, vals).view(torch.int32))
+
+    @torch.no_grad()
+    def _spec_step(self, a: dict) -> torch.Tensor:
+        """The reference's ``_spec_step_impl``: the ``[B, K+1]`` forward
+        through the chunked-prefill kernel (DeepSeek: the latent one) with a
+        logits window of ``K+1``, the guided masks applied once (so the
+        packed alternatives are of the distribution verified against),
+        ``spec_verify`` under ``fold_in(rng, step)``, and the packed row."""
+        t = {k: _upload(v, self.device) for k, v in a.items()}
+        S = a["toks"].shape[1]
+        kernel = "mla_prefill" if self.mla else "paged_prefill"
+        logits, _pages = self.family.forward(
+            self.params, self.model_cfg, t["toks"], t["pos"], self.pages,
+            t["table"], t["total"], t["new"], attn_impl=self._attn[kernel],
+            logits_window=S)
+        logits = logits.float()
+        B, _S, V = logits.shape
+        if "gmask" in t:
+            logits = apply_vocab_mask(
+                logits.reshape(B * S, V),
+                t["gmask"].reshape(B * S, -1)).reshape(B, S, V)
+        n_acc, final_tok, final_lp, draft_lps = spec_verify(
+            logits, t["toks"], prng.fold_in(self._rng, t["step"]),
+            t["temp"], t["top_k"], t["top_p"])
+        cols = [final_tok[:, None], final_lp.view(torch.int32)[:, None],
+                n_acc[:, None], draft_lps.view(torch.int32)]
+        if self.cfg.num_top_logprobs > 0:
+            # per-slot alternatives: [B, S*kt] ids, then their lp bits
+            ids, lp_bits = self._topk_cols(logits.reshape(B * S, V))
+            cols += [ids.reshape(B, -1), lp_bits.reshape(B, -1)]
+        return torch.cat(cols, dim=1)
+
     @property
     def supports_pipelining(self) -> bool:
+        # speculation and chaining compose: verify steps do not chain, the
+        # plain decode steps between them do (the scheduler breaks a chain
+        # every spec_chain_break steps so fresh context can draft)
         return self.cfg.pipeline_decode
 
     def dispatch_decode(self, plan):
@@ -1095,11 +1298,8 @@ class TorchEngine(ScheduledEngineBase):
         tokens, logprobs = sample_tokens(logits, gumbel, temp, top_k, top_p,
                                          min_p=min_p)
         cols = [tokens[:, None], logprobs.view(torch.int32)[:, None]]
-        kt = min(self.cfg.num_top_logprobs, V)
-        if kt > 0:
-            vals, ids = top_k_stable(logits, kt)
-            cols += [ids.to(torch.int32),
-                     log_softmax_at(logits, vals).view(torch.int32)]
+        if min(self.cfg.num_top_logprobs, V) > 0:
+            cols += list(self._topk_cols(logits))
         return torch.cat(cols, dim=1), tokens
 
     # -- the asynchronous fetch ----------------------------------------------
@@ -1169,15 +1369,21 @@ class TorchEngine(ScheduledEngineBase):
     @property
     def supports_multistep(self) -> bool:
         # fusion composes with pipelined decode (the per-step chain serves
-        # the batches the planner does not fuse); pipeline_decode False is
-        # strict step-at-a-time decode, fusion off too
-        return self.multistep > 1 and self.cfg.pipeline_decode
+        # the batches the planner does not fuse), not with speculation (its
+        # own [B, K+1] verify path, as in the reference); pipeline_decode
+        # False is strict step-at-a-time decode, fusion off too
+        return (self.multistep > 1 and self.cfg.pipeline_decode
+                and not self.spec_K)
 
     @property
     def multistep_unsupported_reason(self) -> Optional[str]:
-        """Why fusion is off on an engine whose config asked for it. The
-        reference's two reasons are speculative decoding and multi-host
-        lockstep; the port serves neither (ROADMAP A8), so none applies."""
+        """Why fusion is off on an engine whose config asked for it: the
+        reference's reasons are speculative decoding and multi-host
+        lockstep, which the port does not serve (ROADMAP A13)."""
+        if self.multistep <= 1 or not self.cfg.pipeline_decode:
+            return None
+        if self.spec_K:
+            return "spec"
         return None
 
     def dispatch_multistep(self, plan, prev_handle=None):

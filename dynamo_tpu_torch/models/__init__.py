@@ -1,6 +1,6 @@
 """Model families of the port: the Llama tree (llama 2/3, mistral,
-qwen2/qwen3; ``models/llama.py``) and DeepSeek V2/V3 with latent attention
-and MoE (``models/deepseek.py``). ``get_family(cfg)`` maps a config to its
+qwen2/qwen3; ``models/llama.py``), Gemma-2 (``models/gemma.py``) and
+DeepSeek V2/V3 with latent attention and MoE (``models/deepseek.py``). ``get_family(cfg)`` maps a config to its
 module and imports it only then: importing the config must stay cheap.
 """
 
@@ -19,10 +19,13 @@ def get_family(cfg: ModelConfig):
         raise NotImplementedError(
             f"model_type {cfg.model_type!r}: the mixtral / qwen3-MoE family "
             "(models/moe.py) is not ported yet: ROADMAP A11")
+    if cfg.model_type == "gemma2":
+        return importlib.import_module("dynamo_tpu_torch.models.gemma")
     if cfg.model_type.startswith("gemma"):
+        # gemma-1 / gemma-3 differ (norm layout, qk-norm, dual rope
+        # thetas) and must not silently load as gemma-2
         raise NotImplementedError(
-            f"model_type {cfg.model_type!r}: gemma-2 (models/gemma.py) is "
-            "not ported yet: ROADMAP A10")
+            f"model_type {cfg.model_type!r}: only gemma2 is implemented")
     return importlib.import_module("dynamo_tpu_torch.models.llama")
 
 

@@ -223,6 +223,24 @@ class ModelConfig:
         return replace(cls.from_hf(hf), **kw)
 
     @classmethod
+    def gemma2_27b(cls, **kw) -> "ModelConfig":
+        """Gemma-2-27B, from its published ``config.json``
+        (huggingface.co/google/gemma-2-27b): 46 layers, hidden 4608, FFN
+        36864, 32 heads over 16 kv heads of head_dim 128, vocab 256000,
+        query_pre_attn_scalar 144, sliding window 4096 on the even layers,
+        softcaps 50 (attention) and 30 (final), tied embeddings."""
+        hf = dict(
+            model_type="gemma2", vocab_size=256000, hidden_size=4608,
+            intermediate_size=36864, num_hidden_layers=46,
+            num_attention_heads=32, num_key_value_heads=16, head_dim=128,
+            query_pre_attn_scalar=144, sliding_window=4096,
+            attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+            rms_norm_eps=1e-6, rope_theta=10000.0,
+            max_position_embeddings=8192, tie_word_embeddings=True,
+            hidden_activation="gelu_pytorch_tanh")
+        return replace(cls.from_hf(hf), **kw)
+
+    @classmethod
     def tiny(cls, **kw) -> "ModelConfig":
         """A toy config for tests (runs in ms on CPU)."""
         defaults = dict(vocab_size=256, hidden_size=64, intermediate_size=128,

@@ -1,7 +1,8 @@
 """Load HF safetensors checkpoints into the port's stacked parameter tree.
 
 The port of ``dynamo_tpu/models/hf_loader.py`` ``load_hf_params`` for the
-Llama tree (llama 2/3, mistral, qwen2, qwen3): the same name map, torch
+Llama tree (llama 2/3, mistral, qwen2, qwen3) and Gemma-2: the same name
+map (Gemma-2's sandwich norms included), torch
 ``Linear``'s ``[out, in]`` transposed to ``[in, out]`` and every layer
 stacked on a leading axis (``models/llama.py``'s ``[L, in, out]`` tree),
 tied and untied heads, sharded checkpoints (``model.safetensors.index.json``)
@@ -13,7 +14,7 @@ The files are read without the ``safetensors`` package
 (``SafetensorsFile``): 8 bytes of little-endian header length, a JSON
 header (name -> dtype, shape, byte range), then the raw little-endian
 tensors, BF16, F16 or F32. Other families are refused: the MoE stacks
-(ROADMAP A11), gemma-2 (A10) and DeepSeek's latent tree (A6b).
+(ROADMAP A11) and DeepSeek's latent tree (A6b).
 """
 
 from __future__ import annotations
@@ -91,7 +92,7 @@ def _checkpoint_files(path: str) -> List[str]:
 
 
 # HF tensor name -> (tree path, transpose?); "{i}" is the layer index.
-# The reference's map for the dense Llama tree.
+# The reference's map for the dense Llama tree and Gemma-2.
 def _name_map(cfg: ModelConfig) -> Dict[str, Any]:
     m = {
         "model.embed_tokens.weight": (("embed",), False),
@@ -106,6 +107,18 @@ def _name_map(cfg: ModelConfig) -> Dict[str, Any]:
         "model.layers.{i}.mlp.up_proj.weight": (("layers", "w_up"), True),
         "model.layers.{i}.mlp.down_proj.weight": (("layers", "w_down"), True),
     }
+    if cfg.model_type.startswith("gemma"):
+        # gemma-2 sandwich norms: post_attention_layernorm is the POST
+        # norm on the attention residual (not the llama mlp_norm), plus
+        # dedicated pre/post feed-forward norms
+        m.update({
+            "model.layers.{i}.post_attention_layernorm.weight":
+                (("layers", "post_attn_norm"), False),
+            "model.layers.{i}.pre_feedforward_layernorm.weight":
+                (("layers", "pre_ffw_norm"), False),
+            "model.layers.{i}.post_feedforward_layernorm.weight":
+                (("layers", "post_ffw_norm"), False),
+        })
     if not cfg.tie_word_embeddings:
         m["lm_head.weight"] = (("lm_head",), True)
     if cfg.attention_bias:
@@ -143,10 +156,6 @@ def _refuse_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"model_type {cfg.model_type!r}: MoE expert stacking is not "
             "ported yet: ROADMAP A11")
-    if cfg.model_type.startswith("gemma"):
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r}: gemma-2 is not ported yet: "
-            "ROADMAP A10")
 
 
 def load_hf_params(cfg: ModelConfig, path: str,

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops import quant
 from dynamo_tpu_torch.ops.attention import paged_attention, write_kv
 from dynamo_tpu_torch.ops.rope import apply_rope
 
@@ -101,23 +102,24 @@ def params_from_jax(params_np: dict, cfg: ModelConfig,
     """The reference's parameter tree, given as numpy arrays (``embed``,
     ``layers`` with stacked ``[L, in, out]`` matrices, ``final_norm``,
     optional ``lm_head``), as this module's parameters in ``cfg.dtype`` —
-    same layout, so both packages compute the same function."""
+    same layout, so both packages compute the same function. A quantized
+    tree's ``*_q`` leaves come across as int8 and its ``*_scale`` leaves as
+    float32 (``ops/quant.py``)."""
     dtype = torch_dtype(cfg.dtype)
 
-    def conv(a):
+    def conv(name, a):
         # ml_dtypes bfloat16 arrays have no torch counterpart: go via f32
         arr = np.asarray(a)
         if arr.dtype not in (np.float32, np.float64, np.float16):
             arr = arr.astype(np.float32)
+        to = (torch.int8 if name.endswith("_q") else
+              torch.float32 if name.endswith("_scale") else dtype)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=device, dtype=dtype)
+            device=device, dtype=to)
 
-    out: Params = {"embed": conv(params_np["embed"]),
-                   "layers": {k: conv(v)
-                              for k, v in params_np["layers"].items()},
-                   "final_norm": conv(params_np["final_norm"])}
-    if params_np.get("lm_head") is not None:
-        out["lm_head"] = conv(params_np["lm_head"])
+    out: Params = {k: conv(k, v) for k, v in params_np.items()
+                   if k != "layers" and v is not None}
+    out["layers"] = {k: conv(k, v) for k, v in params_np["layers"].items()}
     return out
 
 
@@ -128,9 +130,9 @@ def _project_qkv(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
     B, S, _ = h.shape
     eps = cfg.rms_norm_eps
     x = _rms_norm(h, lp["attn_norm"], eps)
-    q = x @ lp["wq"]
-    k = x @ lp["wk"]
-    v = x @ lp["wv"]
+    q = quant.mm(lp, "wq", x)
+    k = quant.mm(lp, "wk", x)
+    v = quant.mm(lp, "wv", x)
     if cfg.attention_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -150,10 +152,10 @@ def _finish_layer(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
                   h: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     """Out-projection residual + gated MLP residual."""
     B, S, _ = h.shape
-    h = h + attn.reshape(B, S, cfg.q_size) @ lp["wo"]
+    h = h + quant.mm(lp, "wo", attn.reshape(B, S, cfg.q_size))
     x = _rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
-    act = F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
-    return h + act @ lp["w_down"]
+    act = F.silu(quant.mm(lp, "w_gate", x)) * quant.mm(lp, "w_up", x)
+    return h + quant.mm(lp, "w_down", act)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -165,28 +167,44 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def select_rows(h: torch.Tensor, new_lens: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """Hidden states ``[B, S, H]`` at each row's last ``window`` real new
+    positions: ``[B, H]`` for a window of 1, else ``[B, W, H]`` (positions
+    before a row's first new token clamp to slot 0, as the reference's
+    do)."""
+    rows = torch.arange(h.shape[0], device=h.device)
+    if window == 1:
+        last = torch.clamp(new_lens.long() - 1, min=0)
+        return h[rows, last]
+    offs = torch.arange(window, device=h.device)[None, :]
+    idx = torch.clamp(new_lens.long()[:, None] - window + offs, min=0)
+    return h[rows[:, None], idx]
+
+
+def head_logits(params: Params, h_sel: torch.Tensor) -> torch.Tensor:
+    """float32 logits of ``h_sel [..., H]``: the int8 head when the tree
+    was quantized, else model-dtype operands with a float32 result."""
+    lm8 = params.get("lm_head_q")
+    if lm8 is not None:
+        return quant.qdot(h_sel, lm8, params["lm_head_scale"],
+                          out_dtype=torch.float32)
+    lm_head = params.get("lm_head")
+    if lm_head is None:
+        lm_head = params["embed"].t()
+    lead = h_sel.shape[:-1]
+    return _mm_f32(h_sel.reshape(-1, h_sel.shape[-1]),
+                   lm_head).reshape(*lead, -1)
+
+
 def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor,
             new_lens: torch.Tensor, window: int = 1) -> torch.Tensor:
     """float32 logits at each row's last ``window`` real new positions:
     ``[B, V]`` for ``window == 1`` (every serving step), ``[B, W, V]``
-    for ``window = W > 1`` (prompt scoring; positions before a row's
-    first new token clamp to slot 0, as the reference's do)."""
+    for ``window = W > 1`` (prompt scoring and the speculative verify
+    step)."""
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    rows = torch.arange(h.shape[0], device=h.device)
-    if window == 1:
-        last = torch.clamp(new_lens.long() - 1, min=0)
-        h_sel = h[rows, last]                                     # [B, H]
-    else:
-        offs = torch.arange(window, device=h.device)[None, :]
-        idx = torch.clamp(new_lens.long()[:, None] - window + offs, min=0)
-        h_sel = h[rows[:, None], idx]                             # [B, W, H]
-    lm_head = params.get("lm_head")
-    if lm_head is None:
-        lm_head = params["embed"].t()
-    if window == 1:
-        return _mm_f32(h_sel, lm_head)
-    B, W, H = h_sel.shape
-    return _mm_f32(h_sel.reshape(B * W, H), lm_head).reshape(B, W, -1)
+    return head_logits(params, select_rows(h, new_lens, window))
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

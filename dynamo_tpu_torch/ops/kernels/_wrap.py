@@ -10,6 +10,21 @@ GROUPS = (1, 2, 3, 4, 6, 8)
 HEAD_DIM = 128
 
 
+def gqa_geometry_error(Hq: int, Hkv: int, Dh: int, ps: int):
+    """Why the GQA kernels (decode, prefill, ragged) do not take this
+    geometry, or None. A head_dim of 256 (Gemma-2-2B / 9B), which the TPU
+    kernels take, is ROADMAP Queue B's "B1-B3 at head_dim 256"."""
+    if Dh != HEAD_DIM:
+        return (f"the kernels take head_dim={HEAD_DIM}, got {Dh} (head_dim "
+                "256 is ROADMAP Queue B, B1-B3 at head_dim 256)")
+    if Hq % Hkv or Hq // Hkv not in GROUPS:
+        return (f"Hq/Hkv={Hq}/{Hkv} is not one of the instantiated groups "
+                f"{GROUPS}")
+    if ps % 8:
+        return f"page_size={ps} is not a multiple of 8"
+    return None
+
+
 def check_cuda_args(name: str, q: torch.Tensor, pages: torch.Tensor,
                     layer_idx, page_table: torch.Tensor,
                     total_lens: torch.Tensor, positions=None) -> None:
@@ -21,14 +36,12 @@ def check_cuda_args(name: str, q: torch.Tensor, pages: torch.Tensor,
                          f"{tuple(pages.shape)}")
     B, S, Hq, Dh = q.shape
     L, _N, two, Hkv, ps, Dh2 = pages.shape
-    if Dh != HEAD_DIM or Dh2 != HEAD_DIM or two != 2:
-        raise ValueError(f"{name}: the kernel takes head_dim={HEAD_DIM}, "
-                         f"got q {Dh} / pages {Dh2}")
-    if Hq % Hkv or Hq // Hkv not in GROUPS:
-        raise ValueError(f"{name}: Hq/Hkv={Hq}/{Hkv} is not one of the "
-                         f"instantiated groups {GROUPS}")
-    if ps % 8:
-        raise ValueError(f"{name}: page_size={ps} is not a multiple of 8")
+    bad = gqa_geometry_error(Hq, Hkv, Dh, ps)
+    if bad:
+        raise ValueError(f"{name}: {bad}")
+    if Dh2 != Dh or two != 2:
+        raise ValueError(f"{name}: the head_dim of q {Dh} and of pages "
+                         f"{tuple(pages.shape)} do not fit together")
     if q.dtype != torch.bfloat16 or pages.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the kernel takes bfloat16 q and pages, got "
                         f"{q.dtype} / {pages.dtype}")

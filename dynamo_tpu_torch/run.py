@@ -63,6 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--speculative-num-tokens", type=int, default=0,
                    help="n-gram prompt-lookup speculative decoding "
                         "(see worker.main --speculative-num-tokens)")
+    p.add_argument("--quantize", choices=["", "int8"], default="",
+                   help="load-time weight quantization (see worker.main "
+                        "--quantize)")
     return p
 
 
@@ -104,7 +107,7 @@ def build_engine_and_card(out: str, args) -> Tuple[EngineBase, ModelDeploymentCa
         for k in ("dtype", "num_pages", "page_size", "max_num_seqs",
                   "max_prefill_chunk", "max_context",
                   "tensor_parallel_size", "random_weights",
-                  "speculative_num_tokens", "device"):
+                  "speculative_num_tokens", "quantize", "device"):
             setattr(ns, k, getattr(args, k))
         engine = build_engine(ns)
         arm_guided(engine, card)

@@ -1,5 +1,5 @@
-"""The port's worker: serve a Llama-tree model on ``TorchEngine`` behind the
-runtime.
+"""The port's worker: serve a Llama-tree, Gemma-2 or DeepSeek model on
+``TorchEngine`` behind the runtime.
 
 The port of ``dynamo_tpu/worker/main.py`` for the aggregated path: connect
 the distributed runtime, build the model card, build the engine (config
@@ -20,12 +20,14 @@ and, on the GPU, the CUDA IPC device-direct plane), ``kv_export`` plus
 (``--host-cache-bytes`` / ``--disk-cache-bytes``, refused with
 ``--disagg decode`` as the reference refuses them), and graceful drain:
 SIGTERM and ``POST /drain`` freeze in-flight streams for a survivor to
-resume from pulled KV.
+resume from pulled KV. ``--quantize int8`` and
+``--speculative-num-tokens`` (with its n-gram and chain-break knobs) go
+into the engine's config as the reference's worker passes them, the disagg
+decode role included.
 
 Flags whose paths are not ported exit non-zero naming their ROADMAP item:
-parallelism over several devices or nodes (A13), ``--quantize`` (A9),
-speculative decoding (A8), GGUF files (A6b), the MoE dispatch backend
-(A11).
+parallelism over several devices or nodes (A13), GGUF files (A6b), the MoE
+dispatch backend (A11).
 """
 
 from __future__ import annotations
@@ -96,8 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "serves auto only (its CUDA kernels on the GPU, "
                         "their plain versions on the CPU)")
     p.add_argument("--quantize", choices=["", "int8"], default="",
-                   help="load-time weight quantization (int8 not ported: "
-                        "ROADMAP A9)")
+                   help="load-time weight quantization: int8 = W8A8 "
+                        "dynamic (llama family and gemma-2); halves the "
+                        "per-step weight stream")
     p.add_argument("--moe-backend", choices=["dense", "dispatch"],
                    default=None,
                    help="MoE expert compute: dense (every expert, every "
@@ -113,8 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="alternatives computed per sampled token (serves "
                         "OpenAI top_logprobs up to this; 0 disables)")
     p.add_argument("--speculative-num-tokens", type=int, default=0,
-                   help="n-gram prompt-lookup speculative decoding (0 "
-                        "disables; not ported: ROADMAP A8)")
+                   help="n-gram prompt-lookup speculative decoding: "
+                        "verify this many drafted tokens per step (0 "
+                        "disables)")
     p.add_argument("--speculative-ngram-max", type=int, default=4,
                    help="largest context-suffix n-gram the prompt-lookup "
                         "proposer matches")
@@ -193,12 +197,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
             "KVBM tiers with --disagg decode are not supported yet: "
             "the disagg decode path pulls prefixes from prefill "
             "workers and bypasses tier onboarding")
-    if args.quantize:
-        raise SystemExit(f"--quantize {args.quantize}: int8 W8A8 is not "
-                         "ported yet (ROADMAP A9)")
-    if args.speculative_num_tokens > 0:
-        raise SystemExit("--speculative-num-tokens: speculative decoding is "
-                         "not ported yet (ROADMAP A8)")
     if args.model_path.endswith(".gguf"):
         raise SystemExit(f"{args.model_path}: GGUF models need the GGUF "
                          "reader port (ROADMAP A6b)")
@@ -235,6 +233,11 @@ def build_engine(args: argparse.Namespace) -> TorchEngine:
         max_prefill_chunk=args.max_prefill_chunk,
         max_context=min(args.max_context, cfg.max_position_embeddings),
         num_top_logprobs=args.num_top_logprobs,
+        quantize=args.quantize,
+        spec_tokens=args.speculative_num_tokens,
+        spec_ngram_max=args.speculative_ngram_max,
+        spec_ngram_min=args.speculative_ngram_min,
+        spec_chain_break=args.speculative_chain_break,
         decode_multistep=args.decode_multistep,
         penalty_window=args.penalty_window,
         guided_table_bytes=args.guided_table_bytes)

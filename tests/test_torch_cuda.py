@@ -40,7 +40,15 @@ serve token for token as the per-step serve. For the KV data plane
 (``engine/transfer.py``, ``kvbm/``): blocks injected in place through the
 pinned staging pipeline under a captured block graph, which replays over
 them with the sender's tokens; a CUDA IPC offer pulled card to card by
-another process, byte for byte; KVBM spills and onboards on the card.
+another process, byte for byte; KVBM spills and onboards on the card. For
+int8, speculation and Gemma-2: ``quant.qdot``'s int32 products and
+rescaled result equal to the CPU's at 1-40 rows (a batch of at most 16
+padded to the 17 rows ``torch._int_mm`` takes); a verify step's forward
+(``[B, K+1]``, logits window K+1) through B2, every layer against the
+plain version; a speculating engine accepting drafts fed from the per-step
+streams; a Gemma-2 forward (G = 2, window, softcap) through B1-B3, every
+layer against the plain versions; ``TorchEngine`` refusing head_dim 256,
+a group outside ``GROUPS`` and a float32 model at construction.
 """
 
 import numpy as np
@@ -1041,3 +1049,229 @@ def test_kvbm_offload_onboard_on_the_card(dev, tmp_path):
         finally:
             await t.stop()
     asyncio.run(run())
+
+
+# -- int8, speculative verify and Gemma-2 on the card ---------------------------
+
+
+@pytest.mark.parametrize("M", [1, 5, 16, 17, 40])
+def test_qdot_on_the_card_equals_the_cpu(dev, M):
+    """``quant.qdot`` on the card: the int32 products equal the CPU's
+    (decode batches of at most 16 rows ride zero pad rows to the 17 that
+    ``torch._int_mm`` takes), with the weights row-major and column-major
+    (as ``quantize_params`` lays them out), and the rescaled float32
+    result, and a bf16 activation's, equal the CPU's bit for bit."""
+    from dynamo_tpu_torch.ops import quant
+    g = torch.Generator().manual_seed(M)
+    x = torch.randn((M, 256), generator=g) * 3.0
+    w8, scale = quant.quantize_weight(torch.randn((256, 384), generator=g)
+                                      * 0.05, axis=0)
+    x8 = torch.randint(-127, 128, (M, 256), generator=g, dtype=torch.int8)
+    want = x8.int() @ w8.int()
+    for w in (w8, w8.t().contiguous().t()):
+        got = quant._int_mm(x8.to(dev), w.to(dev))
+        assert got.dtype == torch.int32 and got.shape == (M, 384)
+        assert torch.equal(got.cpu(), want)
+        for xx in (x, x.to(torch.bfloat16)):
+            cpu = quant.qdot(xx, w8, scale)
+            card = quant.qdot(xx.to(dev), w.to(dev), scale.to(dev))
+            assert card.dtype == xx.dtype
+            assert torch.equal(card.cpu(), cpu)
+
+
+def _checked(kernel, plain, errs):
+    """An attention hook that runs ``kernel`` and holds it, on the same
+    inputs, against ``plain`` (per (slot, head) row, bf16 ulps)."""
+    def attn(q, pages, layer, table, positions, total, scale, **kw):
+        out = kernel(q, pages, layer, table, positions, total, scale, **kw)
+        ref = plain(q, pages, layer, table, positions, total, scale, **kw)
+        errs.append(float(row_ulp_error(out, ref).max()))
+        return out
+    return attn
+
+
+def _prefill_rows(eng, prompts):
+    """Prefill ``prompts`` into ``eng``'s cache through the chunked-prefill
+    kernel, each row on its own pages; returns the page table."""
+    dev = eng.device
+    ps, B = eng.cfg.page_size, len(prompts)
+    S = max(len(p) for p in prompts)
+    table = torch.zeros((B, eng.table_width), dtype=torch.int32, device=dev)
+    per = -(-(S + 8) // ps)
+    table[:, :per] = 1 + torch.arange(B * per, dtype=torch.int32,
+                                      device=dev).reshape(B, per)
+    toks = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    pos = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        pos[i, :len(p)] = torch.arange(len(p), dtype=torch.int32)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    eng.family.forward(eng.params, eng.model_cfg, toks, pos, eng.pages,
+                       table, lens, lens,
+                       attn_impl=paged_prefill_attention_stacked)
+    return table
+
+
+def test_spec_verify_forward_kernel_vs_plain(dev):
+    """A verify step's forward (``[B, K+1]`` with K = 4, logits window 5)
+    through the chunked-prefill kernel, every layer held against the
+    plain version on the same inputs, and its logits against the plain
+    forward's on a copy of the cache."""
+    eng = _block_engine(dev, False)
+    prompts = [list(range(3, 40)), list(range(100, 300)), [7, 8, 9]]
+    table = _prefill_rows(eng, prompts)
+    B, S = len(prompts), 5
+    g = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, eng.model_cfg.vocab_size, (B, S), generator=g,
+                         device=dev, dtype=torch.int32)
+    starts = torch.tensor([len(p) - 1 for p in prompts], device=dev)
+    pos = (starts[:, None] + torch.arange(S, device=dev)).to(torch.int32)
+    total = (starts + S).to(torch.int32)
+    new = torch.full((B,), S, dtype=torch.int32, device=dev)
+    saved = eng.pages.clone()
+    errs = []
+    n0 = LAUNCHES["paged_prefill"]
+    logits, _ = eng.family.forward(
+        eng.params, eng.model_cfg, toks, pos, eng.pages, table, total, new,
+        attn_impl=_checked(paged_prefill_attention_stacked,
+                           paged_prefill_plain, errs), logits_window=S)
+    assert LAUNCHES["paged_prefill"] == n0 + eng.model_cfg.num_layers
+    ref, _ = eng.family.forward(
+        eng.params, eng.model_cfg, toks, pos, saved, table, total, new,
+        attn_impl=paged_prefill_plain, logits_window=S)
+    torch.cuda.synchronize()
+    assert logits.shape == (B, S, eng.model_cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert max(errs) <= TOL_ULPS, errs
+    scale = float(ref.abs().max())
+    assert float((logits - ref).abs().max()) <= 0.05 * scale
+
+
+def test_spec_serve_on_the_card_accepts_forced_drafts(dev, monkeypatch):
+    """``TorchEngine(spec_tokens=4)`` on the card with the proposer fed
+    the per-step engine's greedy streams: verify steps run through B2,
+    drafts are accepted, and every stream finishes at its length."""
+    import asyncio
+    import dynamo_tpu_torch.engine.scheduler as sched
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
+                                                   SamplingOptions,
+                                                   StopConditions)
+    prompts = {"a": list(range(5, 45)), "b": [3, 1, 4, 1, 5, 9, 2, 6] * 3}
+
+    async def serve(eng):
+        async def one(rid):
+            req = PreprocessedRequest(
+                token_ids=prompts[rid], request_id=rid,
+                stop_conditions=StopConditions(max_tokens=16),
+                sampling_options=SamplingOptions(temperature=0.0),
+                eos_token_ids=[])
+            return [t async for f in eng.generate(req) for t in f.token_ids]
+        try:
+            return dict(zip(prompts, await asyncio.gather(
+                *(one(r) for r in prompts))))
+        finally:
+            await eng.stop()
+
+    base = _block_engine(dev, False)
+    sizes = dict(num_pages=160, page_size=16, max_num_seqs=8,
+                 max_context=512, max_prefill_chunk=64)
+    ref = asyncio.run(serve(TorchEngine(
+        base.model_cfg, base.params,
+        TorchEngineConfig(pipeline_decode=False, **sizes), device=dev)))
+    full = {tuple(prompts[r]): prompts[r] + ref[r] for r in prompts}
+
+    def oracle(tokens, k, max_n=4, min_n=2):
+        for f in full.values():
+            n = len(tokens)
+            if n < len(f) and list(tokens) == f[:n]:
+                cont = f[n:n + k]
+                return cont + [cont[-1]] * (k - len(cont))
+        return None
+    monkeypatch.setattr(sched, "propose_ngram", oracle)
+    eng = TorchEngine(base.model_cfg, base.params,
+                      TorchEngineConfig(spec_tokens=4, **sizes), device=dev)
+    n0 = LAUNCHES["paged_prefill"]
+    got = asyncio.run(serve(eng))
+    st = eng.stats().spec_decode_stats
+    assert st.num_drafts > 0 and st.num_accepted_tokens > 0
+    assert LAUNCHES["paged_prefill"] > n0
+    assert all(len(t) == 16 for t in got.values())
+
+
+def test_gemma_forward_kernels_vs_plain(dev):
+    """A two-layer Gemma-2 (G = 2, head_dim 128, window 48 on layer 0,
+    softcap 50) through the decode, prefill and ragged kernels: prefill
+    rows past the window, a mixed step and a decode step, every layer
+    held against the plain version on the same inputs."""
+    from dynamo_tpu_torch.engine.torch_engine import (ATTENTION,
+                                                      TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops.kernels.decode import paged_decode_plain
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128,
+                      dtype="bfloat16", model_type="gemma2",
+                      sliding_window=48, attn_logit_softcap=50.0,
+                      final_logit_softcap=30.0, query_pre_attn_scalar=144.0,
+                      tie_word_embeddings=True)
+    eng = TorchEngine.random_init(cfg, TorchEngineConfig(
+        num_pages=64, page_size=16, max_num_seqs=4, max_context=256),
+        seed=2, device=dev)
+    plains = {"paged_decode": paged_decode_plain,
+              "paged_prefill": paged_prefill_plain,
+              "ragged_mixed": ragged_mixed_plain}
+    B, P = 2, eng.table_width
+    table = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    table[0, :8] = torch.arange(1, 9)
+    table[1, :8] = torch.arange(9, 17)
+    g = torch.Generator(device=dev).manual_seed(4)
+    ids = torch.randint(0, 512, (B, 160), generator=g, device=dev,
+                        dtype=torch.int32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    steps = [("paged_prefill", ids[:, :100],
+              torch.arange(100, **i32).expand(B, 100).contiguous(),
+              [100, 100], [100, 100])]
+    toks = torch.zeros((B, 40), **i32)
+    pos = torch.zeros((B, 40), **i32)
+    toks[0], pos[0] = ids[0, 100:140], torch.arange(100, 140, **i32)
+    toks[1, 0], pos[1, 0] = ids[1, 100], 100
+    steps.append(("ragged_mixed", toks, pos, [140, 101], [40, 1]))
+    steps.append(("paged_decode", ids[:, 150:151].contiguous(),
+                  torch.tensor([[140], [101]], **i32), [141, 102], [1, 1]))
+    for kernel, toks, pos, total, new in steps:
+        errs = []
+        n0 = LAUNCHES[kernel]
+        logits, _ = eng.family.forward(
+            eng.params, cfg, toks, pos, eng.pages, table,
+            torch.tensor(total, **i32), torch.tensor(new, **i32),
+            attn_impl=_checked(ATTENTION[kernel], plains[kernel], errs))
+        torch.cuda.synchronize()
+        assert LAUNCHES[kernel] == n0 + cfg.num_layers, kernel
+        assert bool(torch.isfinite(logits).all()), kernel
+        assert float(logits.abs().max()) <= 30.0, kernel   # final softcap
+        assert max(errs) <= TOL_ULPS, (kernel, errs)
+
+
+def test_engine_refuses_geometries_the_kernels_do_not_take(dev):
+    """On the card ``TorchEngine`` refuses at construction what the GQA
+    kernels do not take: head_dim 256 (Gemma-2-2B / 9B, ROADMAP Queue B),
+    a query group outside ``GROUPS``, a float32 model."""
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.models.config import ModelConfig
+    base = dict(vocab_size=256, hidden_size=128, intermediate_size=256,
+                num_layers=1, dtype="bfloat16")
+    sizes = TorchEngineConfig(num_pages=8, page_size=16, max_num_seqs=2,
+                              max_context=64)
+    for kw, match in ((dict(num_heads=4, num_kv_heads=2, head_dim=256,
+                            model_type="gemma2"), "head_dim=128, got 256"),
+                      (dict(num_heads=10, num_kv_heads=2, head_dim=128),
+                       "groups"),
+                      (dict(num_heads=4, num_kv_heads=2, head_dim=128,
+                            dtype="float32"), "bfloat16")):
+        cfg = ModelConfig(**dict(base, **kw))
+        with pytest.raises(ValueError, match=match):
+            TorchEngine.random_init(cfg, sizes, device=dev)

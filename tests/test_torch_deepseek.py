@@ -383,8 +383,10 @@ def test_get_family_and_unported_families():
     assert get_family(ModelConfig.tiny()).__name__.endswith(".llama")
     with pytest.raises(NotImplementedError, match="A11"):
         get_family(ModelConfig.tiny(num_experts=4, model_type="mixtral"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        get_family(ModelConfig.tiny(model_type="gemma2"))
+    assert get_family(ModelConfig.tiny(model_type="gemma2")).__name__ \
+        .endswith(".gemma")
+    with pytest.raises(NotImplementedError, match="only gemma2"):
+        get_family(ModelConfig.tiny(model_type="gemma3"))
     with pytest.raises(NotImplementedError, match="A11"):
         tds._moe_mlp(ModelConfig(**cfg_kw(moe_backend="dispatch")), {},
                      torch.zeros((1, 1, 64)))

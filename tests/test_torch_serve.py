@@ -27,6 +27,11 @@
   whose paths are not ported exit non-zero naming their ROADMAP item; the
   disaggregation and KVBM flags are accepted, KVBM with ``--disagg decode``
   refused as the reference refuses it.
+- Speculation, int8 and Gemma-2: the port's worker and the reference's
+  build their engines from the same flags (``--speculative-num-tokens``,
+  ``--quantize int8``) on a transformers-written Gemma-2 checkpoint and on
+  the Llama one, and the engines stream the same greedy tokens; the run
+  CLI passes both flags on.
 """
 
 import asyncio
@@ -538,8 +543,8 @@ def test_processes_serve_over_http(model_dir, reference_texts, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--tensor-parallel-size", "2"], "A13"),
-    (["--speculative-num-tokens", "2"], "A8"),
-    (["--quantize", "int8"], "A9"),
+    (["--data-parallel-size", "2"], "A13"),
+    (["--moe-backend", "dispatch"], "A11"),
 ])
 def test_worker_refuses_unported_flags(model_dir, flags, item):
     proc = subprocess.run(
@@ -557,6 +562,8 @@ def test_worker_refuses_unported_flags(model_dir, flags, item):
     ["--disagg", "decode"],
     ["--disagg", "decode", "--disagg-strategy", "prefill_first"],
     ["--host-cache-bytes", "1048576", "--disk-cache-bytes", "1048576"],
+    ["--disagg", "decode", "--speculative-num-tokens", "3"],
+    ["--quantize", "int8", "--speculative-num-tokens", "2"],
 ])
 def test_worker_accepts_kv_data_plane_flags(flags):
     """The disaggregated roles in both strategies and the KVBM tiers pass
@@ -592,3 +599,84 @@ def test_deepseek_scores_and_refuses_embeddings():
     for (lps, tids, _), (jl, jt, _) in zip(got, want):
         np.testing.assert_allclose(lps, jl, rtol=0, atol=1e-4)
         np.testing.assert_array_equal(tids[:, 0], jt[:, 0])
+
+
+@pytest.fixture(scope="module")
+def gemma_dir(tmp_path_factory):
+    """A random tiny Gemma-2 checkpoint written by transformers."""
+    from transformers import Gemma2Config, Gemma2ForCausalLM
+    path = str(tmp_path_factory.mktemp("gemma") / "g")
+    hf = Gemma2Config(
+        vocab_size=256, hidden_size=64, intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=16, max_position_embeddings=256, rms_norm_eps=1e-6,
+        attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+        query_pre_attn_scalar=24, sliding_window=8)
+    torch.manual_seed(1)
+    Gemma2ForCausalLM(hf).eval().save_pretrained(path,
+                                                 safe_serialization=True)
+    return path
+
+
+@pytest.mark.async_timeout(180)
+@pytest.mark.parametrize("which", ["gemma", "llama"])
+async def test_worker_engines_speculate_and_quantize_as_reference(
+        which, gemma_dir, model_dir):
+    """``build_engine`` of both workers on the same flags: a speculating
+    int8 engine over the checkpoint, fed the same prompts, streams the
+    same greedy tokens in both packages."""
+    from dynamo_tpu.protocols.common import (
+        PreprocessedRequest as JRequest, SamplingOptions as JSampling,
+        StopConditions as JStop)
+    from dynamo_tpu.worker import main as jworker
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest as TRequest, SamplingOptions as TSampling,
+        StopConditions as TStop)
+    from dynamo_tpu_torch.worker import main as tworker
+    path = gemma_dir if which == "gemma" else model_dir
+    flags = ["--model-path", path, "--quantize", "int8",
+             "--speculative-num-tokens", "3", "--speculative-ngram-min",
+             "1"] + ENGINE_FLAGS
+    teng = tworker.build_engine(
+        tworker.build_parser().parse_args(flags + ["--device", "cpu"]))
+    jeng = jworker.build_engine(jworker.build_parser().parse_args(flags))
+    assert teng.spec_K == jeng.spec_K == 3
+    assert teng.params["layers"]["wq_q"].dtype == torch.int8
+    assert teng.model_cfg.model_type == (
+        "gemma2" if which == "gemma" else "llama")
+    prompts = [[5, 6, 7, 8, 5, 6, 7, 8, 5, 6, 7], [9, 3, 1, 4, 2]]
+
+    async def serve(eng, Req, Samp, Stop):
+        async def one(i):
+            req = Req(token_ids=prompts[i], request_id=f"q{i}",
+                      stop_conditions=Stop(max_tokens=8),
+                      sampling_options=Samp(temperature=0.0),
+                      eos_token_ids=[])
+            return [t async for f in eng.generate(req) for t in f.token_ids]
+        try:
+            return await asyncio.gather(*(one(i) for i in range(2)))
+        finally:
+            await eng.stop()
+
+    want = await serve(jeng, JRequest, JSampling, JStop)
+    got = await serve(teng, TRequest, TSampling, TStop)
+    assert got == want and all(len(t) == 8 for t in got)
+
+
+def test_run_cli_passes_spec_and_quantize(model_dir, monkeypatch):
+    """``run.py``'s ``--speculative-num-tokens`` and ``--quantize`` reach
+    the worker's engine builder."""
+    from dynamo_tpu_torch import run
+    from dynamo_tpu_torch.worker import main as tworker
+    seen = {}
+
+    def fake_build(ns):
+        seen.update(vars(ns))
+        raise SystemExit("stop here")
+    monkeypatch.setattr(tworker, "build_engine", fake_build)
+    args = run.build_parser().parse_args(
+        ["in=text", "out=torch", "--model-path", model_dir, "--device",
+         "cpu", "--quantize", "int8", "--speculative-num-tokens", "2"])
+    with pytest.raises(SystemExit, match="stop here"):
+        run.build_engine_and_card("torch", args)
+    assert seen["quantize"] == "int8" and seen["speculative_num_tokens"] == 2
