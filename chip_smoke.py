@@ -27,7 +27,9 @@ and suppresses the final result line):
    chunks, where the plain version uses the row's final max); and the
    shapes of speculation and Gemma-2-27B: B1 and B3 at 32 query heads over
    16 (G = 2) with a 4096-position window, softcap 50 and contexts up to
-   8192, B2 as a verify step (B = 32, S = K+1 = 5 at G = 3);
+   8192, B2 as a verify step (B = 32, S = K+1 = 5 at G = 3); and B1-B3 at
+   query groups 5 (40 heads over 8, Qwen2.5-14B's), 7 (28 over 4,
+   Qwen2.5-7B's) and Qwen3-30B-A3B's 8 (32 over 4);
 3. the full-width Llama-3.2-3B forward (random weights from a seed) on a
    prefill, a mixed and a decode step, once through the kernels and once
    through their plain versions: every layer's attention must agree within
@@ -136,7 +138,19 @@ Then DeepSeek-V2-Lite (MLA + MoE):
     checks (both latent kernels launch, fused blocks replayed as graphs),
     the graph-vs-eager block, phase 4d, then phase 4c's sampled workload,
     then phase 4d's first four requests speculating (K = 4) with drafts fed
-    from the per-step streams: verify steps through B5 must accept.
+    from the per-step streams: verify steps through B5 must accept; then
+    phase 4's serves on the capacity dispatch expert backend
+    (``phase_dispatch``): its dropped assignments, each stream's agreement
+    with the dense backend's, its block's graph against the eager block.
+
+Last, Qwen3-30B-A3B (``ModelConfig.qwen3_30b_a3b``: 48 layers, 128 experts
+of 768, top-8, 32 query heads over 4, qk-norm; 61.1 GB of random bf16
+weights made on the card a layer at a time, after phase 6 has freed its
+engines: phase 6(a) must leave ``memory_allocated`` within 1 GiB of its
+value before): phase 3's forward check (its logits gate too, with the
+flipped top-8 routes reported), phase 4's serve on
+the dense expert backend and then on the dispatch one, and the replayed
+block's ms per token against the 18.2 ms weight floor.
 
 It imports nothing of JAX and nothing of the JAX package. Every phase
 prints its seconds. The last line is ``{"ok": true, "device": {...}}``; the
@@ -144,8 +158,10 @@ line before it lists the kernels, each with its launches from its own
 model's greedy serve (``launches``), sampled serve (``launches_sampled``),
 speculating serve (``launches_spec``) and, for the Llama tree's three,
 phase 5's worker (``launches_serve_entry``), phase 6's workers
-(``launches_disagg``), the int8 serves (``launches_int8``) and Gemma-2's
-fused serves (``launches_gemma``).
+(``launches_disagg``), the int8 serves (``launches_int8``), Gemma-2's
+fused serves (``launches_gemma``) and Qwen3-30B-A3B's serves on both
+expert backends (``launches_moe``); for the latent kernels, DeepSeek's
+serves on the dispatch backend (``launches_dispatch``).
 """
 
 from __future__ import annotations
@@ -458,6 +474,22 @@ def kernel_cases(rng):
     yield ("ragged_mixed", GEMMA_MIXED_LABEL,
            make_case(rng, 8, [512, 512, 1, 1, 1, 1, 1, 1], ctxs, S,
                      **gemma), S, False)
+    # the query groups of the MoE slice (after the cases above): 5
+    # (Qwen2.5-14B, 40 heads over 8), 7 (Qwen2.5-7B, 28 over 4) and
+    # Qwen3-30B-A3B's 8 (32 over 4), each through B1, B2 and B3 at the
+    # Llama cases' batch and context shapes
+    for tag, hq, hkv in GROUP_CASES:
+        heads = dict(hq=hq, hkv=hkv)
+        ctxs = [4096, 1] + list(rng.integers(2, 4097, size=30))
+        yield ("paged_decode", f"{tag} B=32 ctx<=4096",
+               make_case(rng, 32, [1] * 32, ctxs, 1, **heads), 1, True)
+        yield ("paged_prefill", f"{tag} B=4 S=512 prefix hits",
+               make_case(rng, 4, [512, 512, 512, 300],
+                         [512, 1024, 3000, 1836], S, **heads), S, False)
+        ctxs = [1024, 512] + list(rng.integers(64, 4097, size=6))
+        yield ("ragged_mixed", f"{tag} B=8 S=512 2 chunks + 6 decode",
+               make_case(rng, 8, [512, 512, 1, 1, 1, 1, 1, 1], ctxs, S,
+                         **heads), S, False)
 
 
 PREFILL_PREFIX_LABEL = "B=4 S=512 prefix hits"
@@ -467,6 +499,9 @@ SPEC_K = 4
 GEMMA_DECODE_LABEL = "B=32 G=2 window=4096 softcap=50 ctx<=8192"
 SPEC_VERIFY_LABEL = "B=32 S=5 spec verify (K=4, G=3)"
 GEMMA_MIXED_LABEL = "B=8 G=2 window=4096 softcap=50"
+# (label, query heads, kv heads) of the MoE slice's group cases
+GROUP_CASES = (("G=5 (40/8)", 40, 8), ("G=7 (28/4)", 28, 4),
+               ("G=8 Hkv=4 (32/4, Qwen3-30B-A3B)", 32, 4))
 
 
 def phase_kernels(results):
@@ -868,7 +903,7 @@ def phase_forward(params, cfg, impls, strict_logits=True, plan=llama_plan,
     (label, params): a fourth forward through the kernels on those weights
     (the bf16 tree beside an int8 one), whose distance to the kernel
     forward's logits is printed and gates nothing."""
-    from dynamo_tpu_torch.models import deepseek, get_family
+    from dynamo_tpu_torch.models import deepseek, get_family, moe
     from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
     family = get_family(cfg)
     kernel, plain, oracle = impls
@@ -892,9 +927,11 @@ def phase_forward(params, cfg, impls, strict_logits=True, plan=llama_plan,
             return out
         return attn
 
-    # MLA + MoE: record each MoE layer's routed experts per forward
+    # MoE (DeepSeek's gate, the mixtral / qwen3-MoE router): record each
+    # MoE layer's routed experts per forward
     routes = {"on": None}
-    gate = deepseek._gate
+    router = (deepseek, "_gate") if mla else (moe, "_router_topk")
+    gate = getattr(*router)
 
     def recording_gate(cfg_, lp, x):
         w, idx = gate(cfg_, lp, x)
@@ -920,17 +957,18 @@ def phase_forward(params, cfg, impls, strict_logits=True, plan=llama_plan,
         logits = {}
         layer_errs.clear()
         vs_oracle.clear()
-        deepseek._gate = recording_gate
+        if cfg.num_experts:
+            setattr(*router, recording_gate)
         try:
             for k, impl in impls.items():
                 routes["on"] = k
                 routes[k] = []
-                logits[k], _ = family.forward(weights[k], cfg, a[0], a[1],
-                                              caches[k], a[2], a[3], a[4],
-                                              attn_impl=impl(kind),
-                                              logits_window=window)
+                logits[k] = family.forward(weights[k], cfg, a[0], a[1],
+                                           caches[k], a[2], a[3], a[4],
+                                           attn_impl=impl(kind),
+                                           logits_window=window)[0]
         finally:
-            deepseek._gate = gate
+            setattr(*router, gate)
             routes["on"] = None
         torch.cuda.synchronize()
         lk, lp, lo = logits["kernel"], logits["plain"], logits["oracle"]
@@ -984,7 +1022,8 @@ def route_flips(routes, real_slots):
     kernels vs plain and plain vs oracle."""
     out = {}
     for k, other in (("kernel", "plain"), ("oracle", "plain")):
-        out[k] = [int(((a != b).any(dim=-1) & real_slots).sum())
+        out[k] = [int(((a != b).any(dim=-1).reshape(-1)
+                       & real_slots.reshape(-1)).sum())
                   for a, b in zip(routes[k], routes[other])]
     return out
 
@@ -1202,8 +1241,9 @@ def phase_engine(params, cfg, sizes=None):
         "tok_s": sum(len(s["tokens"]) for s in stats.values()) / wall,
         "ttft_p50": ttfts[len(ttfts) // 2], "ttft_max": ttfts[-1],
         "ttft_mean": float(np.mean(ttfts))}
+    PHASE4_STREAMS[cfg.model_type] = stats
     graph_vs_eager(engine)
-    return counts, served[1][0]
+    return counts, stats
 
 
 # -- graph vs eager: one fused block -----------------------------------------
@@ -1277,6 +1317,8 @@ def graph_vs_eager(engine):
             lambda _l: engine._run_block(x, GRAPH_W, draw, report=False),
             reps=5)
         engine.pages[:, ids] = saved
+        BLOCK_MS[(engine.model_cfg.model_type,
+                  engine.model_cfg.moe_backend, label)] = graph / GRAPH_W
         log(f"[graphs] block B={GRAPH_B} ctx={GRAPH_CTX} w={GRAPH_W} "
             f"{label}: replay equals eager bit for bit (packed, carry, KV; "
             f"{len(engine.graphs or ()) - fresh} capture); eager {eager:.3f} ms, "
@@ -1467,9 +1509,9 @@ def first_step_margin(engine, prompt, tokens, k, so):
     table[0, :-(-n // PS)] = torch.arange(1, -(-n // PS) + 1)
     t = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")
     kernel = "mla_prefill" if engine.mla else "paged_prefill"
-    logits, _ = engine.family.forward(
+    logits = engine.family.forward(
         engine.params, cfg, t([ids]), t([list(range(n))]), pages, table,
-        t([n]), t([n]), attn_impl=engine.attention[kernel])
+        t([n]), t([n]), attn_impl=engine.attention[kernel])[0]
     if not so["temperature"]:
         top2 = torch.topk(logits.float()[0], 2).values
         return float(top2[0] - top2[1])
@@ -1841,6 +1883,10 @@ ENTRY_TEMPLATE = ("{% for m in messages %}<|{{ m['role'] }}|>"
                   "{% if add_generation_prompt %}<|assistant|>{% endif %}")
 # phase 4's warm in-process serve, printed beside phase 5's client numbers
 PHASE4_WARM = {}
+# phase 4's warm streams per model (the dispatch serves' agreement) and the
+# replayed block's ms per token per (model, expert backend, draw)
+PHASE4_STREAMS = {}
+BLOCK_MS = {}
 # phase 5's timed windows over HTTP, each phase 4's ten requests of one
 # seed: its cold seed (the worker meets these shapes first), then its warm
 # seed and two more of the same lengths (the spread between windows)
@@ -2522,6 +2568,9 @@ def phase_kv_local() -> None:
                                                 KvBlockPuller,
                                                 get_kv_bandwidth_book)
     cfg = llama_cfg()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
     params = llama.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     small = dict(SERVE_SIZES, num_pages=512)
@@ -2727,6 +2776,59 @@ def phase_kv_local() -> None:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - held_before
+    log(f"[kv-local] memory_allocated {held_before / 2 ** 30:.3f} GiB before "
+        f"6(a), {(held_before + held) / 2 ** 30:.3f} GiB after 6(a) and "
+        f"6(d) with their engines and weights freed ({held / 2 ** 20:+.1f} "
+        f"MiB)")
+    if held > 2 ** 30:
+        for line in cuda_holders():
+            log(f"[kv-local] held: {line}")
+        raise AssertionError(f"{held / 2 ** 30:.2f} GiB stay allocated after "
+                             "phase 6(a)/(d)")
+
+
+def _describe(obj) -> str:
+    """A short name for a referrer: its type, a frame's function, a
+    function's qualified name, a dict's owner types."""
+    if isinstance(obj, type(sys._getframe())):
+        return f"frame {obj.f_code.co_name}:{obj.f_lineno}"
+    if callable(obj) and hasattr(obj, "__qualname__"):
+        return f"{type(obj).__name__} {obj.__qualname__}"
+    if isinstance(obj, dict):
+        owners = [type(o).__name__ for o in gc.get_referrers(obj)
+                  if not isinstance(o, (list, type(sys._getframe())))][:3]
+        return f"dict ({len(obj)} keys) of {owners}"
+    return type(obj).__name__
+
+
+def cuda_holders(limit: int = 6) -> list:
+    """What holds the card's memory, for a failed release check: every live
+    ``TorchEngine`` and the ``limit`` largest live CUDA tensors gc can see,
+    each with its referrers (``_describe``), two levels up."""
+    from dynamo_tpu_torch.engine.torch_engine import TorchEngine
+    gc.collect()
+    objs = gc.get_objects()
+    found = [o for o in objs if isinstance(o, TorchEngine)]
+    tensors = [o for o in objs
+               if isinstance(o, torch.Tensor) and o.is_cuda]
+    tensors.sort(key=lambda t: t.untyped_storage().nbytes(), reverse=True)
+    del objs
+    lines = []
+    for o in found + tensors[:limit]:
+        what = (f"TorchEngine pages {o.pages.nbytes / 2 ** 30:.2f} GiB"
+                if isinstance(o, TorchEngine) else
+                f"tensor {tuple(o.shape)} {o.dtype} storage "
+                f"{o.untyped_storage().nbytes() / 2 ** 20:.1f} MiB")
+        refs = []
+        for r in gc.get_referrers(o):
+            if r is found or r is tensors:
+                continue
+            up = [_describe(u) for u in gc.get_referrers(r)
+                  if u is not found and u is not tensors][:3]
+            refs.append(f"{_describe(r)} <- {up}")
+        lines.append(f"{what}; referrers: {refs[:4]}")
+    return lines
 
 
 def phase_kvbm(params, cfg) -> None:
@@ -3532,6 +3634,114 @@ def gemma_phases(failures, profile):
     return counts or {}
 
 
+def phase_dispatch(params, cfg, _per_step=None, sizes=None):
+    """Phase 4's two greedy serves (cold, warm) on an engine whose MoE runs
+    the capacity dispatch backend (``moe_backend="dispatch"``, capacity
+    factor 2): every request finished, every kernel launched, fused blocks
+    replayed; the dropped assignments over both serves (``stats()``'s
+    count, fetched once at the end), each warm stream's agreement with the
+    dense backend's warm serve of the same requests, and the dispatch
+    block's graph against its eager run (``graph_vs_eager``: the block's
+    drop count is one of its graph's outputs). Returns the kernels'
+    launches over the serves."""
+    import dataclasses
+    dcfg = dataclasses.replace(cfg, moe_backend="dispatch")
+    engine, served, counts = serve_engine(params, dcfg,
+                                          (COLD_SEED, WARM_SEED), sizes)
+    for (stats, wall, info), tag in zip(served, ("cold", "warm")):
+        serve_report(stats, wall, info, f"dispatch {tag}")
+        check_stats(stats, cfg)
+    dropped = engine.stats().worker_stats.moe_dropped_tokens
+    log(f"[dispatch] launches={counts}; {dropped} token-expert assignments "
+        f"dropped over both serves (capacity factor "
+        f"{dcfg.moe_capacity_factor}, {dcfg.num_experts} experts, top-"
+        f"{dcfg.num_experts_per_tok})")
+    for k, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} never launched in the "
+                                 "dispatch serve")
+    if engine.multistep_blocks <= 0:
+        raise AssertionError("the dispatch serves ran no fused block")
+    warm = served[1][0]
+    report_agreement("dispatch", engine, warm,
+                     PHASE4_STREAMS[cfg.model_type],
+                     "the dense backend's warm serve")
+    dense = PHASE4_WARM[cfg.model_type]["tok_s"]
+    tok_s = sum(len(s["tokens"]) for s in warm.values()) / served[1][1]
+    log(f"[dispatch] warm serve {tok_s:.1f} tok/s against the dense "
+        f"backend's {dense:.1f} tok/s in this run")
+    graph_vs_eager(engine)
+    return counts
+
+
+# Qwen3-30B-A3B's serving sizes: 1280 pages of 16 positions (48 layers x 4
+# kv heads: 1.5 MiB a page, 1.9 GiB in all beside the 56.9 GiB of weights;
+# enough for phase 4's workload and the graph-vs-eager block's 1041 pages)
+MOE_SIZES = dict(SERVE_SIZES, num_pages=1280)
+
+
+def moe_phases(failures, profile):
+    """Qwen3-30B-A3B at full width and depth (48 layers, 128 experts) in
+    bf16, random weights made on the card a layer at a time: phase 3's
+    forward check (every layer's B1-B3 against the plain versions, the
+    logits under phase 3's gate, the flipped top-8 routes reported: the
+    gate's oracle distance flips as many), phase 4's greedy serve fused on
+    the dense expert backend
+    (cold, warm, graph vs eager), then on the dispatch backend
+    (``phase_dispatch``); the replayed block's ms per token against the
+    weight floor, and ``memory_allocated`` before and after. Returns the
+    kernels' launches over the fused serves of both backends."""
+    from dynamo_tpu_torch.models import moe
+    from dynamo_tpu_torch.models.config import ModelConfig
+    cfg = ModelConfig.qwen3_30b_a3b()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t1 = time.perf_counter()
+    params = moe.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    weight_bytes = tree_bytes(params)
+    log(f"[model] qwen3_30b_a3b L={cfg.num_layers} H={cfg.hidden_size} "
+        f"E={cfg.num_experts} top-{cfg.num_experts_per_tok} "
+        f"V={cfg.vocab_size} random weights in "
+        f"{time.perf_counter() - t1:.1f} s, {weight_bytes / 1e9:.2f} GB; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card")
+    counts = {}
+    with torch.no_grad():
+        run_phase("forward qwen3_30b_a3b",
+                  lambda: phase_forward(params, cfg, llama_impls(), True),
+                  failures)
+        served = run_phase("engine qwen3_30b_a3b",
+                           lambda: phase_engine(params, cfg, MOE_SIZES),
+                           failures)
+        if served:
+            counts = dict(served[0])
+            got = run_phase("dispatch qwen3_30b_a3b",
+                            lambda: phase_dispatch(params, cfg,
+                                                   sizes=MOE_SIZES),
+                            failures)
+            for k, n in (got or {}).items():
+                counts[k] += n
+        if profile:
+            run_phase("profile qwen3_30b_a3b",
+                      lambda: phase_profile(params, cfg), failures)
+    floor = weight_bytes / HBM_BYTES_PER_S * 1e3
+    for (mt, backend, label), ms in sorted(BLOCK_MS.items()):
+        if mt == cfg.model_type:
+            log(f"[moe] {backend} backend, {label}: a replayed block token "
+                f"{ms:.3f} ms against the {floor:.2f} ms weight floor "
+                f"({weight_bytes / 1e9:.2f} GB / 3.35 TB/s; both backends "
+                f"read every expert): {floor / ms:.0%} of it")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] memory_allocated before the model "
+        f"{before / 2 ** 30:.2f} GiB, after it was freed "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    return counts
+
+
 SOURCES = {
     "paged_decode": ("dynamo_tpu_torch/ops/kernels/csrc/decode.cu",
                      "dynamo_tpu/ops/pallas/decode.py:69"),
@@ -3667,7 +3877,8 @@ def main() -> int:
     sampled = {k: 0 for k in SOURCES}
     entry = {}
     disagg = {}
-    slice_counts = {"int8": {}, "spec": {}, "gemma": {}}
+    slice_counts = {"int8": {}, "spec": {}, "gemma": {}, "dispatch": {},
+                    "moe": {}}
     profile = "--profile" in args
     if not failures:
         # one model on the card at a time: each is freed before the next
@@ -3675,7 +3886,8 @@ def main() -> int:
                 ("llama32_3b", llama_cfg(), llama_impls(), True,
                  (("int8", phase_int8), ("spec", phase_spec))),
                 ("deepseek_v2_lite", ModelConfig.deepseek_v2_lite(),
-                 mla_impls(), False, (("spec", phase_spec_mla),))):
+                 mla_impls(), False, (("spec", phase_spec_mla),
+                                      ("dispatch", phase_dispatch)))):
             c, sc, ex = model_phases(name, cfg, impls, strict, failures,
                                      profile, extras)
             counts.update(c)
@@ -3694,6 +3906,8 @@ def main() -> int:
                 run_phase("kv-local", phase_kv_local, failures)
                 disagg = run_phase("disagg", phase_disagg, failures) or {}
                 log(f"[phase] phase 6 {time.perf_counter() - t6:.1f} s")
+        # Qwen3-30B-A3B (61.1 GB of bf16), alone on the card, last
+        slice_counts["moe"] = moe_phases(failures, profile)
     if failures:
         log(f"[fail] phases failed: {failures}")
         return 1
@@ -3709,6 +3923,8 @@ def main() -> int:
             "launches_int8": slice_counts["int8"].get(name),
             "launches_spec": slice_counts["spec"].get(name),
             "launches_gemma": slice_counts["gemma"].get(name),
+            "launches_moe": slice_counts["moe"].get(name),
+            "launches_dispatch": slice_counts["dispatch"].get(name),
             "max_abs_err": row["max_abs_err"],
             "max_err_ulps": row["max_err_ulps"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "ms_per_call": row["ms_per_call"],

@@ -16,7 +16,8 @@ shape — the reference's choice on its Pallas path. The Llama tree:
   mixed batching on by default): the ragged mixed kernel.
 
 Gemma-2 (``models/gemma.py``) takes the same three kernels, each layer
-with its sliding window and the attention softcap. DeepSeek (MLA,
+with its sliding window and the attention softcap, as do the MoE variants
+of the Llama tree (mixtral, qwen3-MoE: ``models/moe.py``). DeepSeek (MLA,
 ``models/deepseek.py``): S == 1 steps run the latent decode kernel, every
 S > 1 step (prefill and mixed alike) the latent prefill kernel, which
 skips a decode row's pad query tiles itself. On the GPU a geometry the
@@ -68,7 +69,10 @@ plane: ``embed`` (the family's dense ``encode``, mean-pooled) and
 chunked-prefill forward against scratch pages, its logits window covering
 each full chunk; on the GPU its attention is the prefill kernel). On the
 GPU both run on the loop's exclusive lane, between dispatches.
-``stats`` adds the MoE drop count (0: the dense backend drops nothing).
+``stats`` adds the MoE drop count: with ``moe_backend="dispatch"`` every
+forward returns its dropped assignments as a device scalar (a fused block
+sums its steps' into an output of its CUDA graph), queued and fetched only
+when the stats are read, as the reference's ``_drain_moe_drops`` does.
 The decode knobs left ``None`` in ``TorchEngineConfig`` resolve at build
 from ``RuntimeConfig`` and the short-form env (``DYN_DECODE_MULTISTEP``,
 ``DYN_MIXED_BATCH``, ``DYN_DECODE_PROGRESS``), as the reference's do.
@@ -328,8 +332,8 @@ class _PinnedSlot:
 
 
 class TorchEngine(ScheduledEngineBase):
-    """Continuous-batching paged-KV engine over a PyTorch Llama-tree,
-    Gemma-2 or DeepSeek (MLA) model."""
+    """Continuous-batching paged-KV engine over a PyTorch Llama-tree (dense
+    or MoE), Gemma-2 or DeepSeek (MLA) model."""
 
     def __init__(self, model_cfg: ModelConfig, params,
                  config: Optional[TorchEngineConfig] = None, device=None):
@@ -460,6 +464,15 @@ class TorchEngine(ScheduledEngineBase):
         # and dropped from the step thread's state at its next dispatch
         self._released: set = set()
         self._released_lock = threading.Lock()
+        # MoE dispatch overflow accounting: each step's (each block's)
+        # device scalar queues here and stats() drains them into the total.
+        # Only the dispatch backend can drop. Appends happen on the step
+        # thread, drains there (the 512 cap) or on the event-loop thread
+        self._pending_moe_drops: list = []
+        self._moe_dropped_total = 0
+        self._moe_drops_lock = threading.Lock()
+        self._moe_dispatch_active = (
+            getattr(model_cfg, "moe_backend", "") == "dispatch")
 
     def _counted(self, kernel: str):
         impl = self.attention[kernel]
@@ -1183,10 +1196,11 @@ class TorchEngine(ScheduledEngineBase):
         t = {k: _upload(v, self.device) for k, v in a.items()}
         S = a["toks"].shape[1]
         kernel = "mla_prefill" if self.mla else "paged_prefill"
-        logits, _pages = self.family.forward(
-            self.params, self.model_cfg, t["toks"], t["pos"], self.pages,
-            t["table"], t["total"], t["new"], attn_impl=self._attn[kernel],
-            logits_window=S)
+        logits, aux = self._forward(t["toks"], t["pos"], t["table"],
+                                    t["total"], t["new"], kernel,
+                                    logits_window=S)
+        # a MoE family's verify step reports dispatch drops like any step
+        self._queue_drops(aux.get("moe_dropped_assignments"))
         logits = logits.float()
         B, _S, V = logits.shape
         if "gmask" in t:
@@ -1253,10 +1267,33 @@ class TorchEngine(ScheduledEngineBase):
         t = {k: _upload(v, self.device) for k, v in a.items()
              if k not in dev_arrays}
         t.update(dev_arrays)
-        logits, _pages = self.family.forward(
-            self.params, self.model_cfg, t["toks"], t["pos"], self.pages,
-            t["table"], t["total"], t["new"], attn_impl=self._attn[kernel])
+        logits, aux = self._forward(t["toks"], t["pos"], t["table"],
+                                    t["total"], t["new"], kernel)
+        self._queue_drops(aux.get("moe_dropped_assignments"))
         return self._sample_tail(logits, t, draw=bool(a["temp"].max() > 0))
+
+    def _forward(self, toks, pos, table, total, new, kernel: str,
+                 logits_window: int = 1):
+        """The family's forward on the serving cache with ``kernel`` as the
+        attention; returns (logits, aux). MoE families return a third
+        ``aux`` dict (dispatch drop counts), the others the plain
+        ``(logits, pages)`` pair (aux ``{}``)."""
+        out = self.family.forward(
+            self.params, self.model_cfg, toks, pos, self.pages, table, total,
+            new, attn_impl=self._attn[kernel], logits_window=logits_window)
+        return out[0], (out[2] if len(out) > 2 else {})
+
+    def _queue_drops(self, drops: Optional[torch.Tensor]) -> None:
+        """Queue one dispatch's dropped-assignment count (a device scalar)
+        for the next stats read; no host sync. Past 512 pending, all but
+        the freshest 8 are drained (those may still be in flight)."""
+        if drops is None or not self._moe_dispatch_active:
+            return
+        with self._moe_drops_lock:
+            self._pending_moe_drops.append(drops)
+            overflow = len(self._pending_moe_drops) > 512
+        if overflow:
+            self._drain_moe_drops(keep_last=8)
 
     def _sample_tail(self, logits: torch.Tensor, t: dict,
                      draw: bool = True) -> torch.Tensor:
@@ -1428,6 +1465,10 @@ class TorchEngine(ScheduledEngineBase):
                              self.device)
         plan._step_id = self._step_counter
         out = self._run_block(x, w, samp["draw"])
+        if self._moe_dispatch_active:
+            # the graph's static output is overwritten by its next replay:
+            # the queue keeps a device copy (no host sync)
+            self._queue_drops(out["drops"].clone())
         # one rng-fold key per fused step: the counter advances by the
         # width, so fused and per-step runs draw the same keys
         self._step_counter += w
@@ -1463,7 +1504,9 @@ class TorchEngine(ScheduledEngineBase):
         ``fold_in(rng, step0 + j)``, the packed row, then the stop rule
         ``(hit & j+1 >= min_gate) | j+1 >= budget``, the window update over
         live penalized rows and the automaton step of live rows. Returns
-        the packed ``[B, w, 2 + 2K]`` block and the carry for the next."""
+        the packed ``[B, w, 2 + 2K]`` block, the carry for the next, and
+        ``drops``: the MoE dispatch's dropped assignments summed over the
+        steps (on the GPU an output of the block's graph)."""
         tok, pos, total, alive = x["tok"], x["pos"], x["total"], x["alive"]
         table, stop_ids = x["table"], x["stop_ids"]
         budget, min_gate = x["budget"], x["min_gate"]
@@ -1483,13 +1526,14 @@ class TorchEngine(ScheduledEngineBase):
             pbias = torch.zeros((B, W), dtype=torch.float32, device=dev)
             pn = torch.zeros(B, dtype=torch.int32, device=dev)
             gstate = torch.zeros(B, dtype=torch.int32, device=dev)
-        attn = self._attn[self.decode_kernel]
         steps = []
+        drops = torch.zeros((), dtype=torch.int32, device=dev)
         for j in range(w):
             new = alive.to(torch.int32)
-            logits, _pages = self.family.forward(
-                self.params, self.model_cfg, tok, pos, self.pages, table,
-                total, new, attn_impl=attn)
+            logits, aux = self._forward(tok, pos, table, total, new,
+                                        self.decode_kernel)
+            if self._moe_dispatch_active:
+                drops = drops + aux["moe_dropped_assignments"]
             logits = logits.float()
             if pw:
                 # the window and the prompt entries in one scatter-add
@@ -1530,7 +1574,8 @@ class TorchEngine(ScheduledEngineBase):
         return {"packed": torch.stack(steps, dim=1), "tok": tok, "pos": pos,
                 "total": total, "alive": alive, "budget": budget - w,
                 "min_gate": min_gate - w, "pids": pids, "pcnt": pcnt,
-                "pctx": pctx, "pbias": pbias, "pn": pn, "gstate": gstate}
+                "pctx": pctx, "pbias": pbias, "pn": pn, "gstate": gstate,
+                "drops": drops}
 
     def prime_multistep(self, B: int, widths=None):
         """Capture the fused block's graphs for padded batch ``B`` before
@@ -1589,11 +1634,30 @@ class TorchEngine(ScheduledEngineBase):
         m.worker_stats.moe_dropped_tokens = self.moe_dropped_total()
         return m
 
+    def _drain_moe_drops(self, keep_last: int = 0) -> None:
+        """Fold all but the ``keep_last`` freshest pending drop counts into
+        the total: the list is swapped out under the lock, and the device
+        values come over in ONE transfer outside it, so a slow fetch never
+        blocks the step thread."""
+        with self._moe_drops_lock:
+            if len(self._pending_moe_drops) <= keep_last:
+                return
+            split = len(self._pending_moe_drops) - keep_last
+            done = self._pending_moe_drops[:split]
+            self._pending_moe_drops = self._pending_moe_drops[split:]
+        total = int(torch.stack([d.reshape(()).to(torch.int64)
+                                 for d in done]).sum())
+        with self._moe_drops_lock:
+            self._moe_dropped_total += total
+
     def moe_dropped_total(self) -> int:
-        """Cumulative MoE dispatch overflow count: 0, since the port runs
-        the dense expert backend only, which drops nothing (the capacity
-        dispatch backend is ROADMAP A11)."""
-        return 0
+        """Cumulative MoE dispatch overflow count (token-expert assignments
+        whose combine weight was zeroed; 0 on the dense backend). Drains
+        every pending device scalar: called from the stats scrape, where
+        waiting for at most the dispatch in flight is acceptable."""
+        self._drain_moe_drops(keep_last=0)
+        with self._moe_drops_lock:
+            return self._moe_dropped_total
 
     # -- page IO: KV block export and inject ---------------------------------
     #
@@ -1797,10 +1861,10 @@ class TorchEngine(ScheduledEngineBase):
             pos = torch.arange(sl.start, sl.stop, dtype=torch.int32,
                                device=dev)[None].expand(B, chunk)
             total = torch.full((B,), sl.stop, dtype=torch.int32, device=dev)
-            logits, _ = self.family.forward(
+            logits = self.family.forward(
                 self.params, cfg, tokens[:, sl].contiguous(),
                 pos.contiguous(), pages, table, total, new, attn_impl=attn,
-                logits_window=chunk)
+                logits_window=chunk)[0]
             lsm = torch.log_softmax(logits.float(), dim=-1)  # [B, c, V]
             t_lp.append(torch.gather(lsm, -1, tgt[:, sl, None])[..., 0])
             vals, ids = top_k_stable(lsm.reshape(B * chunk, -1), top_n)

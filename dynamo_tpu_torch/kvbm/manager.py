@@ -25,6 +25,7 @@ content-addressed inject path (``engine/transfer.py``).
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import os
 import queue
@@ -182,9 +183,14 @@ class TieredEngine(EngineBase):
 
     def _spill_loop(self) -> None:
         # daemon thread, lives for the engine's lifetime: retiring on idle
-        # races the producer's is_alive() check and can strand a batch
+        # races the producer's is_alive() check and can strand a batch;
+        # stop() ends it with a None behind the pending batches
         while True:
-            metas, data_dev = self._spills.get()
+            item = self._spills.get()
+            if item is None:
+                self._spills.task_done()
+                return
+            metas, data_dev = item
             try:
                 t0 = time.perf_counter()
                 host = self._to_host(*data_dev)  # the device->host copy
@@ -542,6 +548,13 @@ class TieredEngine(EngineBase):
 
     async def stop(self) -> None:
         await self.engine.stop()
+        # the spill thread ends with the engine, after the batches queued
+        # before it: its frame holds this object, so the engine, its cache
+        # and its weights would outlive the stop
+        t = self._spill_thread
+        if t is not None and t.is_alive():
+            await asyncio.to_thread(self._spills.put, None)
+            await asyncio.to_thread(t.join, 30.0)
 
     def stats(self):
         return self.engine.stats()

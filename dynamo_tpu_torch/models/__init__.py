@@ -1,7 +1,9 @@
 """Model families of the port: the Llama tree (llama 2/3, mistral,
-qwen2/qwen3; ``models/llama.py``), Gemma-2 (``models/gemma.py``) and
-DeepSeek V2/V3 with latent attention and MoE (``models/deepseek.py``). ``get_family(cfg)`` maps a config to its
-module and imports it only then: importing the config must stay cheap.
+qwen2/qwen3; ``models/llama.py``), its MoE variants (mixtral, qwen3-MoE;
+``models/moe.py``), Gemma-2 (``models/gemma.py``) and DeepSeek V2/V3 with
+latent attention and MoE (``models/deepseek.py``). ``get_family(cfg)`` maps
+a config to its module and imports it only then: importing the config must
+stay cheap.
 """
 
 import importlib
@@ -16,9 +18,7 @@ def get_family(cfg: ModelConfig):
         # MLA (deepseek v2/v3): latent paged cache, absorbed attention
         return importlib.import_module("dynamo_tpu_torch.models.deepseek")
     if cfg.num_experts:
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r}: the mixtral / qwen3-MoE family "
-            "(models/moe.py) is not ported yet: ROADMAP A11")
+        return importlib.import_module("dynamo_tpu_torch.models.moe")
     if cfg.model_type == "gemma2":
         return importlib.import_module("dynamo_tpu_torch.models.gemma")
     if cfg.model_type.startswith("gemma"):

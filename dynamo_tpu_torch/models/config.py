@@ -241,6 +241,26 @@ class ModelConfig:
         return replace(cls.from_hf(hf), **kw)
 
     @classmethod
+    def qwen3_30b_a3b(cls, **kw) -> "ModelConfig":
+        """Qwen3-30B-A3B, from its published ``config.json``
+        (huggingface.co/Qwen/Qwen3-30B-A3B): 48 layers, hidden 2048, 32
+        heads over 4 kv heads of head_dim 128 with qwen3's qk-norm, every
+        layer MoE (``decoder_sparse_step`` 1, no ``mlp_only_layers``): 128
+        experts of 768, top-8 renormalized; vocab 151936, untied head, rope
+        theta 1e6, 40960 positions."""
+        hf = dict(
+            model_type="qwen3_moe", vocab_size=151936, hidden_size=2048,
+            intermediate_size=6144, moe_intermediate_size=768,
+            num_hidden_layers=48, num_attention_heads=32,
+            num_key_value_heads=4, head_dim=128, num_experts=128,
+            num_experts_per_tok=8, norm_topk_prob=True,
+            decoder_sparse_step=1, mlp_only_layers=[],
+            rms_norm_eps=1e-6, rope_theta=1000000.0,
+            max_position_embeddings=40960, tie_word_embeddings=False,
+            attention_bias=False, hidden_act="silu")
+        return replace(cls.from_hf(hf), **kw)
+
+    @classmethod
     def tiny(cls, **kw) -> "ModelConfig":
         """A toy config for tests (runs in ms on CPU)."""
         defaults = dict(vocab_size=256, hidden_size=64, intermediate_size=128,

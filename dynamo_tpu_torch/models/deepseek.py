@@ -23,12 +23,13 @@ JAX-style oracle serves: ``_mla_attend`` (full gather) or
 ``_mla_attend_blockwise`` (online softmax over page chunks, S > 1 over
 more than ``PAGES_PER_CHUNK`` table pages), as in the reference.
 
-Routed experts run on the dense backend: every expert on every token, as at
-the reference's ``deepseek.py:452-460``. Plain matrix products stay
+Routed experts run on either of ``models/moe.py``'s backends, as the
+reference's ``deepseek.py:441-460`` chooses: dense (every expert on every
+token) or the capacity dispatch, whose dropped assignments ``forward``
+returns as the reference's ``aux``. Plain matrix products stay
 ``torch.matmul``/``bmm`` (the reference leaves them to XLA). Not ported
-here: the ``dispatch`` capacity backend and the expert mesh (ROADMAP A11,
-A13), ``forward_unrolled`` (one forward over the stacked cache serves), and
-``load_params`` (waits for a checkpoint in the repository, ROADMAP A6).
+here: the expert mesh (ROADMAP A13), ``forward_unrolled`` (one forward over
+the stacked cache serves), and ``load_params`` (ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import _logits, _rms_norm, torch_dtype
+from dynamo_tpu_torch.models.moe import (dense_experts, expert_dispatch,
+                                         sum_drops)
 from dynamo_tpu_torch.ops.attention import NEG_INF, _pad_table, write_kv
 from dynamo_tpu_torch.ops.sampling import top_k_stable
 
@@ -473,27 +476,29 @@ def _gate_noaux(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
 
 
 def _moe_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-             x: torch.Tensor) -> torch.Tensor:
-    """Routed experts (dense backend: every expert on every token, weighted
-    by the gate; zero weight off the top-k) plus the shared experts. The
-    tokens broadcast over the expert stack in one batched product per
-    projection, so the ``[E, in, out]`` weights are read as they lie."""
-    if cfg.moe_backend == "dispatch":
-        raise NotImplementedError(
-            "moe_backend='dispatch' (the capacity-factor expert dispatch) "
-            "is not ported yet: ROADMAP A11")
+             x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Routed experts plus the shared experts. ``cfg.moe_backend`` picks the
+    routed compute: ``"dense"`` (every expert on every token, weighted by
+    the gate; zero weight off the top-k: ``moe.dense_experts``) or
+    ``"dispatch"`` (the capacity dispatch, ``moe.expert_dispatch``, with
+    this family's gate). Returns ``(out, dropped assignments)``, dropped
+    None on the dense backend."""
     B, S, H = x.shape
-    E = cfg.num_experts
-    top_w, top_i = _gate(cfg, lp, x)
-    weights = (F.one_hot(top_i, E).float() * top_w[..., None]).sum(dim=-2)
-    xt = x.reshape(1, B * S, H).expand(E, B * S, H)
-    act = F.silu(torch.bmm(xt, lp["w_gate"])) * torch.bmm(xt, lp["w_up"])
-    per_expert = torch.bmm(act, lp["w_down"])              # [E, T, H]
-    routed = torch.bmm(weights.reshape(B * S, 1, E).to(x.dtype),
-                       per_expert.transpose(0, 1)).reshape(B, S, H)
+    xt = x.reshape(B * S, H)
+    top_w, top_i = _gate(cfg, lp, xt)                      # [T, k]
+    dropped = None
+    if cfg.moe_backend == "dispatch":
+        routed, dropped = expert_dispatch(
+            xt, top_w, top_i, lp["w_gate"], lp["w_up"], lp["w_down"],
+            cfg.num_experts, cfg.moe_capacity_factor)
+        routed = routed.to(x.dtype)
+    else:
+        routed = dense_experts(xt, top_w, top_i, lp["w_gate"], lp["w_up"],
+                               lp["w_down"])
+    routed = routed.reshape(B, S, H)
     if cfg.n_shared_experts:
         routed = routed + _dense_mlp(lp, x, "ws_")
-    return routed
+    return routed, dropped
 
 
 def _dense_mlp(lp: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -506,9 +511,10 @@ def _dense_mlp(lp: Dict[str, torch.Tensor], x: torch.Tensor,
 
 def _layer_step(cfg: ModelConfig, lp, h, positions, total_lens, new_lens,
                 page_table, pages, lidx: int, moe: bool,
-                attn_impl: Optional[Callable]) -> torch.Tensor:
+                attn_impl: Optional[Callable]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer against the stacked latent cache (written in
-    place)."""
+    place). Returns (h, the MoE dispatch's dropped assignments or None)."""
     q_lat, q_pe, c_kv, k_pe, w_uv = _mla_qkv(cfg, lp, h, positions)
     k_new, v_new = _cache_rows(cfg, c_kv, k_pe)
     write_kv(pages, lidx, k_new, v_new, page_table, positions, new_lens)
@@ -535,7 +541,10 @@ def _layer_step(cfg: ModelConfig, lp, h, positions, total_lens, new_lens,
         h = _mla_attend(cfg, lp, h, q_lat, q_pe, w_uv, ckv_ctx, kpe_ctx,
                         positions, total_lens)
     x = _rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
-    return h + (_moe_mlp(cfg, lp, x) if moe else _dense_mlp(lp, x))
+    if not moe:
+        return h + _dense_mlp(lp, x), None
+    mlp, dropped = _moe_mlp(cfg, lp, x)
+    return h + mlp, dropped
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -543,7 +552,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
             new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
             logits_window: int = 1
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Forward over the stacked latent cache: the dense stack, then the MoE
     stack, one shared cache.
 
@@ -552,7 +561,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     including the new tokens; new_lens: [B] real new tokens per row.
     ``attn_impl`` takes the MLA signature (module docstring); None runs the
     oracle. Returns (logits float32 at each row's last ``logits_window``
-    real new tokens, ``[B, V]`` or ``[B, W, V]``, and pages)."""
+    real new tokens, ``[B, V]`` or ``[B, W, V]``, pages, and the
+    reference's ``aux``: ``{"moe_dropped_assignments": int32 scalar}``
+    summed over the MoE layers, 0 on the dense backend)."""
     K = cfg.first_k_dense_replace
     h = params["embed"][tokens.long()]
     stacks = []
@@ -560,13 +571,19 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         stacks.append((params["dense_layers"], 0, False))
     if "moe_layers" in params:
         stacks.append((params["moe_layers"], K, True))
+    drops = []
     for layers, first, moe in stacks:
         n = next(iter(layers.values())).shape[0]
         for i in range(n):
             lp = {k: v[i] for k, v in layers.items()}
-            h = _layer_step(cfg, lp, h, positions, total_lens, new_lens,
-                            page_table, pages, first + i, moe, attn_impl)
-    return _logits(cfg, params, h, new_lens, window=logits_window), pages
+            h, dropped = _layer_step(cfg, lp, h, positions, total_lens,
+                                     new_lens, page_table, pages, first + i,
+                                     moe, attn_impl)
+            if dropped is not None:
+                drops.append(dropped)
+    aux = {"moe_dropped_assignments": sum_drops(drops, h.device)}
+    return (_logits(cfg, params, h, new_lens, window=logits_window), pages,
+            aux)
 
 
 __all__ = ["init_params", "params_from_jax", "forward", "make_pages",

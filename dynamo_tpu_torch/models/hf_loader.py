@@ -1,26 +1,28 @@
 """Load HF safetensors checkpoints into the port's stacked parameter tree.
 
 The port of ``dynamo_tpu/models/hf_loader.py`` ``load_hf_params`` for the
-Llama tree (llama 2/3, mistral, qwen2, qwen3) and Gemma-2: the same name
-map (Gemma-2's sandwich norms included), torch
-``Linear``'s ``[out, in]`` transposed to ``[in, out]`` and every layer
-stacked on a leading axis (``models/llama.py``'s ``[L, in, out]`` tree),
-tied and untied heads, sharded checkpoints (``model.safetensors.index.json``)
-read one file at a time. Each tensor goes to the device as it is read and
+Llama tree (llama 2/3, mistral, qwen2, qwen3), its MoE variants (mixtral,
+qwen3-MoE) and Gemma-2: the same name map (Gemma-2's sandwich norms, the
+mixtral and qwen3-MoE expert names included), torch ``Linear``'s ``[out,
+in]`` transposed to ``[in, out]``, every layer stacked on a leading axis
+(``models/llama.py``'s ``[L, in, out]`` tree) and every expert on a second
+(``models/moe.py``'s ``[L, E, in, out]``), tied and untied heads, sharded
+checkpoints (``model.safetensors.index.json``) read one file at a time. Each tensor goes to the device as it is read and
 is transposed and cast to the config's dtype there, into its preallocated
 stack, so the host never holds the assembled model.
 
 The files are read without the ``safetensors`` package
 (``SafetensorsFile``): 8 bytes of little-endian header length, a JSON
 header (name -> dtype, shape, byte range), then the raw little-endian
-tensors, BF16, F16 or F32. Other families are refused: the MoE stacks
-(ROADMAP A11) and DeepSeek's latent tree (A6b).
+tensors, BF16, F16 or F32. DeepSeek's latent tree is refused (ROADMAP
+A6b).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import struct
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -91,8 +93,9 @@ def _checkpoint_files(path: str) -> List[str]:
     raise FileNotFoundError(f"no safetensors checkpoint under {path}")
 
 
-# HF tensor name -> (tree path, transpose?); "{i}" is the layer index.
-# The reference's map for the dense Llama tree and Gemma-2.
+# HF tensor name -> (tree path, transpose?); "{i}" is the layer index, "{j}"
+# the expert index (expert tensors stack on a second axis). The reference's
+# map for the Llama tree, its MoE variants and Gemma-2.
 def _name_map(cfg: ModelConfig) -> Dict[str, Any]:
     m = {
         "model.embed_tokens.weight": (("embed",), False),
@@ -103,10 +106,35 @@ def _name_map(cfg: ModelConfig) -> Dict[str, Any]:
         "model.layers.{i}.self_attn.v_proj.weight": (("layers", "wv"), True),
         "model.layers.{i}.self_attn.o_proj.weight": (("layers", "wo"), True),
         "model.layers.{i}.post_attention_layernorm.weight": (("layers", "mlp_norm"), False),
-        "model.layers.{i}.mlp.gate_proj.weight": (("layers", "w_gate"), True),
-        "model.layers.{i}.mlp.up_proj.weight": (("layers", "w_up"), True),
-        "model.layers.{i}.mlp.down_proj.weight": (("layers", "w_down"), True),
     }
+    if cfg.num_experts and cfg.model_type == "mixtral":
+        m.update({
+            "model.layers.{i}.block_sparse_moe.gate.weight":
+                (("layers", "w_router"), True),
+            # mixtral naming: w1 = gate, w3 = up, w2 = down
+            "model.layers.{i}.block_sparse_moe.experts.{j}.w1.weight":
+                (("layers", "w_gate"), True),
+            "model.layers.{i}.block_sparse_moe.experts.{j}.w3.weight":
+                (("layers", "w_up"), True),
+            "model.layers.{i}.block_sparse_moe.experts.{j}.w2.weight":
+                (("layers", "w_down"), True),
+        })
+    elif cfg.num_experts:  # qwen3_moe naming
+        m.update({
+            "model.layers.{i}.mlp.gate.weight": (("layers", "w_router"), True),
+            "model.layers.{i}.mlp.experts.{j}.gate_proj.weight":
+                (("layers", "w_gate"), True),
+            "model.layers.{i}.mlp.experts.{j}.up_proj.weight":
+                (("layers", "w_up"), True),
+            "model.layers.{i}.mlp.experts.{j}.down_proj.weight":
+                (("layers", "w_down"), True),
+        })
+    else:
+        m.update({
+            "model.layers.{i}.mlp.gate_proj.weight": (("layers", "w_gate"), True),
+            "model.layers.{i}.mlp.up_proj.weight": (("layers", "w_up"), True),
+            "model.layers.{i}.mlp.down_proj.weight": (("layers", "w_down"), True),
+        })
     if cfg.model_type.startswith("gemma"):
         # gemma-2 sandwich norms: post_attention_layernorm is the POST
         # norm on the attention residual (not the llama mlp_norm), plus
@@ -131,19 +159,31 @@ def _name_map(cfg: ModelConfig) -> Dict[str, Any]:
     return m
 
 
+_EXPERT_RE = re.compile(r"experts\.(\d+)\.")
+
+
 def _match(name: str, patterns: Dict[str, Any]
-           ) -> Tuple[Any, Optional[int]]:
-    """Returns (spec, layer index or None)."""
+           ) -> Tuple[Any, Optional[int], Optional[int]]:
+    """Returns (spec, layer index or None, expert index or None)."""
     if name in patterns:
-        return patterns[name], None
+        return patterns[name], None, None
     if not name.startswith("model.layers."):
-        return None, None
+        return None, None, None
     idx, _, tail = name[len("model.layers."):].partition(".")
     try:
         layer = int(idx)
     except ValueError:
-        return None, None
-    return patterns.get(f"model.layers.{{i}}.{tail}"), layer
+        return None, None, None
+    key = f"model.layers.{{i}}.{tail}"
+    if key in patterns:
+        return patterns[key], layer, None
+    m = _EXPERT_RE.search(tail)
+    if m:
+        tail2 = tail.replace(f"experts.{m.group(1)}.", "experts.{j}.", 1)
+        spec = patterns.get(f"model.layers.{{i}}.{tail2}")
+        if spec is not None:
+            return spec, layer, int(m.group(1))
+    return None, None, None
 
 
 def _refuse_family(cfg: ModelConfig) -> None:
@@ -152,10 +192,6 @@ def _refuse_family(cfg: ModelConfig) -> None:
             f"model_type {cfg.model_type!r}: DeepSeek's checkpoint loader "
             "(models/deepseek.py load_params) is not ported yet: ROADMAP "
             "A6b")
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r}: MoE expert stacking is not "
-            "ported yet: ROADMAP A11")
 
 
 def load_hf_params(cfg: ModelConfig, path: str,
@@ -168,12 +204,14 @@ def load_hf_params(cfg: ModelConfig, path: str,
     patterns = _name_map(cfg)
     params: Dict[str, Any] = {}
     filled: Dict[tuple, set] = {}
+    E = cfg.num_experts
     for f in _checkpoint_files(path):
         with SafetensorsFile(f) as sf:
             for name in sf.keys():
-                spec, layer = _match(name, patterns)
+                spec, layer, expert = _match(name, patterns)
                 if spec is None or (layer is not None
-                                    and layer >= cfg.num_layers):
+                                    and layer >= cfg.num_layers) \
+                        or (expert is not None and expert >= E):
                     continue
                 tree_path, transpose = spec
                 t = sf.get_tensor(name).to(dev)
@@ -187,13 +225,29 @@ def load_hf_params(cfg: ModelConfig, path: str,
                     node[leaf] = t.to(dtype).contiguous()
                     filled[tree_path] = {None}
                     continue
+                if expert is None:
+                    if leaf not in node:
+                        node[leaf] = torch.empty(
+                            (cfg.num_layers,) + t.shape, dtype=dtype,
+                            device=dev)
+                    node[leaf][layer].copy_(t)
+                    filled.setdefault(tree_path, set()).add(layer)
+                    continue
                 if leaf not in node:
-                    node[leaf] = torch.empty((cfg.num_layers,) + t.shape,
+                    node[leaf] = torch.empty((cfg.num_layers, E) + t.shape,
                                              dtype=dtype, device=dev)
-                node[leaf][layer].copy_(t)
-                filled.setdefault(tree_path, set()).add(layer)
+                node[leaf][layer, expert].copy_(t)
+                filled.setdefault(tree_path, set()).add((layer, expert))
     for tree_path, got in filled.items():
         if None in got:
+            continue
+        if isinstance(next(iter(got)), tuple):
+            missing = {(i, j) for i in range(cfg.num_layers)
+                       for j in range(E)} - got
+            if missing:
+                raise ValueError(
+                    f"checkpoint missing {len(missing)} expert tensors for "
+                    f"{tree_path} (e.g. {sorted(missing)[:3]})")
             continue
         missing = set(range(cfg.num_layers)) - got
         if missing:

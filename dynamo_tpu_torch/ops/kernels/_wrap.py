@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 # query heads per kv head the kernels are instantiated for
-GROUPS = (1, 2, 3, 4, 6, 8)
+GROUPS = (1, 2, 3, 4, 5, 6, 7, 8)
 HEAD_DIM = 128
 
 

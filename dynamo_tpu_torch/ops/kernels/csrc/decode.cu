@@ -365,7 +365,9 @@ extern "C" int paged_decode_launch(const void* q, const void* pages, void* out,
     DYN_CASE(2)
     DYN_CASE(3)
     DYN_CASE(4)
+    DYN_CASE(5)
     DYN_CASE(6)
+    DYN_CASE(7)
     DYN_CASE(8)
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -531,7 +531,9 @@ int dispatch(const void* q, const void* pages, void* out, const void* table,
     DYN_CASE(2)
     DYN_CASE(3)
     DYN_CASE(4)
+    DYN_CASE(5)
     DYN_CASE(6)
+    DYN_CASE(7)
     DYN_CASE(8)
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -162,6 +162,12 @@ class BulkServer:
     def stop(self) -> None:
         self._stopping.set()
         for sk in self._socks:
+            # shutdown first: it wakes the accept thread blocked on sk (a
+            # close alone does not), whose frame holds this server
+            try:
+                sk.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 sk.close()
             except OSError:
@@ -173,6 +179,12 @@ class BulkServer:
             except OSError:
                 pass
         for c in list(self._conns):
+            # likewise for a connection thread blocked in recv on c (a
+            # client pools its connection)
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 c.close()
             except OSError:

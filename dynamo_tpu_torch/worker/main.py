@@ -1,5 +1,5 @@
-"""The port's worker: serve a Llama-tree, Gemma-2 or DeepSeek model on
-``TorchEngine`` behind the runtime.
+"""The port's worker: serve a Llama-tree (dense or MoE), Gemma-2 or
+DeepSeek model on ``TorchEngine`` behind the runtime.
 
 The port of ``dynamo_tpu/worker/main.py`` for the aggregated path: connect
 the distributed runtime, build the model card, build the engine (config
@@ -23,17 +23,18 @@ SIGTERM and ``POST /drain`` freeze in-flight streams for a survivor to
 resume from pulled KV. ``--quantize int8`` and
 ``--speculative-num-tokens`` (with its n-gram and chain-break knobs) go
 into the engine's config as the reference's worker passes them, the disagg
-decode role included.
+decode role included, and ``--moe-backend`` replaces a MoE config's expert
+backend, as the reference's worker does.
 
 Flags whose paths are not ported exit non-zero naming their ROADMAP item:
-parallelism over several devices or nodes (A13), GGUF files (A6b), the MoE
-dispatch backend (A11).
+parallelism over several devices or nodes (A13), GGUF files (A6b).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import functools
 import logging
 import os
@@ -104,7 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe-backend", choices=["dense", "dispatch"],
                    default=None,
                    help="MoE expert compute: dense (every expert, every "
-                        "token); dispatch is not ported (ROADMAP A11)")
+                        "token — decode-batch default) or dispatch "
+                        "(capacity-factor token gather — wide-EP)")
     p.add_argument("--host-cache-bytes", type=int, default=0,
                    help="KVBM G2 host-RAM KV tier budget (0 disables)")
     p.add_argument("--disk-cache-bytes", type=int, default=0,
@@ -200,9 +202,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
     if args.model_path.endswith(".gguf"):
         raise SystemExit(f"{args.model_path}: GGUF models need the GGUF "
                          "reader port (ROADMAP A6b)")
-    if args.moe_backend == "dispatch":
-        raise SystemExit("--moe-backend dispatch: the capacity dispatch "
-                         "backend is not ported yet (ROADMAP A11)")
     if args.attn_impl != "auto":
         raise SystemExit(f"--attn-impl {args.attn_impl}: the port serves "
                          "auto only (its CUDA kernels on the GPU, their "
@@ -227,6 +226,8 @@ def build_engine(args: argparse.Namespace) -> TorchEngine:
     refuse_unported(args)
     device = resolve_device(args.device)
     cfg = ModelConfig.from_pretrained(args.model_path, dtype=args.dtype)
+    if args.moe_backend is not None and cfg.num_experts:
+        cfg = dataclasses.replace(cfg, moe_backend=args.moe_backend)
     engine_cfg = TorchEngineConfig(
         num_pages=args.num_pages, page_size=args.page_size,
         max_num_seqs=args.max_num_seqs,

@@ -48,7 +48,9 @@ padded to the 17 rows ``torch._int_mm`` takes); a verify step's forward
 plain version; a speculating engine accepting drafts fed from the per-step
 streams; a Gemma-2 forward (G = 2, window, softcap) through B1-B3, every
 layer against the plain versions; ``TorchEngine`` refusing head_dim 256,
-a group outside ``GROUPS`` and a float32 model at construction.
+a group outside ``GROUPS`` and a float32 model at construction. For the
+MoE family: a qwen3-MoE engine serving on both expert backends, and the
+dispatch block's graph replay equal to its eager run, drop count included.
 """
 
 import numpy as np
@@ -124,7 +126,7 @@ def _check(fn, plain, args, q_lens, name, **kw):
 
 
 @pytest.mark.parametrize("Hq,Hkv", [(8, 8), (8, 4), (24, 8), (16, 4),
-                                    (24, 4), (32, 4)])
+                                    (24, 4), (32, 4), (40, 8), (28, 4)])
 def test_decode_groups(dev, Hq, Hkv):
     ctxs = [1, 17, 300, 2049]
     args = _case(dev, Hq, Hkv, [1] * 4, ctxs, 1)
@@ -134,7 +136,8 @@ def test_decode_groups(dev, Hq, Hkv):
            [1] * 4, "paged_decode", window=100, softcap=20.0)
 
 
-@pytest.mark.parametrize("Hq,Hkv", [(8, 8), (8, 4), (24, 8), (32, 4)])
+@pytest.mark.parametrize("Hq,Hkv", [(8, 8), (8, 4), (24, 8), (32, 4),
+                                    (40, 8), (28, 4)])
 def test_prefill_and_ragged_groups(dev, Hq, Hkv):
     q_lens, ctxs, S = [77, 1, 130, 5], [77, 400, 1000, 5], 130
     args = _case(dev, Hq, Hkv, q_lens, ctxs, S, seed=3)
@@ -267,7 +270,7 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
     bad_table[3] = args[3].long()
     with pytest.raises(TypeError, match="int32"):
         paged_prefill_attention_stacked(*bad_table)
-    bad_groups = list(_case(dev, 10, 2, [1], [40], 1))
+    bad_groups = list(_case(dev, 16, 1, [1], [40], 1))
     with pytest.raises(ValueError, match="groups"):
         paged_decode_attention_stacked(*bad_groups)
 
@@ -1255,6 +1258,82 @@ def test_gemma_forward_kernels_vs_plain(dev):
         assert max(errs) <= TOL_ULPS, (kernel, errs)
 
 
+def test_moe_engine_serves_both_backends_on_the_card(dev):
+    """A two-layer bf16 qwen3-MoE engine (32 experts, top-4; B1-B3 at 8
+    query heads over 2) on the card, on both expert backends: a fused serve
+    of three greedy requests finishes each with the kernels' launches equal
+    to the engine's attention calls, and the two backends give the same
+    tokens where nothing drops. On the dispatch backend one block at B = 8
+    (six rows on one token, so each decode step overflows the raised
+    capacity of ``ceil(4 * 8 * 4 / 32) = 4``) replays from its graph equal
+    to the eager block bit for bit, its drop count included, and the
+    engine's stats fetch the queued drop counts. (Rows that write one
+    page would race once their drops make them differ: each row has its
+    own pages, six holding copies of one context.)"""
+    import asyncio
+    import dataclasses
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops.kernels import reset_launch_counts
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=8, num_kv_heads=2, head_dim=128,
+                      dtype="bfloat16", model_type="qwen3_moe", qk_norm=True,
+                      num_experts=32, num_experts_per_tok=4,
+                      moe_intermediate_size=64)
+    sizes = dict(num_pages=160, page_size=16, max_num_seqs=8,
+                 max_context=512, max_prefill_chunk=64, min_prefill_bucket=16)
+    base = TorchEngine.random_init(cfg, TorchEngineConfig(**sizes), seed=1,
+                                   device=dev)
+    prompts = [list(range(3, 40)), list(range(100, 110)), [7, 8, 9, 10]]
+    out = {}
+    for backend in ("dense", "dispatch"):
+        eng = TorchEngine(dataclasses.replace(cfg, moe_backend=backend),
+                          base.params, TorchEngineConfig(**sizes), device=dev)
+        reset_launch_counts()
+
+        async def serve():
+            try:
+                return await asyncio.gather(*(
+                    _serve_one(eng, p, f"r{i}", n=12)()
+                    for i, p in enumerate(prompts)))
+            finally:
+                await eng.stop()
+        got = asyncio.run(serve())
+        torch.cuda.synchronize()
+        assert all(len(t) == 12 for t, _f in got)
+        assert {k: LAUNCHES[k] for k in eng.kernel_launches} \
+            == eng.kernel_launches
+        assert eng.kernel_launches["paged_decode"] > 0
+        assert eng.kernel_launches["paged_prefill"] > 0
+        assert eng.multistep_blocks > 0 and eng.graphs.replays > 0
+        out[backend] = ([t for t, _f in got],
+                        eng.stats().worker_stats.moe_dropped_tokens)
+    assert out["dense"][1] == 0
+    if out["dispatch"][1] == 0:
+        assert out["dispatch"][0] == out["dense"][0]
+    # eight rows at ctx 37 on pages of their own (3 each); rows 0-5 hold
+    # copies of one context and feed one token, so they route alike
+    x = _block_inputs(eng, dev, False, ctxs=(37,) * 8)
+    x["tok"][:6] = 11
+    x["table"].zero_()
+    x["table"][:, :3] = 1 + torch.arange(24, device=dev,
+                                         dtype=torch.int32).reshape(8, 3)
+    ctx0 = x["table"][0, :3].long()
+    for r in range(1, 6):
+        eng.pages[:, x["table"][r, :3].long()] = eng.pages[:, ctx0]
+    saved = eng.pages.clone()
+    want = {k: v.clone() for k, v in eng._block(x, BLOCK_W, False).items()}
+    assert int(want["drops"]) > 0
+    eng.pages.copy_(saved)
+    got = eng._run_block(x, BLOCK_W, False)
+    for name, v in want.items():
+        assert torch.equal(got[name], v), name
+    before = eng.moe_dropped_total()
+    eng._queue_drops(got["drops"].clone())
+    assert eng.moe_dropped_total() == before + int(want["drops"])
+
+
 def test_engine_refuses_geometries_the_kernels_do_not_take(dev):
     """On the card ``TorchEngine`` refuses at construction what the GQA
     kernels do not take: head_dim 256 (Gemma-2-2B / 9B, ROADMAP Queue B),
@@ -1268,7 +1347,7 @@ def test_engine_refuses_geometries_the_kernels_do_not_take(dev):
                               max_context=64)
     for kw, match in ((dict(num_heads=4, num_kv_heads=2, head_dim=256,
                             model_type="gemma2"), "head_dim=128, got 256"),
-                      (dict(num_heads=10, num_kv_heads=2, head_dim=128),
+                      (dict(num_heads=16, num_kv_heads=1, head_dim=128),
                        "groups"),
                       (dict(num_heads=4, num_kv_heads=2, head_dim=128,
                             dtype="float32"), "bfloat16")):

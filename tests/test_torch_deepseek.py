@@ -17,8 +17,11 @@ handed over as numpy) and go through both packages in one process:
   experts, a dense first layer and yarn rope, on the oracle (XLA) path and
   through the kernel wrappers against the reference's Pallas path: logits
   within 1e-4 and the cache pages outside the garbage page within 1e-5;
+- the ``dispatch`` expert backend's forward against the reference's,
+  its dropped assignments equal, at an ample and an overflowing capacity;
 - ``TorchEngine(device="cpu")`` against ``JaxEngine(attn_impl="scan")``:
-  identical greedy streams, with a prefix-cache hit and mixed steps;
+  identical greedy streams, with a prefix-cache hit and mixed steps, on
+  both expert backends, with equal drop counts in ``stats()``;
 - ``params_from_jax`` keeps ``router_bias`` float32, and ``init_params``
   builds the reference's tree.
 """
@@ -303,9 +306,10 @@ def test_forward_matches_jax(kernels):
             jparams, jcfg, jnp.asarray(a[0]), jnp.asarray(a[1]), jpages,
             *(jnp.asarray(x) for x in a[2:]), attn_impl=jimpl)
         with torch.no_grad():
-            tl, tpages = tds.forward(
+            tl, tpages, aux = tds.forward(
                 tparams, cfg, *(torch.from_numpy(x) for x in a[:2]), tpages,
                 *(torch.from_numpy(x) for x in a[2:]), attn_impl=timpl)
+        assert int(aux["moe_dropped_assignments"]) == 0     # dense backend
         assert tl.dtype == torch.float32 and tl.shape == (2, cfg.vocab_size)
         err = float(np.max(np.abs(np.asarray(jl) - tl.numpy())))
         assert err <= LOGIT_TOL, (name, err)
@@ -328,11 +332,52 @@ def test_forward_group_limited_gate_and_q_lora():
                            jmake_pages(jcfg, N, PS, dtype=jnp.float32),
                            *(jnp.asarray(x) for x in a[2:]))
     with torch.no_grad():
-        tl, _ = tds.forward(tparams, cfg,
-                            *(torch.from_numpy(x) for x in a[:2]),
-                            tds.make_pages(cfg, N, PS),
-                            *(torch.from_numpy(x) for x in a[2:]))
+        tl, _, _ = tds.forward(tparams, cfg,
+                               *(torch.from_numpy(x) for x in a[:2]),
+                               tds.make_pages(cfg, N, PS),
+                               *(torch.from_numpy(x) for x in a[2:]))
     assert float(np.max(np.abs(np.asarray(jl) - tl.numpy()))) <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("cf", [4.0, 0.3], ids=["ample", "overflow"])
+def test_forward_dispatch_backend_matches_jax(cf):
+    """The dispatch branch (``moe.expert_dispatch`` behind DeepSeek's gate
+    and beside its shared experts) against the reference's, on the oracle
+    path: logits within ``LOGIT_TOL`` and the summed drops equal, on a
+    prefill whose 64-token rows pass ``_SMALL_BATCH_T`` (no capacity raise)
+    and then the decode step. At an ample capacity nothing drops and the
+    logits are the dense backend's; at 0.3 the prefill drops."""
+    jcfg, jparams, cfg, tparams = _both(moe_backend="dispatch",
+                                        moe_capacity_factor=cf)
+    rng = np.random.default_rng(4)
+    S = 40
+    toks = rng.integers(1, cfg.vocab_size, size=(2, S)).astype(np.int32)
+    pos = np.tile(np.arange(S, dtype=np.int32), (2, 1))
+    table = np.zeros((2, 16), np.int32)
+    table[0, :6] = np.arange(1, 7)
+    table[1, :6] = np.arange(7, 13)
+    steps = [(toks, pos, [S, S], [S, S]),
+             (np.array([[3], [4]], np.int32), np.array([[S], [S]], np.int32),
+              [S + 1, S + 1], [1, 1])]
+    jpages = jmake_pages(jcfg, N, PS, dtype=jnp.float32)
+    tpages = tds.make_pages(cfg, N, PS)
+    drops = []
+    for tk, ps_, total, new in steps:
+        a = [np.asarray(x, np.int32) for x in (tk, ps_, table, total, new)]
+        jl, jpages, jaux = jds.forward(
+            jparams, jcfg, jnp.asarray(a[0]), jnp.asarray(a[1]), jpages,
+            *(jnp.asarray(x) for x in a[2:]))
+        with torch.no_grad():
+            tl, tpages, aux = tds.forward(
+                tparams, cfg, *(torch.from_numpy(x) for x in a[:2]), tpages,
+                *(torch.from_numpy(x) for x in a[2:]))
+        assert float(np.max(np.abs(np.asarray(jl) - tl.numpy()))) \
+            <= LOGIT_TOL
+        got = int(aux["moe_dropped_assignments"])
+        assert got == int(jaux["moe_dropped_assignments"])
+        drops.append(got)
+    assert (drops[0] > 0) == (cf < 1.0), drops
+    assert drops[1] == 0          # T = 2 <= _SMALL_BATCH_T: C raised
 
 
 # -- parameters and the family ------------------------------------------------
@@ -380,16 +425,14 @@ def test_init_params_builds_the_reference_tree(variant):
 
 def test_get_family_and_unported_families():
     assert get_family(ModelConfig(**cfg_kw())) is tds
+    assert get_family(ModelConfig(**cfg_kw(moe_backend="dispatch"))) is tds
     assert get_family(ModelConfig.tiny()).__name__.endswith(".llama")
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_family(ModelConfig.tiny(num_experts=4, model_type="mixtral"))
+    assert get_family(ModelConfig.tiny(num_experts=4, model_type="mixtral")
+                      ).__name__.endswith(".moe")
     assert get_family(ModelConfig.tiny(model_type="gemma2")).__name__ \
         .endswith(".gemma")
     with pytest.raises(NotImplementedError, match="only gemma2"):
         get_family(ModelConfig.tiny(model_type="gemma3"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tds._moe_mlp(ModelConfig(**cfg_kw(moe_backend="dispatch")), {},
-                     torch.zeros((1, 1, 64)))
 
 
 # -- the engine ---------------------------------------------------------------
@@ -438,15 +481,28 @@ async def _workload(engine, Req, Samp, Stop):
     return out
 
 
-@pytest.mark.async_timeout(240)
-async def test_engine_greedy_streams_match_jax_engine():
-    jcfg, jparams, cfg, tparams = _both()
+async def _both_engines(backend):
+    """(reference results, port results, JaxEngine, TorchEngine) of
+    ``_workload`` per step on one expert backend; ``dispatch`` at a
+    capacity factor of 0.5 and 64-token chunks, so the steps of more than
+    ``_SMALL_BATCH_T`` padded tokens drop, the port on its oracle attention
+    (pad slots route and take capacity, so their hidden states must be the
+    reference's: the family's own attention, ``attn_impl`` None, computes
+    them as the XLA path does, where the kernels' plain versions zero them;
+    ROADMAP Queue C)."""
+    extra, sizes = {}, SIZES
+    if backend == "dispatch":
+        extra = dict(moe_backend="dispatch", moe_capacity_factor=0.5)
+        sizes = dict(SIZES, max_prefill_chunk=64)
+    jcfg, jparams, cfg, tparams = _both(**extra)
     jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(
         attn_impl="scan", decode_multistep=1, pipeline_decode=False,
-        **SIZES))
+        **sizes))
     teng = TorchEngine(cfg, tparams, TorchEngineConfig(
-        decode_multistep=1, pipeline_decode=False, **SIZES),
+        decode_multistep=1, pipeline_decode=False, **sizes),
                        device="cpu")
+    if backend == "dispatch":
+        teng._attn = dict.fromkeys(teng._attn)
     ref = await _workload(jeng, JRequest, JSampling, JStop)
     got = await _workload(teng, TRequest, TSampling, TStop)
     for rid in MAX_TOKENS:
@@ -455,8 +511,24 @@ async def test_engine_greedy_streams_match_jax_engine():
     assert got["r3"][2] == ref["r3"][2] > 0          # the prefix-cache hit
     assert teng.mixed_steps > 0
     assert set(teng.kernel_launches) == {"mla_decode", "mla_prefill"}
+    return ref, got, jeng, teng
+
+
+@pytest.mark.async_timeout(240)
+async def test_engine_greedy_streams_match_jax_engine():
+    _ref, _got, _jeng, teng = await _both_engines("dense")
     assert all(n > 0 for n in teng.kernel_launches.values()), \
         teng.kernel_launches
+    assert teng.stats().worker_stats.moe_dropped_tokens == 0
+
+
+@pytest.mark.async_timeout(240)
+async def test_engine_dispatch_streams_and_drops_match_jax_engine():
+    """The dispatch backend per step: the same tokens, and the same
+    dropped assignments in ``stats()``."""
+    _ref, _got, jeng, teng = await _both_engines("dispatch")
+    dropped = teng.stats().worker_stats.moe_dropped_tokens
+    assert dropped == jeng.stats().worker_stats.moe_dropped_tokens > 0
 
 
 def test_engine_random_init_serves_deepseek_on_cpu():

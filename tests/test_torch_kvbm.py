@@ -201,6 +201,25 @@ class TestTieredEngine:
         finally:
             await t.stop()
 
+    async def test_stop_ends_the_spill_thread_and_frees_the_engine(
+            self, weights):
+        """After blocks spilled, ``stop()`` lands the pending batches and
+        ends the spill thread (its frame held the tiered engine): a weak
+        reference to the engine's cache dies once the engine is dropped."""
+        import gc
+        import weakref
+        t, eng = tiered(weights)
+        try:
+            await collect(t, make_req(PROMPT, "a"))
+            await collect(t, make_req(PRESSURE, "b", max_tokens=20))
+        finally:
+            await t.stop()
+        assert t.offloaded >= 3 and not t._spill_thread.is_alive()
+        cache = weakref.ref(eng.pages)
+        del t, eng
+        gc.collect()
+        assert cache() is None
+
     async def test_disk_spill_then_onboard(self, weights, tmp_path):
         """A one-block host tier demotes to disk; the prompt onboards back
         from host and disk with the hot cache's tokens."""

@@ -110,6 +110,34 @@ OVERRIDES = {
 # occurrence) before the comparison
 _DDTP_REF = ("    return _kv_bw_book\n\n\n", "def disagg_conf_key(")
 NAMED = {
+    "runtime/bulk.py": [
+        ("""        for sk in self._socks:
+            try:
+                sk.close()""", """        for sk in self._socks:
+            # shutdown first: it wakes the accept thread blocked on sk (a
+            # close alone does not), whose frame holds this server
+            try:
+                sk.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                sk.close()""",
+         "stop() wakes its accept thread, which held the server, its "
+         "handlers and the engine their closures hold"),
+        ("""        for c in list(self._conns):
+            try:
+                c.close()""", """        for c in list(self._conns):
+            # likewise for a connection thread blocked in recv on c (a
+            # client pools its connection)
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                c.close()""",
+         "stop() wakes its connection threads, blocked in recv on a "
+         "client's pooled connection"),
+    ],
     "worker/disagg.py": [
         ("from dynamo_tpu_torch.engine.jax_engine import JaxEngine",
          "from dynamo_tpu_torch.engine.torch_engine import TorchEngine",
@@ -544,7 +572,7 @@ def test_processes_serve_over_http(model_dir, reference_texts, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--tensor-parallel-size", "2"], "A13"),
     (["--data-parallel-size", "2"], "A13"),
-    (["--moe-backend", "dispatch"], "A11"),
+    (["--sequence-parallel-size", "2"], "A13"),
 ])
 def test_worker_refuses_unported_flags(model_dir, flags, item):
     proc = subprocess.run(
@@ -564,6 +592,7 @@ def test_worker_refuses_unported_flags(model_dir, flags, item):
     ["--host-cache-bytes", "1048576", "--disk-cache-bytes", "1048576"],
     ["--disagg", "decode", "--speculative-num-tokens", "3"],
     ["--quantize", "int8", "--speculative-num-tokens", "2"],
+    ["--moe-backend", "dispatch"],
 ])
 def test_worker_accepts_kv_data_plane_flags(flags):
     """The disaggregated roles in both strategies and the KVBM tiers pass

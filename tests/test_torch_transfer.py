@@ -20,6 +20,7 @@ uint16 bits), and the cache's address never changes across an inject.
 """
 
 import asyncio
+import time
 import zlib
 
 import jax
@@ -293,6 +294,40 @@ async def test_bf16_frames_over_both_planes():
     finally:
         await a.stop()
         await b.stop()
+
+
+async def test_stopped_bulk_server_frees_the_engine_it_served():
+    """A bulk server stopped while the client keeps its pooled connection
+    open releases its handlers, and with them the engine they served: its
+    threads blocked in accept and recv wake on the shutdown and exit, so a
+    weak reference to the engine's cache dies once the engine is dropped
+    (they used to keep a card's cache and weights allocated after the
+    pull)."""
+    import gc
+    import weakref
+    from dynamo_tpu_torch.engine.transfer import serve_kv_export_bulk
+    from dynamo_tpu_torch.runtime.bulk import BulkServer, bulk_fetch
+    a = teng()
+    try:
+        hashes = await prefill(a, PROMPT)
+        srv = BulkServer().start()
+        srv.register("kv", serve_kv_export_bulk(a, asyncio.get_running_loop()))
+        got = await asyncio.to_thread(bulk_fetch, srv.address, "kv",
+                                      {"block_hashes": hashes})
+        assert sum(len(m.get("blocks", ())) for m, _raw in got) == 3
+    finally:
+        await a.stop()
+    cache = weakref.ref(a.pages)
+    t0 = time.perf_counter()
+    srv.stop()
+    assert time.perf_counter() - t0 < 2.0
+    del a, srv
+    for _ in range(50):
+        gc.collect()
+        if cache() is None:
+            break
+        await asyncio.sleep(0.05)
+    assert cache() is None
 
 
 def mla_cfg():
