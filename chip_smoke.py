@@ -21,15 +21,20 @@ and suppresses the final result line):
    gathered KV, a yardstick the port never calls) and the least time the
    card needs for the same work (bytes at 3.35 TB/s or operations at 989
    TFLOP/s bf16, whichever is larger; counted from this run's inputs);
-   for the prefill kernel's prefix-hit case, the rows past 1 ulp of the
-   plain version, each against ``plain.online_attention_rows``, which
-   rounds as the kernel does (p against the running max of 64-position
-   chunks, where the plain version uses the row's final max); and the
+   for every B2 and B3 case past 1 ulp of the plain version, the rows
+   past 1 ulp, each against ``plain.online_attention_rows``, which rounds
+   as the kernel does (p against the running max of 64-position chunks,
+   where the plain version uses the row's final max; a split row over its
+   splits' ranges), and such a row more than 1 ulp from that fails; and the
    shapes of speculation and Gemma-2-27B: B1 and B3 at 32 query heads over
    16 (G = 2) with a 4096-position window, softcap 50 and contexts up to
-   8192, B2 as a verify step (B = 32, S = K+1 = 5 at G = 3); and B1-B3 at
+   8192, B2 as a verify step (B = 32, S = K+1 = 5 at G = 3); B1-B3 at
    query groups 5 (40 heads over 8, Qwen2.5-14B's), 7 (28 over 4,
-   Qwen2.5-7B's) and Qwen3-30B-A3B's 8 (32 over 4);
+   Qwen2.5-7B's) and Qwen3-30B-A3B's 8 (32 over 4); and B1-B3 at the
+   widened geometries (``GEOMETRY_CASES``): Gemma-2-9B's head_dim 256
+   (16 over 8, window 4096, softcap 50, contexts up to 8192), Llama-3.2-1B's
+   head_dim 64 (32 over 8), and groups of 12 (96 over 8, Mistral-Large-2's)
+   and 16 (64 over 4, Qwen3-235B-A22B's);
 3. the full-width Llama-3.2-3B forward (random weights from a seed) on a
    prefill, a mixed and a decode step, once through the kernels and once
    through their plain versions: every layer's attention must agree within
@@ -112,6 +117,18 @@ warm, graph vs eager) and per step; then:
    writer, read onto the card by ``models/hf_loader.py``: bit for bit,
    with its time.
 
+After phase 6, each alone on the card: Gemma-2-9B (``ModelConfig.gemma2_9b``,
+head_dim 256, 42 layers, 18.5 GB) and Llama-3.2-1B (``llama32_1b``, head_dim
+64, 16 layers) at full width and depth through phase 3's forward check
+(Gemma's with ``gemma_plan``'s row past the window) and phase 4's serve
+(Gemma's also per step); then the checkpoint loaders: a seeded full-width
+Llama-3.2-1B written as a GGUF file (F16, F32 norms, Q8_0 ``attn_v`` and
+``ffn_down``, Q/K rows in llama.cpp's order) and served through the
+worker's ``.gguf`` route, every tensor on the card bit for bit as written,
+with phase 4's requests; and two full-width DeepSeek-V2-Lite layers (dense,
+then MoE) as safetensors, read by ``models/deepseek.py`` ``load_params``,
+bit for bit, their forward equal to the in-memory tree's.
+
 Then DeepSeek-V2-Lite (MLA + MoE):
 
 2b. each latent (MLA) kernel against its plain version at V2-Lite's
@@ -159,9 +176,11 @@ model's greedy serve (``launches``), sampled serve (``launches_sampled``),
 speculating serve (``launches_spec``) and, for the Llama tree's three,
 phase 5's worker (``launches_serve_entry``), phase 6's workers
 (``launches_disagg``), the int8 serves (``launches_int8``), Gemma-2's
-fused serves (``launches_gemma``) and Qwen3-30B-A3B's serves on both
-expert backends (``launches_moe``); for the latent kernels, DeepSeek's
-serves on the dispatch backend (``launches_dispatch``).
+fused serves (``launches_gemma``), Qwen3-30B-A3B's serves on both
+expert backends (``launches_moe``), Gemma-2-9B's and Llama-3.2-1B's fused
+serves (``launches_gemma9b``, ``launches_llama1b``) and the GGUF model's
+serve (``launches_gguf``); for the latent kernels, DeepSeek's serves on the
+dispatch backend (``launches_dispatch``).
 """
 
 from __future__ import annotations
@@ -281,21 +300,23 @@ def kv_rows_read(q_lens, ctxs, window):
 
 
 def make_case(rng, B, q_lens, ctxs, S, window=None, softcap=None, hq=HQ,
-              hkv=HKV, max_ctx=4096, sm_scale=DH ** -0.5):
+              hkv=HKV, max_ctx=4096, sm_scale=None, dh=DH):
     """A paged cache holding each row's context on distinct random pages in
     every layer (as many layers as ``flush_layers`` asks for timing, at
     least 2; layer 1 is checked), the page table (``max_ctx // ps`` wide,
     unused entries 0) and bf16 queries at the row's last ``q_len``
-    positions; ``hq`` query heads over ``hkv`` kv heads (Llama-3.2-3B's by
-    default)."""
+    positions; ``hq`` query heads over ``hkv`` kv heads of head_dim ``dh``
+    (Llama-3.2-3B's by default), the query scale ``dh ** -0.5`` unless
+    given."""
+    sm_scale = dh ** -0.5 if sm_scale is None else sm_scale
     L = max(2, flush_layers(kv_rows_read(q_lens, ctxs, window)
-                            * hkv * DH * 2 * 2))
+                            * hkv * dh * 2 * 2))
     P = max_ctx // PS
     need = sum(-(-c // PS) for c in ctxs)
     N = need + 1
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    pages = torch.randn((L, N, 2, hkv, PS, DH), generator=g, device=dev,
+    pages = torch.randn((L, N, 2, hkv, PS, dh), generator=g, device=dev,
                         dtype=torch.float32).to(torch.bfloat16)
     # the garbage page holds NaN: a kernel that multiplies a masked weight
     # by it instead of selecting would leak NaN into the output
@@ -309,9 +330,9 @@ def make_case(rng, B, q_lens, ctxs, S, window=None, softcap=None, hq=HQ,
         table[i, :n] = perm[off:off + n]
         off += n
         positions[i, :q_lens[i]] = np.arange(ctxs[i] - q_lens[i], ctxs[i])
-    q = torch.randn((B, S, hq, DH), generator=g, device=dev,
+    q = torch.randn((B, S, hq, dh), generator=g, device=dev,
                     dtype=torch.float32).to(torch.bfloat16)
-    return dict(q=q, pages=pages, layers=L,
+    return dict(q=q, pages=pages, layers=L, dh=dh,
                 table=torch.from_numpy(table).to(dev),
                 positions=torch.from_numpy(positions).to(dev),
                 total=torch.tensor(ctxs, dtype=torch.int32, device=dev),
@@ -323,7 +344,9 @@ def work_of(case, S):
     """(bytes, operations) the function needs on these inputs: each live
     K/V row read once, the real query slots read once, the whole output
     written once, the table entries and lengths read; 4*Dh operations per
-    (query head, visible kv position)."""
+    (query head, visible kv position). A group of more than 8 query heads
+    takes B1 one block per sub-group, each streaming the kv head's pages:
+    the bound still counts one read."""
     B = len(case["ctxs"])
     win = case["window"] or 0
     kv_rows = kv_rows_read(case["q_lens"], case["ctxs"], win)
@@ -332,12 +355,12 @@ def work_of(case, S):
         for p in range(ctx - ql, ctx):
             first = max(p - win + 1, 0) if win else 0
             pairs += p + 1 - first
-    hq, hkv = case["hq"], case["hkv"]
-    kv_bytes = kv_rows * hkv * DH * 2 * 2
-    q_bytes = sum(case["q_lens"]) * hq * DH * 2   # real query slots only
-    out_bytes = B * S * hq * DH * 2               # pad slots are written zero
+    hq, hkv, dh = case["hq"], case["hkv"], case["dh"]
+    kv_bytes = kv_rows * hkv * dh * 2 * 2
+    q_bytes = sum(case["q_lens"]) * hq * dh * 2   # real query slots only
+    out_bytes = B * S * hq * dh * 2               # pad slots are written zero
     meta = B * (-(-max(case["ctxs"]) // PS)) * 4 + B * 8
-    return kv_bytes + q_bytes + out_bytes + meta, 4 * DH * hq * pairs
+    return kv_bytes + q_bytes + out_bytes + meta, 4 * dh * hq * pairs
 
 
 def sdpa_inputs(case, S, decode: bool, layer: int):
@@ -347,9 +370,9 @@ def sdpa_inputs(case, S, decode: bool, layer: int):
     T = -(-max(case["ctxs"]) // PS) * PS
     tbl = case["table"][:, :T // PS].long()
     kv = case["pages"][layer][tbl]                  # [B, n, 2, Hkv, ps, Dh]
-    hkv = case["hkv"]
-    k = kv[:, :, 0].permute(0, 2, 1, 3, 4).reshape(B, hkv, T, DH)
-    v = kv[:, :, 1].permute(0, 2, 1, 3, 4).reshape(B, hkv, T, DH)
+    hkv, dh = case["hkv"], case["dh"]
+    k = kv[:, :, 0].permute(0, 2, 1, 3, 4).reshape(B, hkv, T, dh)
+    v = kv[:, :, 1].permute(0, 2, 1, 3, 4).reshape(B, hkv, T, dh)
     k = torch.nan_to_num(k)
     v = torch.nan_to_num(v)
     q = case["q"][:, :1] if decode else case["q"]
@@ -490,6 +513,25 @@ def kernel_cases(rng):
         yield ("ragged_mixed", f"{tag} B=8 S=512 2 chunks + 6 decode",
                make_case(rng, 8, [512, 512, 1, 1, 1, 1, 1, 1], ctxs, S,
                          **heads), S, False)
+    # the head dims and groups of the geometry slice (after the cases
+    # above): Gemma-2-9B's attention (16 heads over 8 of head_dim 256, the
+    # sliding layers' window 4096, softcap 50, query scale 256^-0.5,
+    # contexts up to 8192), Llama-3.2-1B's (32 over 8 of head_dim 64), and
+    # groups of 12 (Mistral-Large-2's 96 over 8) and 16 (Qwen3-235B-A22B's
+    # 64 over 4), which B1 runs as sub-groups of 6 and 8 heads
+    for tag, heads in GEOMETRY_CASES:
+        top = heads.get("max_ctx", 4096)
+        ctxs = [top, 1] + list(rng.integers(2, top + 1, size=30))
+        yield ("paged_decode", f"{tag} B=32 ctx<={top}",
+               make_case(rng, 32, [1] * 32, ctxs, 1, **heads), 1, True)
+        yield ("paged_prefill", f"{tag} B=4 S=512 prefix hits",
+               make_case(rng, 4, [512, 512, 512, 300],
+                         [512, 1024, top - 1096, 1836], S, **heads), S,
+               False)
+        ctxs = [top - 2192, 512] + list(rng.integers(64, top + 1, size=6))
+        yield ("ragged_mixed", f"{tag} B=8 S=512 2 chunks + 6 decode",
+               make_case(rng, 8, [512, 512, 1, 1, 1, 1, 1, 1], ctxs, S,
+                         **heads), S, False)
 
 
 PREFILL_PREFIX_LABEL = "B=4 S=512 prefix hits"
@@ -502,6 +544,13 @@ GEMMA_MIXED_LABEL = "B=8 G=2 window=4096 softcap=50"
 # (label, query heads, kv heads) of the MoE slice's group cases
 GROUP_CASES = (("G=5 (40/8)", 40, 8), ("G=7 (28/4)", 28, 4),
                ("G=8 Hkv=4 (32/4, Qwen3-30B-A3B)", 32, 4))
+# (label, make_case's head arguments) of the geometry slice's cases
+GEOMETRY_CASES = (
+    ("Dh=256 G=2 (16/8, Gemma-2-9B) window=4096 softcap=50",
+     dict(hq=16, hkv=8, dh=256, window=4096, softcap=50.0, max_ctx=8192)),
+    ("Dh=64 G=4 (32/8, Llama-3.2-1B)", dict(hq=32, hkv=8, dh=64)),
+    ("G=12 (96/8, Mistral-Large-2)", dict(hq=96, hkv=8)),
+    ("G=16 (64/4, Qwen3-235B-A22B)", dict(hq=64, hkv=4)))
 
 
 def phase_kernels(results):
@@ -520,51 +569,90 @@ def phase_kernels(results):
     for name, label, case, S, decode in kernel_cases(
             np.random.default_rng(0)):
         check_kernel(name, *impls[name], case, S, decode, results, label)
-        if label == PREFILL_PREFIX_LABEL:
-            prefill_rows_report(case, S)
+        if name != "paged_decode" and results[name][-1]["max_err_ulps"] > 1:
+            _worst, flagged = prefill_rows_report(case, S, name=name,
+                                                  label=label)
+            bad = [f for f in flagged if f[5] > 1.0]
+            if bad:
+                raise AssertionError(
+                    f"{name} {label}: {len(bad)} rows past 1 ulp from the "
+                    f"plain version are past 1 ulp from the chunked "
+                    f"rounding too, first {bad[0]}")
         del case
 
 
-def chunked_rows(case, S, layer, b, h):
+def chunked_rows(case, layer, b, h, spans=None):
     """``online_attention_rows`` (the prefill kernel's own chunked
-    rounding) for every real (query slot, head) row of sequence ``b`` and
-    kv head ``h``: bf16 [q_len, G, Dh]."""
+    rounding, with the case's window and softcap, over the kv ranges
+    ``spans`` of a split row) for every real (query slot, head) row of
+    sequence ``b`` and kv head ``h``: bf16 [q_len, G, Dh]."""
     from dynamo_tpu_torch.ops.kernels.plain import online_attention_rows
-    G = HQ // HKV
+    hq, hkv, dh = case["hq"], case["hkv"], case["dh"]
+    G = hq // hkv
     ctx, ql = case["ctxs"][b], case["q_lens"][b]
     n = -(-ctx // PS)
     kv = case["pages"][layer][case["table"][b, :n].long()]  # [n,2,Hkv,ps,Dh]
-    k = kv[:, 0, h].reshape(n * PS, DH)
-    v = kv[:, 1, h].reshape(n * PS, DH)
-    qs = (case["q"][b, :ql, h * G:(h + 1) * G] * case["sm_scale"]).to(
-        torch.bfloat16).reshape(ql * G, DH)
+    k = kv[:, 0, h].reshape(n * PS, dh)
+    v = kv[:, 1, h].reshape(n * PS, dh)
+    qs = (case["q"][b, :ql, h * G:(h + 1) * G].float() * case["sm_scale"]
+          ).to(torch.bfloat16).reshape(ql * G, dh)
     qpos = (ctx - ql + torch.arange(ql, device="cuda")).repeat_interleave(G)
-    return online_attention_rows(qs, k, v, qpos, ctx).reshape(ql, G, DH)
+    return online_attention_rows(
+        qs, k, v, qpos, ctx, window=case["window"] or 0,
+        softcap=case["softcap"] or 0.0, spans=spans).reshape(ql, G, dh)
 
 
-def prefill_rows_report(case, S, layer=1):
-    """Phase 2's B=4 S=512 prefix-hit case, row by row: the (query slot,
-    head) rows where the prefill kernel is more than 1 ulp from its plain
-    version, and the kernel and the plain version each against
-    ``online_attention_rows``, which rounds p against the running max of
+def split_spans(case, S, b):
+    """The kv ranges of the ragged kernel's split blocks for a short row
+    (``ragged.ragged_splits`` on this card), or None for a row of query
+    tiles."""
+    from dynamo_tpu_torch.ops.kernels.decode import sm_count
+    from dynamo_tpu_torch.ops.kernels.ragged import (SPLIT_Q_CAP,
+                                                     ragged_splits)
+    if not 1 <= case["q_lens"][b] <= SPLIT_Q_CAP:
+        return None
+    P = case["table"].shape[1]
+    _n_work, splits, per = ragged_splits(
+        len(case["ctxs"]), S, case["hkv"], case["hq"] // case["hkv"], P, PS,
+        sm_count(0))
+    end = min(case["ctxs"][b], P * PS)
+    return [(r * per * PS, min(end, (r + 1) * per * PS))
+            for r in range(splits) if r * per * PS < end]
+
+
+def prefill_rows_report(case, S, layer=1, name="paged_prefill", label=None):
+    """A B2 (``paged_prefill``) or B3 (``ragged_mixed``) case, row by row:
+    the (query slot, head) rows where the kernel is more than 1 ulp from
+    its plain version, and the kernel and the plain version each against
+    ``chunked_rows``, which rounds p against the running max of
     64-position chunks as the kernel (and the TPU kernel, per its own
     chunk) does, where the plain version rounds against the row's final
-    max. Reports; the kernel check above decides."""
+    max; a split row of B3 takes its splits' ranges. Phase 2 runs it on
+    every B2/B3 case past 1 ulp and fails if a row past 1 ulp from the
+    plain version is more than 1 ulp from the chunked rounding: such a row
+    is the kernel's fault, not the rounding's."""
     from dynamo_tpu_torch.ops.kernels.plain import row_ulp_error
     from dynamo_tpu_torch.ops.kernels.prefill import (
         paged_prefill_attention_stacked, paged_prefill_plain)
+    from dynamo_tpu_torch.ops.kernels.ragged import (
+        ragged_mixed_attention_stacked)
+    fn = paged_prefill_attention_stacked if name == "paged_prefill" else \
+        ragged_mixed_attention_stacked
     args = (case["q"], case["pages"], layer, case["table"],
             case["positions"], case["total"], case["sm_scale"])
-    out = paged_prefill_attention_stacked(*args)
-    ref = paged_prefill_plain(*args)
-    G = HQ // HKV
+    kw = dict(window=case["window"], softcap=case["softcap"])
+    out = fn(*args, **kw)
+    ref = paged_prefill_plain(*args, **kw)
+    hkv = case["hkv"]
+    G = case["hq"] // hkv
     worst = {"kernel_vs_plain": 0.0, "kernel_vs_chunked": 0.0,
              "plain_vs_chunked": 0.0}
     flagged = []
     for b, ql in enumerate(case["q_lens"]):
-        for h in range(HKV):
+        spans = split_spans(case, S, b) if name == "ragged_mixed" else None
+        for h in range(hkv):
             cols = slice(h * G, (h + 1) * G)
-            mir = chunked_rows(case, S, layer, b, h)
+            mir = chunked_rows(case, layer, b, h, spans)
             kp = row_ulp_error(out[b, :ql, cols], ref[b, :ql, cols])
             km = row_ulp_error(out[b, :ql, cols], mir)
             pm = row_ulp_error(ref[b, :ql, cols], mir)
@@ -576,13 +664,14 @@ def prefill_rows_report(case, S, layer=1):
                                 case["ctxs"][b] - ql + slot,
                                 float(kp[slot, g]), float(km[slot, g]),
                                 float(pm[slot, g])))
-    log(f"[kernel] paged_prefill B=4 S=512 rows: {len(flagged)} of "
-        f"{sum(case['q_lens']) * HQ} past 1 ulp from the plain version; "
-        f"max ulps kernel vs plain {worst['kernel_vs_plain']:.3f}, kernel "
-        f"vs chunked rounding {worst['kernel_vs_chunked']:.3f}, plain vs "
-        f"chunked rounding {worst['plain_vs_chunked']:.3f}")
+    tag = f"{name} {label or PREFILL_PREFIX_LABEL}"
+    log(f"[kernel] {tag} rows: {len(flagged)} of "
+        f"{sum(case['q_lens']) * case['hq']} past 1 ulp from the plain "
+        f"version; max ulps kernel vs plain {worst['kernel_vs_plain']:.3f}, "
+        f"kernel vs chunked rounding {worst['kernel_vs_chunked']:.3f}, "
+        f"plain vs chunked rounding {worst['plain_vs_chunked']:.3f}")
     for b, slot, head, pos, kp, km, pm in flagged[:16]:
-        log(f"[kernel] paged_prefill row b={b} slot={slot} head={head} "
+        log(f"[kernel] {name} row b={b} slot={slot} head={head} "
             f"pos={pos} ctx={case['ctxs'][b]}: kernel vs plain {kp:.3f}, "
             f"kernel vs chunked {km:.3f}, plain vs chunked {pm:.3f} ulps")
     return worst, flagged
@@ -2449,6 +2538,332 @@ def phase_loader() -> None:
         os.remove(path)
 
 
+# -- the GGUF and DeepSeek checkpoint loaders ----------------------------------
+
+GGML_F32, GGML_F16, GGML_Q8_0 = 0, 1, 8
+GGUF_ALIGN = 32
+
+
+def _gguf_str(text: str) -> bytes:
+    b = text.encode()
+    return struct.pack("<Q", len(b)) + b
+
+
+def _gguf_nbytes(shape, gtype: int) -> int:
+    n = int(np.prod(shape))
+    return {GGML_F32: 4 * n, GGML_F16: 2 * n, GGML_Q8_0: n // 32 * 34}[gtype]
+
+
+def write_gguf(path: str, metadata, tensors) -> int:
+    """A GGUF v3 file (the public layout the readers of both packages
+    parse): ``metadata`` is ``[(key, value)]`` with a str, an int (u32) or
+    a float (f32) value; ``tensors`` is ``[(name, shape, ggml type,
+    make)]``, ``make()`` giving the tensor's bytes when it is written, one
+    tensor at a time, so the host holds one tensor, not the model. Shapes
+    are row-major (numpy's order; GGUF stores them innermost first).
+    Returns the file's size in bytes."""
+    head = bytearray(b"GGUF" + struct.pack("<IQQ", 3, len(tensors),
+                                           len(metadata)))
+    for key, value in metadata:
+        head += _gguf_str(key)
+        if isinstance(value, str):
+            head += struct.pack("<I", 8) + _gguf_str(value)
+        elif isinstance(value, float):
+            head += struct.pack("<If", 6, value)
+        else:
+            head += struct.pack("<II", 4, value)
+    offset = 0
+    for name, shape, gtype, _make in tensors:
+        head += _gguf_str(name) + struct.pack("<I", len(shape))
+        for d in reversed(shape):
+            head += struct.pack("<Q", d)
+        head += struct.pack("<IQ", gtype, offset)
+        n = _gguf_nbytes(shape, gtype)
+        offset += n + (-n % GGUF_ALIGN)
+    with open(path, "wb") as f:
+        f.write(bytes(head) + b"\0" * (-len(head) % GGUF_ALIGN))
+        for name, shape, gtype, make in tensors:
+            raw = make()
+            if len(raw) != _gguf_nbytes(shape, gtype):
+                raise ValueError(f"{name}: {len(raw)} bytes for {shape} of "
+                                 f"ggml type {gtype}")
+            f.write(raw)
+            f.write(b"\0" * (-len(raw) % GGUF_ALIGN))
+        return f.tell()
+
+
+def q8_0_parts(x: torch.Tensor):
+    """ggml's Q8_0 of ``x`` (row-major, blocks of 32): per block the scale
+    ``d = max|x| / 127`` stored as f16 and ``q = round(x / d)`` as int8.
+    Returns (d f16 [n], q int8 [n, 32]) on x's device."""
+    b = x.float().reshape(-1, 32)
+    d = b.abs().amax(dim=1) / 127.0
+    q = torch.where(d[:, None] > 0, torch.round(b / d[:, None]),
+                    torch.zeros((), device=b.device))
+    return d.to(torch.float16), q.clamp(-127, 127).to(torch.int8)
+
+
+def q8_0_blocks(x: torch.Tensor) -> bytes:
+    """``x`` as ggml Q8_0 blocks (34 bytes: the f16 scale, 32 int8)."""
+    d, q = q8_0_parts(x)
+    raw = torch.cat([d.view(torch.uint8).reshape(-1, 2),
+                     q.view(torch.uint8)], dim=1)
+    return raw.cpu().numpy().tobytes()
+
+
+def permute_qk(w: torch.Tensor, n_head: int) -> torch.Tensor:
+    """llama.cpp's converter: a Q/K weight's ``[out, in]`` rows, per head,
+    from rotate-half into interleaved-rope order (the GGUF reader undoes
+    it)."""
+    out_dim, in_dim = w.shape
+    return (w.reshape(n_head, 2, out_dim // n_head // 2, in_dim)
+            .transpose(1, 2).reshape(out_dim, in_dim))
+
+
+# Llama-3.2-1B's GGUF: ggml type per weight family (the rest F16, norms F32)
+GGUF_Q8_0 = ("attn_v", "ffn_down")
+GGUF_LAYER = {"attn_norm": "attn_norm", "attn_q": "wq", "attn_k": "wk",
+              "attn_v": "wv", "attn_output": "wo", "ffn_norm": "mlp_norm",
+              "ffn_gate": "w_gate", "ffn_up": "w_up", "ffn_down": "w_down"}
+
+
+def phase_gguf():
+    """A seeded full-width, full-depth Llama-3.2-1B (16 layers, head_dim
+    64, tied embedding) written as a GGUF file the way llama.cpp's
+    converter writes one (Q/K rows permuted into interleaved-rope order;
+    F16, norms F32, ``attn_v`` and ``ffn_down`` Q8_0), then served through
+    the worker's ``.gguf`` route (``worker.main.build_engine``: the config
+    from the file's metadata, ``models/gguf.py`` ``load_gguf_params``):
+    every leaf on the card equal to what was written, bit for bit (F16 as
+    its bf16 rounding, Q8_0 as its blocks dequantize), with the read's
+    GB/s; then phase 4's ten greedy requests on that engine (every kernel
+    launched, every request finished). Returns the kernels' launches over
+    the serve."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from dynamo_tpu_torch.worker.main import build_engine, build_parser
+    cfg = ModelConfig.llama32_1b()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tree = llama.init_params(cfg, gen, device="cuda")
+    for leaf in ("attn_norm", "mlp_norm"):
+        tree["layers"][leaf] = (1.0 + 0.1 * torch.randn(
+            tree["layers"][leaf].shape, generator=gen, device="cuda")
+        ).to(torch.bfloat16)
+    H, L = cfg.hidden_size, cfg.num_layers
+    md = [("general.architecture", "llama"),
+          ("general.alignment", GGUF_ALIGN),
+          ("llama.block_count", L), ("llama.embedding_length", H),
+          ("llama.feed_forward_length", cfg.intermediate_size),
+          ("llama.attention.head_count", cfg.num_heads),
+          ("llama.attention.head_count_kv", cfg.num_kv_heads),
+          ("llama.attention.key_length", cfg.head_dim),
+          ("llama.rope.freq_base", float(cfg.rope_theta)),
+          ("llama.attention.layer_norm_rms_epsilon", cfg.rms_norm_eps),
+          ("llama.context_length", cfg.max_position_embeddings),
+          ("llama.vocab_size", cfg.vocab_size),
+          ("tokenizer.ggml.bos_token_id", 128000),
+          ("tokenizer.ggml.eos_token_id", 128001)]
+    want = {}
+
+    def matrix(leaf, l, gguf_name):
+        """[out, in] as the file holds it; records the loaded leaf due."""
+        w = tree["layers"][leaf][l].t()
+        heads = {"attn_q": cfg.num_heads, "attn_k": cfg.num_kv_heads}
+        if gguf_name in GGUF_Q8_0:
+            d, q = q8_0_parts(w)
+            due = (d.float()[:, None] * q.float()).reshape(w.shape)
+        else:
+            due = w.to(torch.float16).float()
+        want[("layers", leaf, l)] = due.t().to(torch.bfloat16)
+        return permute_qk(w, heads[gguf_name]) if gguf_name in heads else w
+
+    def emit(x, gtype):
+        if gtype == GGML_Q8_0:
+            return lambda: q8_0_blocks(x())
+        dt = torch.float32 if gtype == GGML_F32 else torch.float16
+        return lambda: x().to(dt).contiguous().cpu().numpy().tobytes()
+
+    tensors = [("token_embd.weight", (cfg.vocab_size, H), GGML_F16,
+                emit(lambda: tree["embed"], GGML_F16)),
+               ("output_norm.weight", (H,), GGML_F32,
+                emit(lambda: tree["final_norm"], GGML_F32))]
+    want[("embed",)] = tree["embed"].to(torch.float16).to(torch.bfloat16)
+    want[("final_norm",)] = tree["final_norm"]
+    for l in range(L):
+        for name, leaf in GGUF_LAYER.items():
+            full = f"blk.{l}.{name}.weight"
+            shape = tuple(tree["layers"][leaf][l].shape)
+            if len(shape) == 1:
+                want[("layers", leaf, l)] = tree["layers"][leaf][l]
+                tensors.append((full, shape, GGML_F32, emit(
+                    lambda leaf=leaf, l=l: tree["layers"][leaf][l],
+                    GGML_F32)))
+                continue
+            gtype = GGML_Q8_0 if name in GGUF_Q8_0 else GGML_F16
+            tensors.append((full, shape[::-1], gtype, emit(
+                lambda leaf=leaf, l=l, name=name: matrix(leaf, l, name),
+                gtype)))
+    work = os.path.join(ROOT, "build", "gguf_check")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "Llama-3.2-1B-F16-Q8_0.gguf")
+    t0 = time.perf_counter()
+    size = write_gguf(path, md, tensors)
+    del tree, tensors
+    gc.collect()
+    log(f"[gguf] wrote {path.rsplit(os.sep, 1)[-1]}: {size / 1e9:.3f} GB "
+        f"in {time.perf_counter() - t0:.1f} s")
+    args = build_parser().parse_args(
+        ["--model-path", path, "--device", "cuda", "--dtype", "bfloat16",
+         "--num-pages", str(SERVE_SIZES["num_pages"]),
+         "--page-size", str(PS), "--max-num-seqs", "32",
+         "--max-prefill-chunk", "512", "--max-context", "4096"])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = build_engine(args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        os.remove(path)
+    got = engine.params
+    n = 0
+    for key, w in want.items():
+        leaf = got[key[0]] if len(key) == 1 else got[key[0]][key[1]][key[2]]
+        if leaf.dtype != torch.bfloat16 or leaf.shape != w.shape or \
+                not torch.equal(leaf.view(torch.int16), w.view(torch.int16)):
+            raise AssertionError(f"loaded {key} differs from what the GGUF "
+                                 f"file holds")
+        n += 1
+    mc = engine.model_cfg
+    log(f"[gguf] the worker's .gguf route built the engine in {dt:.2f} s "
+        f"({size / dt / 1e9:.2f} GB/s from the file onto the card, config "
+        f"from its metadata: L={mc.num_layers} Hq={mc.num_heads} "
+        f"Hkv={mc.num_kv_heads} Dh={mc.head_dim} tied="
+        f"{mc.tie_word_embeddings}); {n} tensors bit for bit as written")
+    del want
+    reset_launch_counts()
+    served = run_serve(engine, (COLD_SEED,))
+    torch.cuda.synchronize()
+    counts = {k: LAUNCHES[k] for k in engine.kernel_launches}
+    stats, wall, info = served[0]
+    serve_report(stats, wall, info, "gguf")
+    check_stats(stats, mc)
+    log(f"[gguf] launches={counts}")
+    for k, c in counts.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {k} never launched serving the "
+                                 f"GGUF model")
+    del engine
+    return counts
+
+
+def phase_deepseek_loader():
+    """Two full-width DeepSeek-V2-Lite layers (layer 0 dense, layer 1 MoE
+    with its 64 routed and 2 shared experts), the embedding and the head,
+    random from a seed on the card, written as HF safetensors by this
+    script's writer and read onto the card by ``load_hf_params`` ->
+    ``models/deepseek.py`` ``load_params``: every leaf equal to the tree
+    made in memory, bit for bit, with the read's GB/s; and the forward of
+    a 512-token prompt through the latent kernels on the loaded tree
+    equal, logits bit for bit, to the forward on the tree in memory."""
+    from dynamo_tpu_torch.engine.torch_engine import MLA_ATTENTION
+    from dynamo_tpu_torch.models import deepseek
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.models.hf_loader import load_hf_params
+    cfg = ModelConfig.deepseek_v2_lite(num_layers=2)
+    K = cfg.first_k_dense_replace
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tree = deepseek.init_params(cfg, gen, device="cuda")
+    for stack in ("dense_layers", "moe_layers"):
+        for leaf in deepseek._ONES:
+            if leaf in tree[stack]:
+                tree[stack][leaf] = (1.0 + 0.1 * torch.randn(
+                    tree[stack][leaf].shape, generator=gen,
+                    device="cuda")).to(torch.bfloat16)
+    names = dict(deepseek._ATTN_NAMES, **{"self_attn.q_proj.weight":
+                                          ("wq", True)})
+    tensors = {"model.embed_tokens.weight": tree["embed"].cpu(),
+               "model.norm.weight": tree["final_norm"].cpu(),
+               "lm_head.weight": tree["lm_head"].t().contiguous().cpu()}
+    for l in range(cfg.num_layers):
+        stack = "moe_layers" if l >= K else "dense_layers"
+        row = l - K if l >= K else l
+        mlp = deepseek._MOE_MLP_NAMES if l >= K else \
+            deepseek._DENSE_MLP_NAMES
+        for tail, (leaf, tr) in dict(names, **mlp).items():
+            if leaf not in tree[stack]:
+                continue
+            t = tree[stack][leaf][row]
+            tensors[f"model.layers.{l}.{tail}"] = (
+                t.t() if tr else t).contiguous().cpu()
+        if l >= K:
+            for wname, leaf in deepseek._EXPERT_NAMES.items():
+                for j in range(cfg.num_experts):
+                    tensors[f"model.layers.{l}.mlp.experts.{j}.{wname}"] = \
+                        tree[stack][leaf][row, j].t().contiguous().cpu()
+    work = os.path.join(ROOT, "build", "deepseek_loader_check")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "model.safetensors")
+    t0 = time.perf_counter()
+    size = write_safetensors(path, tensors)
+    log(f"[deepseek-loader] wrote {len(tensors)} tensors, {size / 1e9:.3f} "
+        f"GB in {time.perf_counter() - t0:.1f} s")
+    del tensors
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = load_hf_params(cfg, work, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        os.remove(path)
+
+    def leaves(t, prefix=()):
+        for k, v in sorted(t.items()):
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + (k,))
+            else:
+                yield prefix + (k,), v
+    want, have = dict(leaves(tree)), dict(leaves(got))
+    if sorted(want) != sorted(have):
+        raise AssertionError(f"loaded tree {sorted(have)} is not the tree "
+                             f"written {sorted(want)}")
+    for key, w in want.items():
+        g = have[key]
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(
+                g.view(torch.int16) if g.dtype == torch.bfloat16 else g,
+                w.view(torch.int16) if w.dtype == torch.bfloat16 else w):
+            raise AssertionError(f"loaded {key} differs from the tensor "
+                                 f"written")
+    log(f"[deepseek-loader] read {size / 1e9:.3f} GB onto the card in "
+        f"{dt:.2f} s ({size / dt / 1e9:.2f} GB/s); {len(want)} leaves bit "
+        f"for bit as made in memory")
+    S = 512
+    rng = np.random.default_rng(14)
+    dev = "cuda"
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S)).astype(
+        np.int32)).to(dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    table = torch.arange(1, S // PS + 1, dtype=torch.int32, device=dev)[None]
+    lens = torch.tensor([S], dtype=torch.int32, device=dev)
+    logits = []
+    with torch.no_grad():
+        for params in (tree, got):
+            pages = deepseek.make_pages(cfg, S // PS + 1, PS, device=dev)
+            logits.append(deepseek.forward(
+                params, cfg, toks, pos, pages, table, lens, lens,
+                attn_impl=MLA_ATTENTION["mla_prefill"])[0])
+    torch.cuda.synchronize()
+    same = torch.equal(logits[0], logits[1])
+    log(f"[deepseek-loader] forward of a {S}-token prompt through B5 on the "
+        f"loaded tree vs the tree in memory: logits equal={same}, finite="
+        f"{bool(torch.isfinite(logits[1]).all())}")
+    if not same or not bool(torch.isfinite(logits[1]).all()):
+        raise AssertionError("the loaded tree's forward differs from the "
+                             "forward of the tree made in memory")
+
+
 # -- phase 6: the KV data plane ------------------------------------------------
 
 # 6(a): four prompts of 1024 tokens prefilled on one engine (256 blocks of
@@ -3592,41 +4007,43 @@ def phase_spec_mla(params, cfg, per_step):
 GEMMA_SIZES = dict(SERVE_SIZES, num_pages=1280, max_context=8192)
 
 
-def gemma_phases(failures, profile):
-    """Gemma-2-27B at full width and depth (46 layers) in bf16, random
-    weights made on the card in bf16 a slab at a time: ``gemma_plan``'s
-    forward check (a prompt past the 4096-position window), phase 4's
-    greedy serve fused (cold and warm, graph vs eager) and per step.
-    Returns the kernels' launches over the fused serves."""
-    from dynamo_tpu_torch.models import gemma
-    from dynamo_tpu_torch.models.config import ModelConfig
-    cfg = ModelConfig.gemma2_27b()
+def served_model_phases(name, cfg, failures, profile, plan=gemma_plan,
+                        sizes=GEMMA_SIZES, per_step=True):
+    """A model at full width and depth in bf16, random weights made on the
+    card by its family's ``init_params`` (Gemma-2's a slab at a time):
+    ``plan``'s forward check (``gemma_plan``: a prompt past the sliding
+    window), phase 4's greedy serve fused (cold and warm, graph vs eager)
+    at ``sizes`` and, with ``per_step``, per step. Returns the kernels'
+    launches over the fused serves."""
+    from dynamo_tpu_torch.models import get_family
     gc.collect()
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
     t1 = time.perf_counter()
-    params = gemma.init_params(cfg, gen, device="cuda")
+    params = get_family(cfg).init_params(cfg, gen, device="cuda")
     torch.cuda.synchronize()
-    log(f"[model] gemma2_27b L={cfg.num_layers} H={cfg.hidden_size} "
+    log(f"[model] {name} L={cfg.num_layers} H={cfg.hidden_size} "
+        f"Hq={cfg.num_heads} Hkv={cfg.num_kv_heads} Dh={cfg.head_dim} "
         f"V={cfg.vocab_size} random weights in "
-        f"{time.perf_counter() - t1:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card")
+        f"{time.perf_counter() - t1:.1f} s, {tree_bytes(params) / 1e9:.2f} "
+        f"GB; {torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the "
+        f"card")
     counts = None
     with torch.no_grad():
-        run_phase("forward gemma2_27b",
+        run_phase(f"forward {name}",
                   lambda: phase_forward(params, cfg, llama_impls(), True,
-                                        plan=gemma_plan), failures)
-        served = run_phase("engine gemma2_27b",
-                           lambda: phase_engine(params, cfg, GEMMA_SIZES),
+                                        plan=plan), failures)
+        served = run_phase(f"engine {name}",
+                           lambda: phase_engine(params, cfg, sizes),
                            failures)
         counts, fused = served if served else (None, None)
-        if fused:
-            run_phase("per-step gemma2_27b",
+        if fused and per_step:
+            run_phase(f"per-step {name}",
                       lambda: phase_per_step(params, cfg, fused,
-                                             PER_STEP_MODES[:1],
-                                             GEMMA_SIZES), failures)
+                                             PER_STEP_MODES[:1], sizes),
+                      failures)
         if profile:
-            run_phase("profile gemma2_27b",
+            run_phase(f"profile {name}",
                       lambda: phase_profile(params, cfg), failures)
     del params
     gc.collect()
@@ -3878,7 +4295,7 @@ def main() -> int:
     entry = {}
     disagg = {}
     slice_counts = {"int8": {}, "spec": {}, "gemma": {}, "dispatch": {},
-                    "moe": {}}
+                    "moe": {}, "gemma9b": {}, "llama1b": {}, "gguf": {}}
     profile = "--profile" in args
     if not failures:
         # one model on the card at a time: each is freed before the next
@@ -3896,7 +4313,9 @@ def main() -> int:
                 slice_counts[tag].update(got or {})
             if name == "llama32_3b":
                 # Gemma-2-27B (54.5 GB of bf16), alone on the card
-                slice_counts["gemma"] = gemma_phases(failures, profile)
+                slice_counts["gemma"] = served_model_phases(
+                    "gemma2_27b", ModelConfig.gemma2_27b(), failures,
+                    profile)
                 # the entry points, with the in-process models freed
                 entry = run_phase("serve-entry", phase_serve_entry,
                                   failures) or {}
@@ -3906,6 +4325,18 @@ def main() -> int:
                 run_phase("kv-local", phase_kv_local, failures)
                 disagg = run_phase("disagg", phase_disagg, failures) or {}
                 log(f"[phase] phase 6 {time.perf_counter() - t6:.1f} s")
+                # head_dim 256 and 64, each alone on the card, then the
+                # GGUF and DeepSeek checkpoint loaders
+                slice_counts["gemma9b"] = served_model_phases(
+                    "gemma2_9b", ModelConfig.gemma2_9b(), failures, profile)
+                slice_counts["llama1b"] = served_model_phases(
+                    "llama32_1b", ModelConfig.llama32_1b(), failures,
+                    profile, plan=llama_plan, sizes=SERVE_SIZES,
+                    per_step=False)
+                slice_counts["gguf"] = run_phase(
+                    "gguf", phase_gguf, failures) or {}
+                run_phase("deepseek loader", phase_deepseek_loader,
+                          failures)
         # Qwen3-30B-A3B (61.1 GB of bf16), alone on the card, last
         slice_counts["moe"] = moe_phases(failures, profile)
     if failures:
@@ -3925,6 +4356,9 @@ def main() -> int:
             "launches_gemma": slice_counts["gemma"].get(name),
             "launches_moe": slice_counts["moe"].get(name),
             "launches_dispatch": slice_counts["dispatch"].get(name),
+            "launches_gemma9b": slice_counts["gemma9b"].get(name),
+            "launches_llama1b": slice_counts["llama1b"].get(name),
+            "launches_gguf": slice_counts["gguf"].get(name),
             "max_abs_err": row["max_abs_err"],
             "max_err_ulps": row["max_err_ulps"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "ms_per_call": row["ms_per_call"],

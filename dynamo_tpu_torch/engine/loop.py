@@ -8,8 +8,13 @@ subclasses provide only ``_execute_plan`` — the actual compute for one step:
 - ``TorchEngine`` (``torch_engine.py``): the model step in PyTorch, with
   hand-written CUDA attention kernels on the GPU.
 
-This module is the port's own copy of ``dynamo_tpu/engine/loop.py``; only
-its imports and prose differ.
+This module is the port's own copy of ``dynamo_tpu/engine/loop.py``; its
+imports and prose differ, and one behaviour: the loop's thread work
+(steps, fetches, the exclusive lane) is tracked (``_to_thread``) and
+``stop()`` waits for it. A cancelled loop leaves such a call running in
+its thread, whose frame held the engine, its cache and its weights after
+``stop()`` returned (the KVBM test that drops a stopped tiered engine
+failed on a loaded host).
 """
 
 from __future__ import annotations
@@ -54,6 +59,9 @@ from dynamo_tpu_torch.protocols.common import (
 from dynamo_tpu_torch.protocols.events import ForwardPassMetrics, KvCacheEvent
 
 logger = logging.getLogger(__name__)
+
+# how long stop() waits for the loop's calls still running in threads
+THREAD_STOP_TIMEOUT_S = 60.0
 
 # kv_transfer_params key carrying a stream's migration/resume token: a
 # frame with this key is the LAST frame of a gracefully-drained stream.
@@ -101,6 +109,8 @@ class ScheduledEngineBase(EngineBase):
         self._queues: Dict[str, asyncio.Queue] = {}
         self._work = asyncio.Event()
         self._loop_task: Optional[asyncio.Task] = None
+        # the loop's calls running in threads (``_to_thread``)
+        self._thread_work: set = set()
         self._stopping = False
         self.kv_event_cb: Optional[Callable[[List[KvCacheEvent]], None]] = None
         # supervision: called when the engine loop DIES (exception — not a
@@ -636,7 +646,7 @@ class ScheduledEngineBase(EngineBase):
                 continue
             t_d0 = time.perf_counter()
             try:
-                res = await asyncio.to_thread(fn, *args)
+                res = await self._to_thread(fn, *args)
             except asyncio.CancelledError:
                 # loop task cancelled mid-drain (stop()): the item is already
                 # popped, so fail its future here or the caller hangs forever
@@ -740,7 +750,7 @@ class ScheduledEngineBase(EngineBase):
             pending = None
             t_u0 = time.perf_counter()
             try:
-                result = await asyncio.to_thread(fetch_fn(plan), handle)
+                result = await self._to_thread(fetch_fn(plan), handle)
             except Exception as e:  # noqa: BLE001
                 self._fail_plan(plan, e)
                 return
@@ -769,17 +779,17 @@ class ScheduledEngineBase(EngineBase):
                     try:
                         if isinstance(chained, MultiStepBatch):
                             kind = "multistep"
-                            handle = await asyncio.to_thread(
+                            handle = await self._to_thread(
                                 self.dispatch_multistep, chained, prev_handle)
                         else:
                             kind = "chained"
-                            handle = await asyncio.to_thread(
+                            handle = await self._to_thread(
                                 self.dispatch_chained, chained, prev_handle)
                     except Exception as e:  # noqa: BLE001
                         # finish step/block N first so survivors' state is
                         # consistent, then fail the chained victims
                         try:
-                            result = await asyncio.to_thread(
+                            result = await self._to_thread(
                                 fetch_fn(prev_plan), prev_handle)
                             process_fn(prev_plan)(prev_plan, *result)
                         except Exception as e2:  # noqa: BLE001
@@ -793,7 +803,7 @@ class ScheduledEngineBase(EngineBase):
                     # out) while N+1 runs on device
                     t_u0 = time.perf_counter()
                     try:
-                        result = await asyncio.to_thread(
+                        result = await self._to_thread(
                             fetch_fn(prev_plan), prev_handle)
                     except Exception as e:  # noqa: BLE001
                         self._fail_plan(prev_plan, e)
@@ -837,7 +847,7 @@ class ScheduledEngineBase(EngineBase):
                 if ms is not None:
                     t_d0 = time.perf_counter()
                     try:
-                        handle = await asyncio.to_thread(
+                        handle = await self._to_thread(
                             self.dispatch_multistep, ms, None)
                     except Exception as e:  # noqa: BLE001
                         self._fail_plan(ms, e)
@@ -849,7 +859,7 @@ class ScheduledEngineBase(EngineBase):
                 if self.supports_pipelining:
                     t_d0 = time.perf_counter()
                     try:
-                        handle = await asyncio.to_thread(
+                        handle = await self._to_thread(
                             self.dispatch_decode, plan)
                     except Exception as e:  # noqa: BLE001
                         self._fail_plan(plan, e)
@@ -870,7 +880,7 @@ class ScheduledEngineBase(EngineBase):
                 kind = "decode"
             t_d0 = time.perf_counter()
             try:
-                result = await asyncio.to_thread(self._execute_plan, plan)
+                result = await self._to_thread(self._execute_plan, plan)
             except Exception as e:  # noqa: BLE001 — engine must not die silently
                 self._fail_plan(plan, e)
                 continue
@@ -897,7 +907,30 @@ class ScheduledEngineBase(EngineBase):
             except (asyncio.CancelledError, Exception):  # noqa: BLE001
                 pass
             self._loop_task = None
+        if self._thread_work:
+            # a step, fetch or exclusive call the cancel left running in its
+            # thread: nothing of the engine runs once stop() returns
+            _done, left = await asyncio.wait(list(self._thread_work),
+                                             timeout=THREAD_STOP_TIMEOUT_S)
+            if left:
+                logger.warning("engine stop: %d thread call(s) still "
+                               "running after %.0f s", len(left),
+                               THREAD_STOP_TIMEOUT_S)
         self._fail_exclusive("engine stopped")
+
+    async def _to_thread(self, fn: Callable, *args) -> Any:
+        """``asyncio.to_thread`` for the loop's own work, tracked: when the
+        loop is cancelled the call goes on in its thread to its end, and
+        ``stop()`` waits for it."""
+        task = asyncio.ensure_future(asyncio.to_thread(fn, *args))
+        self._thread_work.add(task)
+        task.add_done_callback(self._thread_done)
+        return await asyncio.shield(task)
+
+    def _thread_done(self, task: asyncio.Task) -> None:
+        self._thread_work.discard(task)
+        if not task.cancelled():
+            task.exception()    # the awaiting side raised it, or was gone
 
     # -- graceful drain ----------------------------------------------------
 

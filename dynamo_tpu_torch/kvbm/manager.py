@@ -266,47 +266,29 @@ class TieredEngine(EngineBase):
             self.disk.put(d)
         return blk
 
-    def _onboard_for(self, token_ids: List[int],
-                     cap: Optional[int] = None,
-                     host_only: bool = False,
-                     hashes: Optional[List[int]] = None) -> int:
-        """Inject tier-resident prompt blocks missing from HBM — the
-        bounded SYNCHRONOUS path: the prefetch scheduler's first-chunk
-        fast path (``cap`` = the first prefill chunk's blocks), or the
-        whole legacy onboard when lookahead is disabled.
-
-        ``host_only`` keeps this path off the disk tier (and the spill
-        flush) entirely: it runs inside the engine's exclusive window,
-        and a wedged disk must never stall the step loop — disk-resident
-        blocks are promoted asynchronously by the prefetcher (or
-        recomputed). ``hashes`` lets the caller pass the already-computed
-        chain so a 100k-token prompt isn't re-hashed inside the window."""
+    def _onboard_for(self, token_ids: List[int]) -> int:
+        """Inject tier-resident prompt blocks missing from HBM, at most
+        ``max_onboard_blocks``: the synchronous onboard of the legacy path
+        (lookahead disabled), run in the engine's exclusive window."""
         page_size = self.engine.allocator.page_size
-        if hashes is None:
-            hashes = compute_block_hash_for_seq(token_ids, page_size)
-        cap = self.cfg.max_onboard_blocks if cap is None else int(cap)
+        hashes = compute_block_hash_for_seq(token_ids, page_size)
+        cap = self.cfg.max_onboard_blocks
         # onboarding must observe completed offloads — but only wait when a
         # NEEDED block is actually still in the spill queue; flushing every
         # pending batch here would re-serialize slow tier writes onto the
-        # step loop at every admission. NEVER on the host_only fast path:
-        # flush_spills waits out the spill thread's G2->G3 disk writes,
-        # and a wedged disk must not stall the exclusive window this runs
-        # in — a pending block simply misses here and the async
-        # prefetcher (which flushes on ITS thread) promotes it instead.
-        if not host_only:
-            with self._pending_lock:
-                overlap = bool(self._pending_hashes.intersection(
-                    h for h in hashes[:cap]))
-            if overlap:
-                self.flush_spills()
+        # step loop at every admission
+        with self._pending_lock:
+            overlap = bool(self._pending_hashes.intersection(
+                h for h in hashes[:cap]))
+        if overlap:
+            self.flush_spills()
         resident = self.engine.allocator._by_hash
         needed: List[BlockPayload] = []
         with self._tier_lock:
             for h in hashes[:cap]:
                 if h in resident:
                     continue
-                blk = (self.host.get(h) if host_only
-                       else self._lookup(h))
+                blk = self._lookup(h)
                 if blk is None:
                     break  # chain broken: further blocks can't be used
                 needed.append(blk)

@@ -53,6 +53,7 @@ from dynamo_tpu_torch.engine.transfer import (
     _runtime_cfg,
     export_ttl_s,
     get_export_leases,
+    inject_blocks,
 )
 from dynamo_tpu_torch.tokens import compute_block_hash_for_seq
 from dynamo_tpu_torch.utils.tracing import get_tracer
@@ -143,13 +144,17 @@ class PrefetchScheduler:
             1, engine.scheduler.cfg.max_prefill_chunk // page_size)
         cap = min(chunk_blocks, self.tiered.cfg.max_onboard_blocks)
         # first-chunk fast path: what remains of the old synchronous
-        # onboard — small enough that admission latency stays bounded,
-        # and HOST-tier only (a wedged disk must never stall the step
-        # loop this runs serialized with; disk blocks promote async).
-        # Passing the precomputed chain keeps a 100k-token hash walk out
-        # of the exclusive window.
-        await engine.run_exclusive(self.tiered._onboard_for, token_ids,
-                                   cap, True, hashes)
+        # onboard, small enough that admission latency stays bounded.
+        # The tier reads (disk and spill flush included) run on a worker
+        # thread, outside the exclusive window, which only injects: a
+        # wedged disk delays this request's admission, never the step
+        # loop. Left to the promoter, a disk-resident head would race the
+        # prefill cursor, which computes the first chunk at once.
+        resident = engine.allocator._by_hash  # advisory: inject re-filters
+        head = [h for h in hashes[:cap] if h not in resident]
+        blocks = await asyncio.to_thread(self._collect, head) if head else []
+        if blocks:
+            await engine.run_exclusive(self._inject_head, blocks)
         if self.depth_bytes <= 0:
             return None
         # leave >=1 token to compute (the admission/adoption rule)
@@ -177,6 +182,12 @@ class PrefetchScheduler:
             return None
         return PrefetchHandle(self, request.request_id or "", plan,
                               page_size, chunk_blocks)
+
+    def _inject_head(self, blocks: List["BlockPayload"]) -> int:
+        """The first chunk's blocks into HBM (engine exclusive thread)."""
+        n = inject_blocks(self.engine, blocks)
+        self.tiered.onboarded += n
+        return n
 
     # -- tier side (worker thread) -----------------------------------------
 
@@ -320,11 +331,8 @@ class PrefetchHandle:
                 # chunk while promotion covers everything past it (the
                 # paper's packing: compute window k, prefetch window k+1).
                 # No guard before the request is ADMITTED: nothing is
-                # computing yet, so even first-chunk blocks the host-only
-                # fast path skipped (disk-resident, or parked in the
-                # spill queue) get a genuine head start — this is also
-                # the only promotion path short disk-resident prompts
-                # have.
+                # computing yet, so the blocks past the first chunk
+                # (which admission onboarded) get a genuine head start.
                 frontier = cursor + (self.chunk_blocks
                                      if self._seen_active else 0)
                 resident = self.engine.allocator._by_hash  # advisory

@@ -203,8 +203,28 @@ class ModelDeploymentCard:
         the file with a ``tokenizer.json`` next to it (checked automatically)
         or pass ``tokenizer_path`` explicitly.
         """
-        raise NotImplementedError(
-            "GGUF models need the GGUF reader port (ROADMAP A6b)")
+        from dynamo_tpu_torch.models.gguf import GgufFile
+        gf = GgufFile(path)
+        cfg = gf.to_model_config()
+        base = os.path.basename(path)
+        card = cls(name=name or base.rsplit(".", 1)[0], model_path=path,
+                   context_length=cfg.max_position_embeddings)
+        specials = gf.special_token_ids()
+        if specials.get("eos") is not None:
+            card.eos_token_ids = [int(specials["eos"])]
+        if specials.get("bos") is not None:
+            card.bos_token_id = int(specials["bos"])
+        tmpl = gf.metadata.get("tokenizer.chat_template")
+        if isinstance(tmpl, str):
+            card.chat_template = tmpl
+        sibling = os.path.join(os.path.dirname(path), "tokenizer.json")
+        if os.path.exists(sibling):
+            card.tokenizer_path = sibling
+            with open(sibling) as f:
+                card.tokenizer_json = f.read()
+        for k, v in overrides.items():
+            setattr(card, k, v)
+        return card
 
 
 @dataclass

@@ -189,7 +189,7 @@ class ModelConfig:
     @classmethod
     def llama32_3b(cls, **kw) -> "ModelConfig":
         """Llama-3.2-3B geometry — the single-GPU flagship config
-        (head_dim=128, the width the CUDA attention kernels take)."""
+        (head_dim 128, 24 query heads over 8 kv heads)."""
         defaults = dict(
             vocab_size=128256, hidden_size=3072, intermediate_size=8192,
             num_layers=28, num_heads=24, num_kv_heads=8, head_dim=128,
@@ -238,6 +238,63 @@ class ModelConfig:
             rms_norm_eps=1e-6, rope_theta=10000.0,
             max_position_embeddings=8192, tie_word_embeddings=True,
             hidden_activation="gelu_pytorch_tanh")
+        return replace(cls.from_hf(hf), **kw)
+
+    @classmethod
+    def gemma2_9b(cls, **kw) -> "ModelConfig":
+        """Gemma-2-9B, from its published ``config.json``
+        (huggingface.co/google/gemma-2-9b): 42 layers, hidden 3584, FFN
+        14336, 16 heads over 8 kv heads of head_dim 256, vocab 256000,
+        query_pre_attn_scalar 256, sliding window 4096 on the even layers,
+        softcaps 50 (attention) and 30 (final), tied embeddings."""
+        hf = dict(
+            model_type="gemma2", vocab_size=256000, hidden_size=3584,
+            intermediate_size=14336, num_hidden_layers=42,
+            num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+            query_pre_attn_scalar=256, sliding_window=4096,
+            attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+            rms_norm_eps=1e-6, rope_theta=10000.0,
+            max_position_embeddings=8192, tie_word_embeddings=True,
+            hidden_activation="gelu_pytorch_tanh")
+        return replace(cls.from_hf(hf), **kw)
+
+    @classmethod
+    def gemma2_2b(cls, **kw) -> "ModelConfig":
+        """Gemma-2-2B, from its published ``config.json``
+        (huggingface.co/google/gemma-2-2b): 26 layers, hidden 2304, FFN
+        9216, 8 heads over 4 kv heads of head_dim 256, vocab 256000,
+        query_pre_attn_scalar 256, sliding window 4096, softcaps 50 / 30,
+        tied embeddings."""
+        hf = dict(
+            model_type="gemma2", vocab_size=256000, hidden_size=2304,
+            intermediate_size=9216, num_hidden_layers=26,
+            num_attention_heads=8, num_key_value_heads=4, head_dim=256,
+            query_pre_attn_scalar=256, sliding_window=4096,
+            attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+            rms_norm_eps=1e-6, rope_theta=10000.0,
+            max_position_embeddings=8192, tie_word_embeddings=True,
+            hidden_activation="gelu_pytorch_tanh")
+        return replace(cls.from_hf(hf), **kw)
+
+    @classmethod
+    def llama32_1b(cls, **kw) -> "ModelConfig":
+        """Llama-3.2-1B, from its published ``config.json``
+        (huggingface.co/meta-llama/Llama-3.2-1B): 16 layers, hidden 2048,
+        FFN 8192, 32 heads over 8 kv heads of head_dim 64, vocab 128256,
+        tied embeddings, rope theta 500000. Its ``rope_scaling`` (type
+        llama3, factor 32) is read by neither package's ``from_hf``, which
+        take yarn only: both rotate with the plain theta (ROADMAP Queue
+        C)."""
+        hf = dict(
+            model_type="llama", vocab_size=128256, hidden_size=2048,
+            intermediate_size=8192, num_hidden_layers=16,
+            num_attention_heads=32, num_key_value_heads=8, head_dim=64,
+            rms_norm_eps=1e-5, rope_theta=500000.0,
+            max_position_embeddings=131072, tie_word_embeddings=True,
+            rope_scaling=dict(factor=32.0, high_freq_factor=4.0,
+                              low_freq_factor=1.0,
+                              original_max_position_embeddings=8192,
+                              rope_type="llama3"))
         return replace(cls.from_hf(hf), **kw)
 
     @classmethod

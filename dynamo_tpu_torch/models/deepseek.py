@@ -28,8 +28,9 @@ reference's ``deepseek.py:441-460`` chooses: dense (every expert on every
 token) or the capacity dispatch, whose dropped assignments ``forward``
 returns as the reference's ``aux``. Plain matrix products stay
 ``torch.matmul``/``bmm`` (the reference leaves them to XLA). Not ported
-here: the expert mesh (ROADMAP A13), ``forward_unrolled`` (one forward over
-the stacked cache serves), and ``load_params`` (ROADMAP A6b).
+here: the expert mesh (ROADMAP A13) and ``forward_unrolled`` (one forward
+over the stacked cache serves). ``load_params`` reads an HF checkpoint
+into the two stacks.
 """
 
 from __future__ import annotations
@@ -586,6 +587,133 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             aux)
 
 
+# ------------------------------------------------------------------ loader
+
+# HF tensor name (after ``model.layers.{i}.``) -> (leaf, transpose?): the
+# reference's maps (``dynamo_tpu/models/deepseek.py:630``)
+_ATTN_NAMES = {
+    "input_layernorm.weight": ("attn_norm", False),
+    "self_attn.kv_a_proj_with_mqa.weight": ("wkv_a", True),
+    "self_attn.kv_a_layernorm.weight": ("kv_a_norm", False),
+    "self_attn.kv_b_proj.weight": ("wkv_b", True),
+    "self_attn.o_proj.weight": ("wo", True),
+    "post_attention_layernorm.weight": ("mlp_norm", False),
+}
+_Q_LORA_NAMES = {
+    "self_attn.q_a_proj.weight": ("wq_a", True),
+    "self_attn.q_a_layernorm.weight": ("q_a_norm", False),
+    "self_attn.q_b_proj.weight": ("wq_b", True),
+}
+_DENSE_MLP_NAMES = {
+    "mlp.gate_proj.weight": ("w_gate", True),
+    "mlp.up_proj.weight": ("w_up", True),
+    "mlp.down_proj.weight": ("w_down", True),
+}
+_MOE_MLP_NAMES = {
+    "mlp.gate.weight": ("w_router", True),
+    "mlp.gate.e_score_correction_bias": ("router_bias", False),
+    "mlp.shared_experts.gate_proj.weight": ("ws_gate", True),
+    "mlp.shared_experts.up_proj.weight": ("ws_up", True),
+    "mlp.shared_experts.down_proj.weight": ("ws_down", True),
+}
+_EXPERT_NAMES = {"gate_proj.weight": "w_gate", "up_proj.weight": "w_up",
+                 "down_proj.weight": "w_down"}
+
+
+def load_params(cfg: ModelConfig, path: str, device=None) -> Params:
+    """The two-stack tree of the HF DeepSeek V2/V3 checkpoint directory
+    ``path`` on ``device`` (None: the GPU), the reference's ``load_params``:
+    layers below ``first_k_dense_replace`` into ``dense_layers``, the rest
+    into ``moe_layers`` with every routed expert stacked on a second axis,
+    ``[out, in]`` transposed to ``[in, out]``, every leaf in ``cfg.dtype``
+    but the V3 gate's ``router_bias``, which stays float32. Each tensor
+    goes to the device as it is read and into its preallocated stack there
+    (the reference stacks on the host), so the host never holds the model.
+    Raises on a missing layer, expert or weight family."""
+    from dynamo_tpu_torch.models.hf_loader import (SafetensorsFile,
+                                                   _checkpoint_files)
+    from dynamo_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    K = cfg.first_k_dense_replace
+    E = cfg.num_experts
+    attn = dict(_ATTN_NAMES)
+    if cfg.q_lora_rank:
+        attn.update(_Q_LORA_NAMES)
+    else:
+        attn["self_attn.q_proj.weight"] = ("wq", True)
+    top = {"model.embed_tokens.weight": ("embed", False),
+           "model.norm.weight": ("final_norm", False)}
+    if not cfg.tie_word_embeddings:
+        top["lm_head.weight"] = ("lm_head", True)
+    params: Params = {}
+    filled: Dict[tuple, set] = {}
+
+    def put(stack: str, leaf: str, idx, t: torch.Tensor) -> None:
+        # idx: the layer's row of its stack, or (row, expert)
+        node = params.setdefault(stack, {})
+        leaf_dtype = torch.float32 if leaf == "router_bias" else dtype
+        n = K if stack == "dense_layers" else cfg.num_layers - K
+        if leaf not in node:
+            lead = (n, E) if isinstance(idx, tuple) else (n,)
+            node[leaf] = torch.empty(lead + tuple(t.shape), dtype=leaf_dtype,
+                                     device=dev)
+        node[leaf][idx].copy_(t)
+        filled.setdefault((stack, leaf), set()).add(idx)
+
+    for f in _checkpoint_files(path):
+        with SafetensorsFile(f) as sf:
+            for name in sf.keys():
+                if name in top:
+                    leaf, tr = top[name]
+                    t = sf.get_tensor(name).to(dev)
+                    params[leaf] = (t.t() if tr else t).to(dtype).contiguous()
+                    filled[(leaf,)] = {None}
+                    continue
+                if not name.startswith("model.layers."):
+                    continue
+                idx, _, tail = name[len("model.layers."):].partition(".")
+                layer = int(idx)
+                if layer >= cfg.num_layers:
+                    continue
+                moe = layer >= K
+                stack = "moe_layers" if moe else "dense_layers"
+                row = layer - K if moe else layer
+                spec = attn.get(tail) or (_MOE_MLP_NAMES if moe
+                                          else _DENSE_MLP_NAMES).get(tail)
+                if spec is not None:
+                    t = sf.get_tensor(name).to(dev)
+                    put(stack, spec[0], row, t.t() if spec[1] else t)
+                    continue
+                if moe and tail.startswith("mlp.experts."):
+                    j, _, wname = tail[len("mlp.experts."):].partition(".")
+                    leaf = _EXPERT_NAMES.get(wname)
+                    if leaf is not None and int(j) < E:
+                        t = sf.get_tensor(name).to(dev)
+                        put(stack, leaf, (row, int(j)), t.t())
+    want = {"dense_layers": K, "moe_layers": cfg.num_layers - K}
+    for (stack, *leaf), got in filled.items():
+        if not leaf:
+            continue
+        n = want[stack]
+        need = ({(i, j) for i in range(n) for j in range(E)}
+                if isinstance(next(iter(got)), tuple) else set(range(n)))
+        if need - got:
+            raise ValueError(f"checkpoint missing {len(need - got)} tensors "
+                             f"for {stack}.{leaf[0]} (e.g. "
+                             f"{sorted(need - got)[:3]})")
+    expected = {(k,) for k, _ in top.values()}
+    for stack, moe in (("dense_layers", False), ("moe_layers", True)):
+        if want[stack]:
+            expected |= {(stack, k) for k in _layer_shapes(cfg, moe)}
+    absent = expected - set(filled)
+    if absent:
+        raise ValueError(f"checkpoint at {path} is missing weights for "
+                         f"{sorted(absent)}")
+    return params
+
+
 __all__ = ["init_params", "params_from_jax", "forward", "make_pages",
+           "load_params",
            "yarn_freqs", "yarn_table", "rope_interleaved",
            "PAGES_PER_CHUNK"]

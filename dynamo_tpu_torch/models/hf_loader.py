@@ -14,8 +14,8 @@ stack, so the host never holds the assembled model.
 The files are read without the ``safetensors`` package
 (``SafetensorsFile``): 8 bytes of little-endian header length, a JSON
 header (name -> dtype, shape, byte range), then the raw little-endian
-tensors, BF16, F16 or F32. DeepSeek's latent tree is refused (ROADMAP
-A6b).
+tensors, BF16, F16 or F32. DeepSeek's latent tree is read by
+``models/deepseek.py`` ``load_params`` over the same reader.
 """
 
 from __future__ import annotations
@@ -186,19 +186,14 @@ def _match(name: str, patterns: Dict[str, Any]
     return None, None, None
 
 
-def _refuse_family(cfg: ModelConfig) -> None:
-    if cfg.kv_lora_rank:
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r}: DeepSeek's checkpoint loader "
-            "(models/deepseek.py load_params) is not ported yet: ROADMAP "
-            "A6b")
-
-
 def load_hf_params(cfg: ModelConfig, path: str,
                    device=None) -> Dict[str, Any]:
     """The parameter tree of the HF checkpoint directory ``path``, on
-    ``device`` (None: the GPU) in ``cfg.dtype``."""
-    _refuse_family(cfg)
+    ``device`` (None: the GPU) in ``cfg.dtype``. DeepSeek's latent tree
+    goes to ``models/deepseek.py`` ``load_params``, as in the reference."""
+    if cfg.kv_lora_rank:
+        from dynamo_tpu_torch.models.deepseek import load_params
+        return load_params(cfg, path, device)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     patterns = _name_map(cfg)

@@ -46,8 +46,9 @@ def resolve_model_path(name_or_path: str, revision: Optional[str] = None,
             f"model path {name_or_path!r} does not exist locally and is "
             f"not an HF repo id")
     raise FileNotFoundError(
-        f"{name_or_path!r} is not a local path; downloads from the HF hub "
-        "wait for the hub port (ROADMAP A6b)")
+        f"{name_or_path!r} is not a local path; the port loads local "
+        "checkpoints and downloads nothing from the HF hub "
+        "(ROADMAP Queue C)")
 
 
 def _looks_like_repo_id(s: str) -> bool:

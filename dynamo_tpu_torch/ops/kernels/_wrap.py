@@ -5,21 +5,24 @@ from __future__ import annotations
 
 import torch
 
-# query heads per kv head the kernels are instantiated for
-GROUPS = (1, 2, 3, 4, 5, 6, 7, 8)
-HEAD_DIM = 128
+# query heads per kv head and head dims the GQA kernels take: B1 holds up
+# to 8 heads a block (more split into sub-groups), B2 / B3 fold the group
+# into 128-row tiles of 128 // G slots
+GROUPS = tuple(range(1, 17))
+HEAD_DIMS = (64, 128, 256)
 
 
 def gqa_geometry_error(Hq: int, Hkv: int, Dh: int, ps: int):
     """Why the GQA kernels (decode, prefill, ragged) do not take this
-    geometry, or None. A head_dim of 256 (Gemma-2-2B / 9B), which the TPU
-    kernels take, is ROADMAP Queue B's "B1-B3 at head_dim 256"."""
-    if Dh != HEAD_DIM:
-        return (f"the kernels take head_dim={HEAD_DIM}, got {Dh} (head_dim "
-                "256 is ROADMAP Queue B, B1-B3 at head_dim 256)")
-    if Hq % Hkv or Hq // Hkv not in GROUPS:
-        return (f"Hq/Hkv={Hq}/{Hkv} is not one of the instantiated groups "
-                f"{GROUPS}")
+    geometry, or None. They take head_dim 64, 128 or 256 and 1 .. 16 query
+    heads per kv head; the TPU kernels take any head_dim % 128 == 0 (384,
+    512 too) and any group, and ``JaxEngine`` serves the other head dims
+    (96, ...) through its XLA path: ROADMAP Queue C."""
+    if Dh not in HEAD_DIMS:
+        return (f"the kernels take head_dim in {HEAD_DIMS}, got {Dh}")
+    if Hkv <= 0 or Hq % Hkv or Hq // Hkv not in GROUPS:
+        return (f"Hq/Hkv={Hq}/{Hkv} is not a group of 1 .. {GROUPS[-1]} "
+                "query heads per kv head")
     if ps % 8:
         return f"page_size={ps} is not a multiple of 8"
     return None
@@ -28,8 +31,9 @@ def gqa_geometry_error(Hq: int, Hkv: int, Dh: int, ps: int):
 def check_cuda_args(name: str, q: torch.Tensor, pages: torch.Tensor,
                     layer_idx, page_table: torch.Tensor,
                     total_lens: torch.Tensor, positions=None) -> None:
-    """Raise on anything the kernels do not take: they read bf16, Dh=128,
-    ``ps % 8 == 0``, int32 tables, contiguous row-major buffers, one device."""
+    """Raise on anything the kernels do not take: they read bf16, the head
+    dims and groups of ``gqa_geometry_error``, ``ps % 8 == 0``, int32
+    tables, contiguous row-major buffers, one device."""
     if q.dim() != 4 or pages.dim() != 6:
         raise ValueError(f"{name}: q must be [B,S,Hq,Dh] and pages "
                          f"[L,N,2,Hkv,ps,Dh], got {tuple(q.shape)} and "

@@ -40,20 +40,21 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 
 # the flash-attention entries: q, pages, out, page_table, positions,
-# total_lens, layer, B, S, Hq, Hkv, N, ps, P, sm_scale, window, softcap,
+# total_lens, layer, B, S, Hq, Hkv, Dh, N, ps, P, sm_scale, window, softcap,
 # (the ragged entry then: part_num, part_ml, split_cap, split_pages, splits,
 # n_work,) stream
-_FLASH = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F]
+_FLASH = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+          _F]
 
 # C signatures: (name, argtypes) per library. Every pointer and the stream
 # are c_void_p — ctypes would otherwise pass a Python int as a 32-bit int.
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "decode": {
         # q, pages, out, part_num, part_ml, page_table, total_lens, layer, B,
-        # Hq, Hkv, N, ps, P, split_pages, splits, sm_scale, window, softcap,
-        # stream
+        # Hq, Hkv, subs, Dh, N, ps, P, split_pages, splits, sm_scale, window,
+        # softcap, stream
         "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _F, _I, _F, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
     },
     "prefill_sm90": {
         "paged_prefill_launch": _FLASH + [_P],

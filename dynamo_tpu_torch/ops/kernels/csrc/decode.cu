@@ -12,26 +12,41 @@
 //
 // Cache layout (the reference's, byte for byte): pages [L, N, 2, Hkv, ps, Dh]
 // bf16, page 0 the garbage page; page_table [B, P] int32 logical -> physical.
+// Dh is 64, 128 or 256 (one instantiation each); the query group G = Hq / Hkv
+// is 1 .. 16.
 //
 // What bounds it on the H100: HBM bytes. Each live K/V row is read once
 // (2 * ctx * Hkv * Dh * 2 bytes per row) and the arithmetic is ~2 flop per
 // byte, far below the ~295 flop/byte where the tensor cores would bound it.
 // So the card must keep enough bytes in flight to cover HBM latency at
 // every batch size. Design for that:
-// - the grid is (B * Hkv) x splits: each block takes one (row, kv head) and
-//   a whole number of pages of the table (`split_pages`); the host picks the
-//   split count from B * Hkv, the SM count and the table's width, never from
-//   the lengths, so the launch shape does not depend on data. A split that
+// - the grid is (B * Hkv * subs) x splits: each block takes one (row, kv
+//   head, sub-group of at most MAX_G query heads) and a whole number of
+//   pages of the table (`split_pages`); the host picks the split count from
+//   the block count, the SM count and the table's width, never from the
+//   lengths, so the launch shape does not depend on data. A split that
 //   starts past the context or ends before the window writes a dead partial
 //   (m = -1e30, l = 0) and exits;
 // - a block reads its split's page ids into shared memory once, then streams
 //   K and V together through a ring of STAGES chunks of CK positions with
 //   cp.async (16 bytes a thread, zero-filled past the context), so three
-//   chunks are in flight while one is consumed; one __syncthreads a chunk;
-// - the G query heads of the kv head live in registers, so each K/V row is
-//   read from HBM once for all G heads; each half-warp runs its own online
-//   softmax over its quarter of every chunk (no block barrier inside the
-//   softmax), and the 8 half-warp states merge at the end;
+//   chunks are in flight while one is consumed; one __syncthreads a chunk.
+//   A chunk is 8 KB of K and 8 KB of V at every Dh (CK = 4096 / Dh
+//   positions), so the ring, and the blocks an SM holds, stay the same;
+// - the sub-group's query heads live in registers, so each K/V row is read
+//   from HBM once for all of them; a lane group of Dh / 8 lanes (8 dims a
+//   lane) covers one position, each group runs its own online softmax over
+//   its share of every chunk (no block barrier inside the softmax), and the
+//   groups' states merge at the end. A lane holds 8 dims of q and of the
+//   accumulator per head at every Dh: the registers a thread needs follow
+//   the sub-group, not Dh;
+// - a group of G > MAX_G query heads splits into the caller's `subs`
+//   sub-groups (decode.decode_subgroups: ceil(G / MAX_G)) of GS =
+//   ceil(G / subs) <= MAX_G heads (the last may hold fewer real heads),
+//   one block each. Each block streams the kv head's pages itself, so the
+//   bytes read from the cache grow by the number of sub-groups; the
+//   sub-groups of one kv head are neighbours in the grid and run together,
+//   so the second read mostly hits L2;
 // - with one split the block normalises and writes bf16 itself; with more,
 //   it writes f32 (num, den, max) partials and `merge_splits_kernel` merges
 //   them per (row, head) and rounds to bf16 once: the arithmetic of
@@ -49,20 +64,15 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int DH = 128;              // head dim (the wrapper rejects others)
-constexpr int THREADS = 128;         // 8 half-warps
-constexpr int HALVES = THREADS / 16;
-constexpr int CK = 32;               // kv positions per pipeline stage
+constexpr int THREADS = 128;
 constexpr int STAGES = 4;
-constexpr int ROWS_PER_HALF = CK / HALVES;
+constexpr int CHUNK_ELEMS = 4096;    // CK * Dh: 8 KB of K (and of V) a chunk
 constexpr int MAX_SPLIT_PAGES = 512; // the host keeps every split within it
-constexpr int MAX_G = 8;
+constexpr int MAX_G = 8;             // query heads a block holds
 constexpr float NEG_INF = -1e30f;
-constexpr size_t KV_BYTES = (size_t)2 * STAGES * CK * DH * sizeof(bf16);
+constexpr size_t KV_BYTES = (size_t)2 * STAGES * CHUNK_ELEMS * sizeof(bf16);
 constexpr size_t SMEM_BYTES =
-    KV_BYTES + MAX_SPLIT_PAGES * sizeof(int) + 2 * HALVES * MAX_G * sizeof(float);
-static_assert((size_t)HALVES * MAX_G * DH * sizeof(float) <= KV_BYTES / 2,
-              "the merge buffer aliases the K ring");
+    KV_BYTES + MAX_SPLIT_PAGES * sizeof(int) + 2 * 16 * MAX_G * sizeof(float);
 
 __device__ __forceinline__ void bf16x8_to_float(const uint4 raw, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -96,29 +106,40 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <int G>
+// DH: head dim; GS: query heads per block (a sub-group of the kv head's G)
+template <int DH, int GS>
 __global__ void __launch_bounds__(THREADS)
 split_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
                     bf16* __restrict__ out, float* __restrict__ part_num,
                     float* __restrict__ part_ml,
                     const int* __restrict__ page_table,
                     const int* __restrict__ total_lens, long long layer,
-                    int Hkv, int N, int ps, int P, int split_pages, int splits,
-                    float sm_scale, int window, float softcap) {
+                    int Hkv, int G, int subs, int N, int ps, int P,
+                    int split_pages, int splits, float sm_scale, int window,
+                    float softcap) {
+  constexpr int LANES = DH / 8;              // lanes covering one position
+  constexpr int GROUPS = THREADS / LANES;    // lane groups: 16, 8 or 4
+  constexpr int CK = CHUNK_ELEMS / DH;       // kv positions per stage
+  constexpr int ROWS_PER_GROUP = CK / GROUPS;
+  static_assert(ROWS_PER_GROUP * GROUPS == CK, "a chunk splits evenly");
+  static_assert((size_t)GROUPS * GS * DH * sizeof(float) <= KV_BYTES / 2,
+                "the merge buffer aliases the K ring");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16(*Ks)[CK][DH] = reinterpret_cast<bf16(*)[CK][DH]>(smem);
   bf16(*Vs)[CK][DH] = reinterpret_cast<bf16(*)[CK][DH]>(smem + KV_BYTES / 2);
   int* pid = reinterpret_cast<int*>(smem + KV_BYTES);
-  float* red_m = reinterpret_cast<float*>(pid + MAX_SPLIT_PAGES);  // [HALVES][G]
-  float* red_l = red_m + HALVES * MAX_G;
-  float* red_acc = reinterpret_cast<float*>(smem);  // [HALVES][G][DH], after the ring
+  float* red_m = reinterpret_cast<float*>(pid + MAX_SPLIT_PAGES);  // [GROUPS][GS]
+  float* red_l = red_m + 16 * MAX_G;
+  float* red_acc = reinterpret_cast<float*>(smem);  // [GROUPS][GS][DH], after the ring
 
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x % Hkv;
+  const int pair = blockIdx.x / subs;  // (row, kv head)
+  const int g0 = (blockIdx.x % subs) * GS;  // this block's first head of G
+  const int b = pair / Hkv;
+  const int h = pair % Hkv;
   const int split = blockIdx.y;
   const int tid = threadIdx.x;
-  const int hw = tid >> 4;   // half-warp
-  const int hl = tid & 15;   // lane in the half-warp: dims hl*8 .. hl*8+7
+  const int grp = tid / LANES;   // lane group
+  const int gl = tid % LANES;    // lane in the group: dims gl*8 .. gl*8+7
   const int Hq = Hkv * G;
 
   const int ctx = min(total_lens[b], P * ps);
@@ -127,19 +148,25 @@ split_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
   const int start = max(s0, lo);
   const int end = min(s0 + split_pages * ps, ctx);
 
-  // this lane's 8 dims of the G query heads, scaled then rounded to bf16
-  float qr[G][8];
+  // this lane's 8 dims of the sub-group's query heads, scaled then rounded
+  // to bf16; a head past G (the last sub-group's pad) holds zeros
+  float qr[GS][8];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(
-        q + ((long long)b * Hq + h * G + g) * DH + hl * 8);
-    bf16x8_to_float(raw, qr[g]);
+  for (int g = 0; g < GS; ++g) {
+    if (g0 + g < G) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          q + ((long long)b * Hq + h * G + g0 + g) * DH + gl * 8);
+      bf16x8_to_float(raw, qr[g]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) qr[g][i] = 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) qr[g][i] = round_bf16(qr[g][i] * sm_scale);
   }
-  float m[G], l[G], acc[G][8];
+  float m[GS], l[GS], acc[GS][8];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GS; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
@@ -161,9 +188,9 @@ split_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
 
     auto issue = [&](int c, int st) {
 #pragma unroll
-      for (int i = 0; i < CK * (DH / 8) / THREADS; ++i) {
+      for (int i = 0; i < CK * LANES / THREADS; ++i) {
         const int idx = tid + i * THREADS;
-        const int row = idx >> 4, c16 = idx & 15;
+        const int row = idx / LANES, c16 = idx % LANES;
         const int pos = start + c * CK + row;
         const bool valid = pos < end;
         const bf16* src = pages;  // any mapped address: nothing is read
@@ -187,38 +214,36 @@ split_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
       cp_async_commit();
       const int st = c % STAGES;
 
-      // scores of this half-warp's rows of the chunk, all G heads
-      float s[G][ROWS_PER_HALF];
+      // scores of this lane group's rows of the chunk, all GS heads
+      float s[GS][ROWS_PER_GROUP];
 #pragma unroll
-      for (int j = 0; j < ROWS_PER_HALF; ++j) {
-        const int row = hw + HALVES * j;
-        const bool valid = start + c * CK + row < end;  // uniform per half-warp
+      for (int j = 0; j < ROWS_PER_GROUP; ++j) {
+        const int row = grp + GROUPS * j;
+        const bool valid = start + c * CK + row < end;  // uniform per group
         float kf[8];
-        bf16x8_to_float(*reinterpret_cast<const uint4*>(&Ks[st][row][hl * 8]), kf);
-        float d[G];
+        bf16x8_to_float(*reinterpret_cast<const uint4*>(&Ks[st][row][gl * 8]), kf);
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          d[g] = 0.f;
+        for (int g = 0; g < GS; ++g) {
+          float d = 0.f;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) d[g] += qr[g][i] * kf[i];
+          for (int i = 0; i < 8; ++i) d += qr[g][i] * kf[i];
 #pragma unroll
-          for (int off = 8; off > 0; off >>= 1)
-            d[g] += __shfl_xor_sync(0xffffffffu, d[g], off);
-          float x = d[g];
-          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-          s[g][j] = valid ? x : NEG_INF;
+          for (int off = LANES / 2; off > 0; off >>= 1)
+            d += __shfl_xor_sync(0xffffffffu, d, off);
+          if (softcap > 0.f) d = softcap * tanhf(d / softcap);
+          s[g][j] = valid ? d : NEG_INF;
         }
       }
-      // online softmax of this half-warp's state
+      // online softmax of this lane group's state
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GS; ++g) {
         float mx = m[g];
 #pragma unroll
-        for (int j = 0; j < ROWS_PER_HALF; ++j) mx = fmaxf(mx, s[g][j]);
+        for (int j = 0; j < ROWS_PER_GROUP; ++j) mx = fmaxf(mx, s[g][j]);
         const float sc = m[g] > NEG_INF * 0.5f ? expf(m[g] - mx) : 0.f;
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < ROWS_PER_HALF; ++j) {
+        for (int j = 0; j < ROWS_PER_GROUP; ++j) {
           const float p = s[g][j] > NEG_INF * 0.5f ? expf(s[g][j] - mx) : 0.f;
           s[g][j] = p;
           sum += p;
@@ -228,15 +253,15 @@ split_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[g][i] *= sc;
       }
-      // P.V: the rows this half-warp scored
+      // P.V: the rows this lane group scored
 #pragma unroll
-      for (int j = 0; j < ROWS_PER_HALF; ++j) {
-        const int row = hw + HALVES * j;
+      for (int j = 0; j < ROWS_PER_GROUP; ++j) {
+        const int row = grp + GROUPS * j;
         if (start + c * CK + row < end) {
           float vf[8];
-          bf16x8_to_float(*reinterpret_cast<const uint4*>(&Vs[st][row][hl * 8]), vf);
+          bf16x8_to_float(*reinterpret_cast<const uint4*>(&Vs[st][row][gl * 8]), vf);
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
+          for (int g = 0; g < GS; ++g) {
             const float p = round_bf16(s[g][j]);
 #pragma unroll
             for (int i = 0; i < 8; ++i) acc[g][i] += p * vf[i];
@@ -248,33 +273,34 @@ split_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
   }
   __syncthreads();  // the K ring is free: it becomes the merge buffer
 
-  if (hl == 0) {
+  if (gl == 0) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      red_m[hw * G + g] = m[g];
-      red_l[hw * G + g] = l[g];
+    for (int g = 0; g < GS; ++g) {
+      red_m[grp * GS + g] = m[g];
+      red_l[grp * GS + g] = l[g];
     }
   }
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < GS; ++g)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) red_acc[(hw * G + g) * DH + hl * 8 + i] = acc[g][i];
+    for (int i = 0; i < 8; ++i) red_acc[(grp * GS + g) * DH + gl * 8 + i] = acc[g][i];
   __syncthreads();
 
-  for (int idx = tid; idx < G * DH; idx += THREADS) {
+  for (int idx = tid; idx < GS * DH; idx += THREADS) {
     const int g = idx / DH, d = idx % DH;
+    if (g0 + g >= G) continue;
     float mx = NEG_INF;
 #pragma unroll
-    for (int r = 0; r < HALVES; ++r) mx = fmaxf(mx, red_m[r * G + g]);
+    for (int r = 0; r < GROUPS; ++r) mx = fmaxf(mx, red_m[r * GS + g]);
     float num = 0.f, den = 0.f;
 #pragma unroll
-    for (int r = 0; r < HALVES; ++r) {
-      const float mr = red_m[r * G + g];
+    for (int r = 0; r < GROUPS; ++r) {
+      const float mr = red_m[r * GS + g];
       const float w = mr > NEG_INF * 0.5f ? expf(mr - mx) : 0.f;
-      num += w * red_acc[(r * G + g) * DH + d];
-      den += w * red_l[r * G + g];
+      num += w * red_acc[(r * GS + g) * DH + d];
+      den += w * red_l[r * GS + g];
     }
-    const long long row = (long long)b * Hq + h * G + g;
+    const long long row = (long long)b * Hq + h * G + g0 + g;
     if (splits == 1) {
       out[row * DH + d] = __float2bfloat16_rn(num / fmaxf(den, 1e-20f));
     } else {
@@ -290,6 +316,7 @@ split_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
 
 // one block per (row, query head), one thread per dim: merge the splits'
 // (num, den, max) states and normalise, dead states (max -1e30) weigh zero
+template <int DH>
 __global__ void __launch_bounds__(DH)
 merge_splits_kernel(const float* __restrict__ part_num,
                     const float* __restrict__ part_ml, bf16* __restrict__ out,
@@ -309,58 +336,47 @@ merge_splits_kernel(const float* __restrict__ part_num,
   out[row * DH + d] = __float2bfloat16_rn(num / fmaxf(den, 1e-20f));
 }
 
-template <int G>
+template <int DH, int GS>
 int launch(const void* q, const void* pages, void* out, void* part_num,
            void* part_ml, const void* table, const void* lens, long long layer,
-           int B, int Hkv, int N, int ps, int P, int split_pages, int splits,
-           float sm_scale, int window, float softcap, cudaStream_t stream) {
+           int B, int Hkv, int G, int subs, int N, int ps, int P,
+           int split_pages, int splits, float sm_scale, int window,
+           float softcap, cudaStream_t stream) {
   static bool smem_set = false;  // once per instantiation
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        split_decode_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        split_decode_kernel<DH, GS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
-  split_decode_kernel<G><<<dim3(B * Hkv, splits), THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(pages),
-      static_cast<bf16*>(out), static_cast<float*>(part_num),
-      static_cast<float*>(part_ml), static_cast<const int*>(table),
-      static_cast<const int*>(lens), layer, Hkv, N, ps, P, split_pages, splits,
-      sm_scale, window, softcap);
+  split_decode_kernel<DH, GS>
+      <<<dim3(B * Hkv * subs, splits), THREADS, SMEM_BYTES, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(pages),
+          static_cast<bf16*>(out), static_cast<float*>(part_num),
+          static_cast<float*>(part_ml), static_cast<const int*>(table),
+          static_cast<const int*>(lens), layer, Hkv, G, subs, N, ps, P,
+          split_pages, splits, sm_scale, window, softcap);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  merge_splits_kernel<<<B * Hkv * G, DH, 0, stream>>>(
+  merge_splits_kernel<DH><<<B * Hkv * G, DH, 0, stream>>>(
       static_cast<const float*>(part_num), static_cast<const float*>(part_ml),
       static_cast<bf16*>(out), splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// part_num [B, Hq, splits, Dh] and part_ml [B, Hq, splits, 2] f32 are the
-// caller's scratch (unused, may be null, when splits == 1). Every split is
-// split_pages whole pages and the splits cover the table:
-// split_pages <= 512 and (splits - 1) * split_pages < P <= splits * split_pages.
-extern "C" int paged_decode_launch(const void* q, const void* pages, void* out,
-                                   void* part_num, void* part_ml,
-                                   const void* page_table,
-                                   const void* total_lens, long long layer,
-                                   int B, int Hq, int Hkv, int N, int ps, int P,
-                                   int split_pages, int splits, float sm_scale,
-                                   int window, float softcap, void* stream) {
-  if (B == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv || splits < 1 || split_pages < 0 ||
-      split_pages > MAX_SPLIT_PAGES || (long long)splits * split_pages < P ||
-      (splits > 1 && (part_num == nullptr || part_ml == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DYN_CASE(GV)                                                          \
-  case GV:                                                                    \
-    return launch<GV>(q, pages, out, part_num, part_ml, page_table,           \
-                      total_lens, layer, B, Hkv, N, ps, P, split_pages, splits, \
-                      sm_scale, window, softcap, s);
-  switch (Hq / Hkv) {
+template <int DH>
+int dispatch_gs(int GS, const void* q, const void* pages, void* out,
+                void* part_num, void* part_ml, const void* table,
+                const void* lens, long long layer, int B, int Hkv, int G,
+                int subs, int N, int ps, int P, int split_pages, int splits,
+                float sm_scale, int window, float softcap, cudaStream_t s) {
+#define DYN_CASE(GV)                                                           \
+  case GV:                                                                     \
+    return launch<DH, GV>(q, pages, out, part_num, part_ml, table, lens, layer, \
+                          B, Hkv, G, subs, N, ps, P, split_pages, splits,      \
+                          sm_scale, window, softcap, s);
+  switch (GS) {
     DYN_CASE(1)
     DYN_CASE(2)
     DYN_CASE(3)
@@ -373,4 +389,49 @@ extern "C" int paged_decode_launch(const void* q, const void* pages, void* out,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef DYN_CASE
+}
+
+}  // namespace
+
+// part_num [B, Hq, splits, Dh] and part_ml [B, Hq, splits, 2] f32 are the
+// caller's scratch (unused, may be null, when splits == 1). Every split is
+// split_pages whole pages and the splits cover the table:
+// split_pages <= 512 and (splits - 1) * split_pages < P <= splits * split_pages.
+// Dh is 64, 128 or 256 and Hq / Hkv at most 16; the kv head's G query
+// heads take the caller's `subs` blocks (decode.decode_subgroups) of
+// ceil(G / subs) heads each, which must be at most MAX_G.
+extern "C" int paged_decode_launch(const void* q, const void* pages, void* out,
+                                   void* part_num, void* part_ml,
+                                   const void* page_table,
+                                   const void* total_lens, long long layer,
+                                   int B, int Hq, int Hkv, int subs, int Dh,
+                                   int N, int ps, int P, int split_pages,
+                                   int splits, float sm_scale, int window,
+                                   float softcap, void* stream) {
+  if (B == 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > 2 * MAX_G || subs < 1 ||
+      subs > Hq / Hkv || (Hq / Hkv + subs - 1) / subs > MAX_G ||
+      splits < 1 || split_pages < 0 || split_pages > MAX_SPLIT_PAGES ||
+      (long long)splits * split_pages < P ||
+      (splits > 1 && (part_num == nullptr || part_ml == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = Hq / Hkv;
+  const int GS = (G + subs - 1) / subs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64:
+      return dispatch_gs<64>(GS, q, pages, out, part_num, part_ml, page_table,
+                             total_lens, layer, B, Hkv, G, subs, N, ps, P,
+                             split_pages, splits, sm_scale, window, softcap, s);
+    case 128:
+      return dispatch_gs<128>(GS, q, pages, out, part_num, part_ml, page_table,
+                              total_lens, layer, B, Hkv, G, subs, N, ps, P,
+                              split_pages, splits, sm_scale, window, softcap, s);
+    case 256:
+      return dispatch_gs<256>(GS, q, pages, out, part_num, part_ml, page_table,
+                              total_lens, layer, B, Hkv, G, subs, N, ps, P,
+                              split_pages, splits, sm_scale, window, softcap, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -18,10 +18,11 @@
 // pad and come out as zeros; a query tile wholly past them writes its zeros
 // and returns without touching the cache.
 //
-// Cache layout: pages [L, N, 2, Hkv, ps, Dh=128] bf16, page 0 the garbage
-// page; page_table [B, P] int32. One layer of it is a 2-D matrix
-// [N * 2 * Hkv * ps, 128] in which a kv head's [ps, 128] tile of one page is
-// contiguous.
+// Cache layout: pages [L, N, 2, Hkv, ps, Dh] bf16 with Dh 64, 128 or 256 (one
+// instantiation each), page 0 the garbage page; page_table [B, P] int32. One
+// layer of it is a 2-D matrix [N * 2 * Hkv * ps, Dh] in which a kv head's
+// [ps, Dh] tile of one page is contiguous. The query group G = Hq / Hkv
+// (1 .. 16) is a run-time argument: it only moves index arithmetic.
 //
 // What bounds it on the H100: tensor-core operations for prefill chunks of
 // S = 512 (4 * Dh per query head and visible kv position) against ~2 bytes
@@ -29,22 +30,35 @@
 // of the kv reads (each reads its whole context for one query slot). So the
 // design is the FA3 shape, plus split-KV for short rows:
 // - a block takes one (row, kv head, tile of 128 query rows); a row is one
-//   (query slot, head) of the kv head's G heads (BQ = 128 / G slots), so
-//   every K/V chunk in shared memory serves all G heads;
+//   (query slot, head) of the kv head's G heads (BQ = 128 / G slots: 8 at
+//   G = 16, 10 at G = 12, whose last 8 rows idle), so every K/V chunk in
+//   shared memory serves all G heads;
 // - one producer warp keeps a ring of STAGES chunks of KB = 64 positions in
 //   flight with TMA: one tensor map over the layer's 2-D view with 128-byte
-//   swizzle, boxes of [gcd(ps, 64) rows, 64 dims], a page at a time, each
-//   stage completing on its `full` mbarrier; the consumers free a stage on
-//   its `empty` mbarrier. Page ids are read two chunks ahead. Boxes wholly
-//   past the block's kv range are loaded from past the end of the map,
-//   which TMA fills with zeros;
+//   swizzle, boxes of [gcd(ps, 64) rows, 64 dims], Dh / 64 column blocks of
+//   K and as many of V a page, each stage completing on its `full`
+//   mbarrier; the consumers free a stage on its `empty` mbarrier. Page ids
+//   are read two chunks ahead. Boxes wholly past the block's kv range are
+//   loaded from past the end of the map, which TMA fills with zeros;
 // - two consumer warpgroups of 64 rows each run `wgmma` m64n64k16: S = Q K^T
-//   with Q as a register operand (loaded, scaled and rounded once) and K^T
-//   from the swizzled stage, then softmax on the S fragments in registers,
-//   then O += P V with P converted in registers to the bf16 A operand and V
-//   read transposed from the stage. S and O never leave registers; nothing
-//   waits on __syncthreads between softmax and P.V; the warpgroups take
-//   turns to issue S (ping-pong);
+//   with Q loaded, scaled and rounded once into shared memory (128-byte
+//   swizzled, before the ring: Dh * 256 bytes for the block's 128 rows)
+//   and K^T from the swizzled stage, both descriptor operands, then
+//   softmax on the S fragments in registers, then O += P V with P
+//   converted in registers to the bf16 A operand and V read transposed from
+//   the stage. S and O never leave registers; nothing waits on
+//   __syncthreads between softmax and P.V; the warpgroups take turns to
+//   issue S (ping-pong). At Dh = 256 the accumulator O alone takes 128
+//   registers a thread, so the ring takes 2 stages of 64 KB beside Q's 64
+//   KB, and the producer becomes a warpgroup that gives its registers to
+//   the consumers (setmaxnreg 24 / 240). Q is not a register A operand:
+//   one that lives across the chunk loop is miscompiled by ptxas (CUDA
+//   12.9), which gives its registers to the loop's temporaries at Dh = 64
+//   although the PTX reads them in every chunk (a wrong S from the second
+//   chunk on; chip_qpath.py builds that variant and counts the SASS
+//   writes). P, which is made anew in each chunk, is a register operand.
+//   The softmax step stays 64 positions at every Dh, so p rounds to bf16
+//   against the same running maxima (plain.online_attention_rows);
 // - only chunks that cross a tile's diagonal, the window edge or the end of
 //   the block's kv range are masked (a select: masked scores never multiply
 //   NaN); in the chunk that holds the end of the range the consumers zero
@@ -78,21 +92,36 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int DH = 128;                        // head dim (the wrapper rejects others)
 constexpr int KB = 64;                         // kv positions per stage
-constexpr int STAGES = 4;
 constexpr int CONSUMERS = 2;                   // warpgroups of 64 query rows
 constexpr int ROWS = 64 * CONSUMERS;           // query rows per block
-constexpr int THREADS = 128 * CONSUMERS + 32;  // + the producer warp
-constexpr int HALF_BYTES = KB * 128;           // [KB, 64] bf16: one swizzled half
-constexpr int STAGE_BYTES = 4 * HALF_BYTES;    // K dims 0-63, 64-127, V the same
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+constexpr int CTHREADS = 128 * CONSUMERS;      // consumer threads
+constexpr int HALF_BYTES = KB * 128;           // [KB, 64] bf16: one swizzled column block
+constexpr int QBLOCK_BYTES = 64 * 128;         // [64 rows, 64] bf16 of a warpgroup's Q
+constexpr int MAX_G = 16;                      // query heads per kv head
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+
+// the plan of head dim DH: NB column blocks of 64 dims for K and for V a
+// stage, Q in shared memory before the ring; at 256 the producer is a
+// warpgroup whose registers (setmaxnreg: 24) go to the consumers'
+// accumulators (240), one warp of it issuing, else it is one warp
+template <int DH>
+struct Geo {
+  static constexpr int NB = DH / 64;
+  static constexpr bool WIDE = DH > 128;
+  static constexpr int THREADS = CTHREADS + (WIDE ? 128 : 32);
+  static constexpr int Q_BYTES = ROWS * DH * 2;
+  static constexpr int STAGE_BYTES = 2 * NB * HALF_BYTES;
+  static constexpr int STAGES = WIDE ? 2 : 4;
+  static constexpr int SMEM_BYTES = Q_BYTES + STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+  static_assert(DH % 64 == 0 && SMEM_BYTES <= 232448, "fits the SM");
+};
 
 // named barriers among the 256 consumer threads (0 is __syncthreads)
 constexpr int BAR_ZERO = 1;  // both warpgroups: stale V rows zeroed
 constexpr int BAR_TURN = 2;  // + warpgroup: its turn to issue S = Q K^T
+constexpr int BAR_Q = 4;     // + warpgroup: its Q rows staged (128 threads)
 
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(128 * CONSUMERS) : "memory");
@@ -100,22 +129,30 @@ __device__ __forceinline__ void named_sync(int id) {
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(128 * CONSUMERS) : "memory");
 }
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
 
 // SPLIT: the ragged entry's instantiation, with the split-KV path for short
 // rows; the paged prefill entry's has none of that code
-template <int G, bool SPLIT>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int DH, bool SPLIT>
+__global__ void __launch_bounds__(Geo<DH>::THREADS, 1)
 prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
                const bf16* __restrict__ q, bf16* __restrict__ out,
                float* __restrict__ part_num, float* __restrict__ part_ml,
                const int* __restrict__ page_table,
                const int* __restrict__ positions,
-               const int* __restrict__ total_lens, int S, int Hkv, int ps, int P,
-               int box_rows, int oob_row, int n_tiles, int split_cap,
-               int split_span, int splits, float sm_scale, int window,
-               float softcap) {
-  constexpr int BQ = ROWS / G;  // query slots per block
-  constexpr int LIVE = BQ * G;  // rows holding a (slot, head); the rest idle
+               const int* __restrict__ total_lens, int S, int Hkv, int G,
+               int ps, int P, int box_rows, int oob_row, int n_tiles,
+               int split_cap, int split_span, int splits, float sm_scale,
+               int window, float softcap) {
+  using Gm = Geo<DH>;
+  constexpr int THREADS = Gm::THREADS;
+  constexpr int NB = Gm::NB;
+  constexpr int STAGES = Gm::STAGES;
+  constexpr int STAGE_BYTES = Gm::STAGE_BYTES;
+  const int BQ = ROWS / G;    // query slots per block
+  const int LIVE = BQ * G;    // rows holding a (slot, head); the rest idle
   const int Hq = Hkv * G;
   // blocks dispatch in x-fastest order: every pair's rank 0 first
   const int rank = (int)blockIdx.y;
@@ -194,7 +231,8 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024-byte aligned
   unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t bars = base + STAGES * STAGE_BYTES;
+  const uint32_t ring = base + Gm::Q_BYTES;     // the K/V stages, after Q
+  const uint32_t bars = ring + STAGES * STAGE_BYTES;
   // full[st] at bars + 8 st, empty[st] at bars + 8 (STAGES + st)
   if (tid == 0) {
     for (int st = 0; st < STAGES; ++st) {
@@ -205,8 +243,13 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
   }
   __syncthreads();
 
-  if (tid >= 128 * CONSUMERS) {
+  if (tid >= CTHREADS) {
     // ---- producer warp: TMA loads, one box per lane ----
+    if constexpr (Gm::WIDE) {
+      // 384 threads x 168 registers at launch: 128 x 24 + 256 x 240
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+      if (tid >= CTHREADS + 32) return;
+    }
     const int lane = tid & 31;
     const int boxes = KB / box_rows;
     const int* table = page_table + (long long)b * P;
@@ -234,17 +277,19 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
           rk = ((page_cur * 2) * Hkv + h) * ps + pos % ps;
           rv = rk + Hkv * ps;
         }
-        const uint32_t dst = base + st * STAGE_BYTES + lane * box_rows * 128;
-        tma_load(dst, &kv_map, full, 0, rk);
-        tma_load(dst + HALF_BYTES, &kv_map, full, 64, rk);
-        tma_load(dst + 2 * HALF_BYTES, &kv_map, full, 0, rv);
-        tma_load(dst + 3 * HALF_BYTES, &kv_map, full, 64, rv);
+        const uint32_t dst = ring + st * STAGE_BYTES + lane * box_rows * 128;
+#pragma unroll
+        for (int cb = 0; cb < NB; ++cb) {
+          tma_load(dst + cb * HALF_BYTES, &kv_map, full, 64 * cb, rk);
+          tma_load(dst + (NB + cb) * HALF_BYTES, &kv_map, full, 64 * cb, rv);
+        }
       }
       page_cur = page_nx1;
       page_nx1 = page_nx2;
     }
   } else {
     // ---- consumer warpgroups ----
+    if constexpr (Gm::WIDE) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int wg = tid / 128;
     const int warp = (tid % 128) / 32;
     const int lane = tid & 31;
@@ -262,27 +307,42 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
       qpos[k] = q_start + slot;
       orow[k] = (((long long)b * S + slot) * Hq + h * G + r % G) * DH;
     }
-    // Q as the A operand of S = Q K^T: q * sm_scale rounded to bf16
-    uint32_t qa[DH / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi)
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          float2 f = make_float2(0.f, 0.f);
-          if (has_slot[k])
-            f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                q + orow[k] + 16 * kk + 8 * hi + 2 * c4));
-          qa[kk][k + 2 * hi] = pack_bf16(f.x * sm_scale, f.y * sm_scale);
-        }
+    // Q, the A operand of S = Q K^T: q * sm_scale rounded to bf16, in the
+    // warpgroup's swizzled rows
+    const uint32_t qwg = base + wg * (NB * QBLOCK_BYTES);
+    unsigned char* qs = gbase + wg * (NB * QBLOCK_BYTES);
+    for (int idx = tid % 128; idx < 64 * (DH / 8); idx += 128) {
+      const int r = idx / (DH / 8), c8 = idx % (DH / 8);
+      const int rr = 64 * wg + r;
+      const int slot = tile0 + rr / G;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (rr < LIVE && slot < S) {
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            q + (((long long)b * S + slot) * Hq + h * G + rr % G) * DH + c8 * 8);
+        const __nv_bfloat162* hv = reinterpret_cast<const __nv_bfloat162*>(&w);
+        float2 f = __bfloat1622float2(hv[0]);
+        v.x = pack_bf16(f.x * sm_scale, f.y * sm_scale);
+        f = __bfloat1622float2(hv[1]);
+        v.y = pack_bf16(f.x * sm_scale, f.y * sm_scale);
+        f = __bfloat1622float2(hv[2]);
+        v.z = pack_bf16(f.x * sm_scale, f.y * sm_scale);
+        f = __bfloat1622float2(hv[3]);
+        v.w = pack_bf16(f.x * sm_scale, f.y * sm_scale);
+      }
+      *reinterpret_cast<uint4*>(qs + (c8 / 8) * QBLOCK_BYTES + r * 128 +
+                                (((c8 % 8) ^ (r & 7)) << 4)) = v;
+    }
+    fence_async_smem();
+    warpgroup_sync(BAR_Q + wg);
     // the warpgroup's query positions bound which chunks need a mask
     const int wg_lo = q_start + tile0 + (64 * wg) / G;
     const int wg_hi = q_start + tile0 + min(64 * wg + 63, LIVE - 1) / G;
 
-    float o[2][32];
+    float o[NB][32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[0][i] = o[1][i] = 0.f;
+    for (int hd = 0; hd < NB; ++hd)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[hd][i] = 0.f;
     float m_run[2] = {NEG_INF, NEG_INF};
     float l_run[2] = {0.f, 0.f};  // this thread's share of the row sum
 
@@ -293,12 +353,13 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
       const int st = i % STAGES;
       const int kc = kbase + i * KB;
       mbar_wait(bars + 8 * st, (uint32_t)(i / STAGES) & 1u);
-      const uint32_t kst = base + st * STAGE_BYTES;
+      const uint32_t kst = ring + st * STAGE_BYTES;
       if (kc + KB > kv_hi) {
         // V rows past the block's kv range: a live page's stale slots, or
         // the next split's rows -> zeros
-        unsigned char* vst = gbase + st * STAGE_BYTES + 2 * HALF_BYTES;
-        for (int idx = tid; idx < 2 * KB * 8; idx += 128 * CONSUMERS) {
+        unsigned char* vst =
+            gbase + Gm::Q_BYTES + st * STAGE_BYTES + NB * HALF_BYTES;
+        for (int idx = tid; idx < NB * KB * 8; idx += CTHREADS) {
           const int row = (idx / 8) % KB, half = idx / (8 * KB);
           if (kc + row >= kv_hi)
             *reinterpret_cast<uint4*>(vst + half * HALF_BYTES + row * 128 +
@@ -314,9 +375,10 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
       named_sync(BAR_TURN + wg);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        wgmma_64x64<0>(s, qa[kk],
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        wgmma_64x64_ss(s, smem_desc(qwg + (kk / 4) * QBLOCK_BYTES + (kk % 4) * 32),
                        smem_desc(kst + (kk / 4) * HALF_BYTES + (kk % 4) * 32));
+      }
       wg_commit();
       named_arrive(BAR_TURN + (1 - wg));
       wg_wait0();
@@ -363,10 +425,9 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
       }
       if (__any_sync(0xffffffffu, scale[0] != 1.f || scale[1] != 1.f)) {
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          o[0][j] *= scale[(j / 2) & 1];
-          o[1][j] *= scale[(j / 2) & 1];
-        }
+        for (int hd = 0; hd < NB; ++hd)
+#pragma unroll
+          for (int j = 0; j < 32; ++j) o[hd][j] *= scale[(j / 2) & 1];
       }
       uint32_t pa[KB / 16][4];
       // P (bf16) as the A operand: S's fragment of columns 16 kk .. + 15
@@ -380,9 +441,10 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < KB / 16; ++kk) {
-        const uint32_t vrow = kst + 2 * HALF_BYTES + kk * 16 * 128;
-        wgmma_64x64<1>(o[0], pa[kk], smem_desc(vrow));
-        wgmma_64x64<1>(o[1], pa[kk], smem_desc(vrow + HALF_BYTES));
+        const uint32_t vrow = kst + NB * HALF_BYTES + kk * 16 * 128;
+#pragma unroll
+        for (int hd = 0; hd < NB; ++hd)
+          wgmma_64x64<1>(o[hd], pa[kk], smem_desc(vrow + hd * HALF_BYTES));
       }
       wg_commit();
       wg_wait0();
@@ -402,7 +464,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
         if (!real[k]) continue;
         const long long prow = part_row0() + 64 * wg + 16 * warp + g4 + 8 * k;
 #pragma unroll
-        for (int hd = 0; hd < 2; ++hd)
+        for (int hd = 0; hd < NB; ++hd)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
             *reinterpret_cast<float2*>(part_num + prow * DH + 64 * hd + 8 * j +
@@ -417,7 +479,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
       const float den = fmaxf(l, 1e-20f);
       if (!has_slot[k]) continue;
 #pragma unroll
-      for (int hd = 0; hd < 2; ++hd)
+      for (int hd = 0; hd < NB; ++hd)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float x0 = real[k] ? o[hd][4 * j + 2 * k] / den : 0.f;
@@ -435,12 +497,12 @@ prefill_kernel(const __grid_constant__ CUtensorMap kv_map,
 // max) partials and normalises (merge_softmax_partials /
 // normalize_softmax_partials' arithmetic; dead partials, max -1e30, weigh
 // nothing and their unwritten num is selected away). Other blocks return.
-template <int G>
+template <int DH>
 __global__ void __launch_bounds__(DH)
 merge_kernel(const float* __restrict__ part_num,
              const float* __restrict__ part_ml, bf16* __restrict__ out,
              const int* __restrict__ positions,
-             const int* __restrict__ total_lens, int S, int Hkv,
+             const int* __restrict__ total_lens, int S, int Hkv, int G,
              int split_cap, int splits) {
   const int b = (int)blockIdx.x / Hkv, h = (int)blockIdx.x % Hkv;
   const int r = blockIdx.y;  // (slot, head) = (r / G, r % G)
@@ -467,12 +529,14 @@ merge_kernel(const float* __restrict__ part_num,
       __float2bfloat16_rn(num / fmaxf(den, 1e-20f));
 }
 
-template <int G, bool SPLIT>
+template <int DH, bool SPLIT>
 int launch(const void* q, const void* pages, void* out, const void* table,
            const void* positions, const void* lens, long long layer, int B,
-           int S, int Hkv, int N, int ps, int P, float sm_scale, int window,
-           float softcap, void* part_num, void* part_ml, int split_cap,
-           int split_pages, int splits, int n_work, cudaStream_t stream) {
+           int S, int Hkv, int G, int N, int ps, int P, float sm_scale,
+           int window, float softcap, void* part_num, void* part_ml,
+           int split_cap, int split_pages, int splits, int n_work,
+           cudaStream_t stream) {
+  constexpr int SMEM_BYTES = Geo<DH>::SMEM_BYTES;
   const int n_tiles = (S + ROWS / G - 1) / (ROWS / G);
   if (n_work < n_tiles ||
       (SPLIT &&
@@ -483,7 +547,7 @@ int launch(const void* q, const void* pages, void* out, const void* table,
   static bool smem_set = false;  // once per instantiation
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        prefill_kernel<G, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        prefill_kernel<DH, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
@@ -494,47 +558,44 @@ int launch(const void* q, const void* pages, void* out, const void* table,
   void* layer_base = const_cast<bf16*>(static_cast<const bf16*>(pages) + layer * rows * DH);
   if (!encode_rows_map(&map, layer_base, rows, DH, box_rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  prefill_kernel<G, SPLIT><<<dim3(B * Hkv, n_work), THREADS, SMEM_BYTES, stream>>>(
+  prefill_kernel<DH, SPLIT><<<dim3(B * Hkv, n_work), Geo<DH>::THREADS, SMEM_BYTES, stream>>>(
       map, static_cast<const bf16*>(q), static_cast<bf16*>(out),
       static_cast<float*>(part_num), static_cast<float*>(part_ml),
       static_cast<const int*>(table), static_cast<const int*>(positions),
-      static_cast<const int*>(lens), S, Hkv, ps, P, box_rows, (int)rows,
+      static_cast<const int*>(lens), S, Hkv, G, ps, P, box_rows, (int)rows,
       n_tiles, split_cap, split_pages * ps, SPLIT ? splits : 1, sm_scale, window,
       softcap);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !SPLIT) return static_cast<int>(e);
-  merge_kernel<G><<<dim3(B * Hkv, split_cap * G), DH, 0, stream>>>(
+  merge_kernel<DH><<<dim3(B * Hkv, split_cap * G), DH, 0, stream>>>(
       static_cast<const float*>(part_num), static_cast<const float*>(part_ml),
       static_cast<bf16*>(out), static_cast<const int*>(positions),
-      static_cast<const int*>(lens), S, Hkv, split_cap, splits);
+      static_cast<const int*>(lens), S, Hkv, G, split_cap, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool SPLIT>
 int dispatch(const void* q, const void* pages, void* out, const void* table,
              const void* positions, const void* lens, long long layer, int B,
-             int S, int Hq, int Hkv, int N, int ps, int P, float sm_scale,
-             int window, float softcap, void* part_num, void* part_ml,
-             int split_cap, int split_pages, int splits, int n_work,
-             void* stream) {
+             int S, int Hq, int Hkv, int Dh, int N, int ps, int P,
+             float sm_scale, int window, float softcap, void* part_num,
+             void* part_ml, int split_cap, int split_pages, int splits,
+             int n_work, void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv || ps % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAX_G || ps % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DYN_CASE(GV)                                                        \
-  case GV:                                                                  \
-    return launch<GV, SPLIT>(q, pages, out, table, positions, lens, layer,  \
-                             B, S, Hkv, N, ps, P, sm_scale, window, softcap, \
-                             part_num, part_ml, split_cap, split_pages,     \
-                             splits, n_work, s);
-  switch (Hq / Hkv) {
-    DYN_CASE(1)
-    DYN_CASE(2)
-    DYN_CASE(3)
-    DYN_CASE(4)
-    DYN_CASE(5)
-    DYN_CASE(6)
-    DYN_CASE(7)
-    DYN_CASE(8)
+  const int G = Hq / Hkv;
+#define DYN_CASE(DV)                                                           \
+  case DV:                                                                     \
+    return launch<DV, SPLIT>(q, pages, out, table, positions, lens, layer, B,  \
+                             S, Hkv, G, N, ps, P, sm_scale, window, softcap,   \
+                             part_num, part_ml, split_cap, split_pages, splits, \
+                             n_work, s);
+  switch (Dh) {
+    DYN_CASE(64)
+    DYN_CASE(128)
+    DYN_CASE(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -548,13 +609,15 @@ extern "C" int paged_prefill_launch(const void* q, const void* pages,
                                     void* out, const void* page_table,
                                     const void* positions,
                                     const void* total_lens, long long layer,
-                                    int B, int S, int Hq, int Hkv, int N,
-                                    int ps, int P, float sm_scale, int window,
-                                    float softcap, void* stream) {
-  const int G = Hkv > 0 && Hq % Hkv == 0 ? Hq / Hkv : 1;
+                                    int B, int S, int Hq, int Hkv, int Dh,
+                                    int N, int ps, int P, float sm_scale,
+                                    int window, float softcap, void* stream) {
+  // a geometry dispatch refuses still needs a tile count that divides
+  const int G = Hkv > 0 && Hq >= Hkv && Hq % Hkv == 0 && Hq / Hkv <= MAX_G
+                    ? Hq / Hkv : 1;
   const int n_tiles = (S + ROWS / G - 1) / (ROWS / G);
   return dispatch<false>(q, pages, out, page_table, positions, total_lens,
-                         layer, B, S, Hq, Hkv, N, ps, P, sm_scale, window,
+                         layer, B, S, Hq, Hkv, Dh, N, ps, P, sm_scale, window,
                          softcap, nullptr, nullptr, 0, 0, 1, n_tiles, stream);
 }
 
@@ -567,13 +630,13 @@ extern "C" int ragged_mixed_launch(const void* q, const void* pages, void* out,
                                    const void* page_table,
                                    const void* positions,
                                    const void* total_lens, long long layer,
-                                   int B, int S, int Hq, int Hkv, int N, int ps,
-                                   int P, float sm_scale, int window,
+                                   int B, int S, int Hq, int Hkv, int Dh, int N,
+                                   int ps, int P, float sm_scale, int window,
                                    float softcap, void* part_num, void* part_ml,
                                    int split_cap, int split_pages, int splits,
                                    int n_work, void* stream) {
   return dispatch<true>(q, pages, out, page_table, positions, total_lens,
-                        layer, B, S, Hq, Hkv, N, ps, P, sm_scale, window,
+                        layer, B, S, Hq, Hkv, Dh, N, ps, P, sm_scale, window,
                         softcap, part_num, part_ml, split_cap, split_pages,
                         splits, n_work, stream);
 }

@@ -69,6 +69,18 @@ def decode_splits(B: int, Hkv: int, P: int, ps: int,
                        SPLIT_POSITIONS, SPLIT_MIN_POSITIONS, SPLIT_MAX_PAGES)
 
 
+# most query heads one block of the kernel holds in registers: the
+# kernel refuses a sub-group count that would give a block more
+BLOCK_HEADS = 8
+
+
+def decode_subgroups(G: int) -> int:
+    """Blocks per (row, kv head), the kernel's ``subs`` argument: a group
+    of G query heads splits into ``ceil(G / 8)`` sub-groups of at most 8,
+    each streaming the kv head's pages itself."""
+    return -(-G // BLOCK_HEADS)
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -101,7 +113,10 @@ def paged_decode_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
     _L, N, _two, Hkv, ps, _ = pages.shape
     P = page_table.shape[1]
     sms = sm_count(q.device.index or 0)
-    splits, per = decode_splits(B, Hkv, P, ps, sms)
+    # a group of more than 8 query heads takes one block per sub-group of
+    # its kv head's heads: B * subs rows of blocks to spread over the SMs
+    subs = decode_subgroups(Hq // Hkv)
+    splits, per = decode_splits(B * subs, Hkv, P, ps, sms)
     out = torch.empty_like(q)
     part_num = part_ml = None
     if splits > 1:
@@ -114,7 +129,7 @@ def paged_decode_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
               None if part_num is None else part_num.data_ptr(),
               None if part_ml is None else part_ml.data_ptr(),
               page_table.data_ptr(), total_lens.data_ptr(), int(layer_idx),
-              B, Hq, Hkv, N, ps, P, per, splits, float(sm_scale),
+              B, Hq, Hkv, subs, Dh, N, ps, P, per, splits, float(sm_scale),
               window_arg(window), softcap_arg(softcap),
               build.stream_ptr(q.device))
     build.check(code, "paged_decode")
@@ -123,4 +138,4 @@ def paged_decode_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
 
 
 __all__ = ["paged_decode_attention_stacked", "paged_decode_plain",
-           "decode_splits", "plan_splits", "sm_count"]
+           "decode_splits", "decode_subgroups", "plan_splits", "sm_count"]

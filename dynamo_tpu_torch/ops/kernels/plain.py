@@ -126,41 +126,64 @@ LOG2E = 1.4426950408889634
 
 def online_attention_rows(qs: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, qpos: torch.Tensor, ctx: int,
-                          chunk: int = 64) -> torch.Tensor:
+                          chunk: int = 64, window: int = 0,
+                          softcap: float = 0.0, spans=None) -> torch.Tensor:
     """Chosen (query, head) rows of one sequence and kv head through the
     online softmax of ``csrc/prefill_sm90.cu``, where it rounds: the
-    context in chunks of ``chunk`` positions from 0, a running max ``m``,
-    ``p = 2^(s log2e - m log2e)`` rounded to bf16 for P.V against the max
-    SO FAR (the plain version rounds against the row's final max), the
-    accumulator and row sum rescaled as the max grows, one division at the
-    end. The TPU kernel rounds p the same way, against its own chunk's
+    context in chunks of ``chunk`` positions from the start of its kv
+    range, a running max ``m``, ``p = 2^(s log2e - m log2e)`` rounded to
+    bf16 for P.V against the max SO FAR (the plain version rounds against
+    the row's final max), the accumulator and row sum rescaled as the max
+    grows. The TPU kernel rounds p the same way, against its own chunk's
     running max (``dynamo_tpu/ops/pallas/prefill.py:196-207``).
+
+    Softcap ``cap * tanh(s / cap)`` before the mask; a window ``w > 0``
+    masks positions ``t <= qpos - w``. ``spans``: the kv ranges ``[lo,
+    hi)`` the kernel's blocks take for these rows, each its own online
+    softmax, merged as ``merge_kernel`` merges split partials (weights
+    ``exp(m_i - max m)``, one division at the end); one range ``[0, ctx)``
+    by default.
 
     qs [R, Dh]: q * sm_scale already rounded to bf16; k, v [T, Dh] the
     row's context (positions 0..T-1); qpos [R] the rows' positions.
     Returns bf16 [R, Dh]."""
     R = qs.shape[0]
     dev = qs.device
-    m = torch.full((R,), NEG_INF, device=dev)
-    den = torch.zeros(R, device=dev)
-    acc = torch.zeros((R, qs.shape[1]), device=dev)
     visible = min(ctx, int(qpos.max()) + 1)
-    for c0 in range(0, visible, chunk):
-        t = torch.arange(c0, min(c0 + chunk, k.shape[0]), device=dev)
-        live = (t < ctx)[:, None]
-        kc = torch.where(live, k[t].float(), 0.0)
-        vc = torch.where(live, v[t].float(), 0.0)
-        s = qs.float() @ kc.T                                    # [R, n]
-        s = torch.where((t[None, :] <= qpos[:, None]) & live.T, s, NEG_INF)
-        mx = torch.maximum(m, s.amax(dim=-1))
-        ml = torch.where(mx > NEG_INF / 2, mx * LOG2E, 0.0)
-        scale = torch.exp2(m * LOG2E - ml)
-        m = mx
-        # s * log2e - m log2e as one fused multiply-add, as the kernel
-        p = torch.exp2((s.double() * LOG2E - ml.double()[:, None]).float())
-        den = den * scale + p.sum(dim=-1)
-        acc = acc * scale[:, None] + p.to(torch.bfloat16).float() @ vc
-    return (acc / torch.clamp(den, min=1e-20)[:, None]).to(torch.bfloat16)
+    num = torch.zeros((R, qs.shape[1]), device=dev)
+    den = torch.zeros(R, device=dev)
+    parts = []
+    for lo, hi in spans or [(0, ctx)]:
+        m = torch.full((R,), NEG_INF, device=dev)
+        l_run = torch.zeros(R, device=dev)
+        acc = torch.zeros((R, qs.shape[1]), device=dev)
+        for c0 in range(lo, min(hi, visible), chunk):
+            t = torch.arange(c0, min(c0 + chunk, k.shape[0]), device=dev)
+            live = (t < min(ctx, hi))[:, None]
+            kc = torch.where(live, k[t].float(), 0.0)
+            vc = torch.where(live, v[t].float(), 0.0)
+            s = qs.float() @ kc.T                                # [R, n]
+            if softcap:
+                s = softcap * torch.tanh(s / softcap)
+            seen = (t[None, :] <= qpos[:, None]) & live.T
+            if window:
+                seen &= t[None, :] > qpos[:, None] - window
+            s = torch.where(seen, s, NEG_INF)
+            mx = torch.maximum(m, s.amax(dim=-1))
+            ml = torch.where(mx > NEG_INF / 2, mx * LOG2E, 0.0)
+            scale = torch.exp2(m * LOG2E - ml)
+            m = mx
+            # s * log2e - m log2e as one fused multiply-add, as the kernel
+            p = torch.exp2((s.double() * LOG2E - ml.double()[:, None]).float())
+            l_run = l_run * scale + p.sum(dim=-1)
+            acc = acc * scale[:, None] + p.to(torch.bfloat16).float() @ vc
+        parts.append((m, l_run, acc))
+    top = torch.stack([m for m, _l, _a in parts]).amax(dim=0)
+    for m, l_run, acc in parts:
+        w = torch.where(m > NEG_INF / 2, torch.exp(m - top), 0.0)
+        num = num + w[:, None] * acc
+        den = den + w * l_run
+    return (num / torch.clamp(den, min=1e-20)[:, None]).to(torch.bfloat16)
 
 
 def row_ulp_error(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

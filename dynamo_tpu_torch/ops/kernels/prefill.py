@@ -41,13 +41,13 @@ def paged_prefill_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
                                    softcap)
     check_cuda_args("paged_prefill", q, pages, layer_idx, page_table,
                     total_lens, positions)
-    B, S, Hq, _Dh = q.shape
+    B, S, Hq, Dh = q.shape
     _L, N, _two, Hkv, ps, _ = pages.shape
     out = torch.empty_like(q)
     code = build.library("prefill_sm90").paged_prefill_launch(
         q.data_ptr(), pages.data_ptr(), out.data_ptr(), page_table.data_ptr(),
         positions.data_ptr(), total_lens.data_ptr(), int(layer_idx), B, S, Hq,
-        Hkv, N, ps, page_table.shape[1], float(sm_scale), window_arg(window),
+        Hkv, Dh, N, ps, page_table.shape[1], float(sm_scale), window_arg(window),
         softcap_arg(softcap), build.stream_ptr(q.device))
     build.check(code, "paged_prefill")
     LAUNCHES["paged_prefill"] += 1

@@ -37,7 +37,8 @@ BLOCK_ROWS = 128
 # within 1% of the fastest at the B=8 mixed case)
 SPLIT_POSITIONS = 1024
 SPLIT_MIN_POSITIONS = 256
-# one block of the kernel per SM (132 KB of shared memory each)
+# one block of the kernel per SM (65-197 KB of shared memory each, and 288
+# threads of up to 224 registers)
 BLOCKS_PER_SM = 1
 
 
@@ -93,7 +94,7 @@ def ragged_mixed_attention_stacked(q: torch.Tensor, pages: torch.Tensor,
     code = build.library("prefill_sm90").ragged_mixed_launch(
         q.data_ptr(), pages.data_ptr(), out.data_ptr(),
         page_table.data_ptr(), positions.data_ptr(), total_lens.data_ptr(),
-        int(layer_idx), B, S, Hq, Hkv, N, ps, P, float(sm_scale),
+        int(layer_idx), B, S, Hq, Hkv, Dh, N, ps, P, float(sm_scale),
         window_arg(window), softcap_arg(softcap), part_num.data_ptr(),
         part_ml.data_ptr(), SPLIT_Q_CAP, per, splits, n_work,
         build.stream_ptr(q.device))

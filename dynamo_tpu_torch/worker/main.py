@@ -24,10 +24,12 @@ resume from pulled KV. ``--quantize int8`` and
 ``--speculative-num-tokens`` (with its n-gram and chain-break knobs) go
 into the engine's config as the reference's worker passes them, the disagg
 decode role included, and ``--moe-backend`` replaces a MoE config's expert
-backend, as the reference's worker does.
+backend, as the reference's worker does. A ``--model-path`` ending in
+``.gguf`` loads a GGUF file (``models/gguf.py``), as the reference's
+worker does.
 
 Flags whose paths are not ported exit non-zero naming their ROADMAP item:
-parallelism over several devices or nodes (A13), GGUF files (A6b).
+parallelism over several devices or nodes (A13).
 """
 
 from __future__ import annotations
@@ -199,9 +201,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
             "KVBM tiers with --disagg decode are not supported yet: "
             "the disagg decode path pulls prefixes from prefill "
             "workers and bypasses tier onboarding")
-    if args.model_path.endswith(".gguf"):
-        raise SystemExit(f"{args.model_path}: GGUF models need the GGUF "
-                         "reader port (ROADMAP A6b)")
     if args.attn_impl != "auto":
         raise SystemExit(f"--attn-impl {args.attn_impl}: the port serves "
                          "auto only (its CUDA kernels on the GPU, their "
@@ -225,7 +224,12 @@ def arm_guided(engine, card) -> None:
 def build_engine(args: argparse.Namespace) -> TorchEngine:
     refuse_unported(args)
     device = resolve_device(args.device)
-    cfg = ModelConfig.from_pretrained(args.model_path, dtype=args.dtype)
+    is_gguf = args.model_path.endswith(".gguf")
+    if is_gguf:
+        from dynamo_tpu_torch.models.gguf import GgufFile
+        cfg = GgufFile(args.model_path).to_model_config(dtype=args.dtype)
+    else:
+        cfg = ModelConfig.from_pretrained(args.model_path, dtype=args.dtype)
     if args.moe_backend is not None and cfg.num_experts:
         cfg = dataclasses.replace(cfg, moe_backend=args.moe_backend)
     engine_cfg = TorchEngineConfig(
@@ -247,6 +251,9 @@ def build_engine(args: argparse.Namespace) -> TorchEngine:
         # not the JAX worker's weights, which come from jax.random
         gen = torch.Generator(device=device).manual_seed(0)
         params = get_family(cfg).init_params(cfg, gen, device=device)
+    elif is_gguf:
+        from dynamo_tpu_torch.models.gguf import load_gguf_params
+        params = load_gguf_params(cfg, args.model_path, device=device)
     else:
         params = load_hf_params(cfg, args.model_path, device=device)
     return TorchEngine(cfg, params, engine_cfg, device=device)

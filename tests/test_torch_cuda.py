@@ -16,10 +16,9 @@ of a split boundary, a window starting inside a split; for the TMA + wgmma
 prefill kernel: S not a multiple of the query tile, pad tiles, a prefix
 whose end is not a multiple of the 64-position kv chunk, window + softcap,
 and page sizes whose TMA boxes are 8, 16 and 64 rows, and the rows of
-``chip_smoke.py``'s prefix-hit case that sit past 1 ulp of the plain
-version held within 1 ulp of the kernel's own chunked rounding. For the
-ragged
-kernel's split-KV path (short rows spread over several blocks, then
+``chip_smoke.py``'s prefix-hit case, and of its B2/B3 cases at the
+widened geometries, that sit past 1 ulp of the plain version held within
+1 ulp of the kernel's own chunked rounding. For the ragged kernel's split-KV path (short rows spread over several blocks, then
 merged): every G, decode rows whose contexts end on and either side of a
 split boundary and fill the table, window + softcap, and rows with q_len
 at the split cap and one past it beside a long chunk. For the split-KV MLA
@@ -60,7 +59,8 @@ import torch
 from dynamo_tpu_torch.ops.kernels import LAUNCHES
 from dynamo_tpu_torch.ops.kernels._wrap import GROUPS
 from dynamo_tpu_torch.ops.kernels.decode import (
-    decode_splits, paged_decode_attention_stacked, paged_decode_plain)
+    decode_splits, decode_subgroups, paged_decode_attention_stacked,
+    paged_decode_plain)
 from dynamo_tpu_torch.ops.kernels.mla_decode import (mla_decode_plain,
                                                      mla_decode_splits,
                                                      mla_paged_decode_layer,
@@ -86,13 +86,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(dev, Hq, Hkv, q_lens, ctxs, S, ps=16, seed=0, P=None):
+def _case(dev, Hq, Hkv, q_lens, ctxs, S, ps=16, seed=0, P=None, Dh=128):
     rng = np.random.default_rng(seed)
     B = len(ctxs)
     P = P or -(-max(ctxs) // ps) + 2
     N = sum(-(-c // ps) for c in ctxs) + 1
     g = torch.Generator(device=dev).manual_seed(seed)
-    pages = torch.randn((2, N, 2, Hkv, ps, 128), generator=g, device=dev
+    pages = torch.randn((2, N, 2, Hkv, ps, Dh), generator=g, device=dev
                         ).to(torch.bfloat16)
     pages[:, 0] = float("nan")
     perm = rng.permutation(np.arange(1, N)).astype(np.int32)
@@ -104,11 +104,11 @@ def _case(dev, Hq, Hkv, q_lens, ctxs, S, ps=16, seed=0, P=None):
         table[i, :n] = perm[off:off + n]
         off += n
         pos[i, :ql] = np.arange(c - ql, c)
-    q = torch.randn((B, S, Hq, 128), generator=g, device=dev
+    q = torch.randn((B, S, Hq, Dh), generator=g, device=dev
                     ).to(torch.bfloat16)
     return (q, pages, 1, torch.from_numpy(table).to(dev),
             torch.from_numpy(pos).to(dev),
-            torch.tensor(ctxs, dtype=torch.int32, device=dev), 0.0883883)
+            torch.tensor(ctxs, dtype=torch.int32, device=dev), Dh ** -0.5)
 
 
 def _check(fn, plain, args, q_lens, name, **kw):
@@ -125,22 +125,30 @@ def _check(fn, plain, args, q_lens, name, **kw):
             assert float(out[i, ql:].float().abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("Hq,Hkv", [(8, 8), (8, 4), (24, 8), (16, 4),
-                                    (24, 4), (32, 4), (40, 8), (28, 4)])
-def test_decode_groups(dev, Hq, Hkv):
+# (Hq, Hkv, Dh): the groups at head_dim 128, then Gemma-2-9B's and -2B's
+# head_dim 256, Llama-3.2-1B's 64, groups of 12 (Mistral-Large-2's 96/8)
+# and 16 (Qwen3-235B-A22B's 64/4), which B1 splits into sub-groups of 6
+# and 8 heads, and an odd split (G = 11: sub-groups of 6 and 5 heads)
+GEOMETRIES = [(8, 8, 128), (8, 4, 128), (24, 8, 128), (16, 4, 128),
+              (24, 4, 128), (32, 4, 128), (40, 8, 128), (28, 4, 128),
+              (16, 8, 256), (8, 4, 256), (32, 8, 64), (96, 8, 128),
+              (64, 4, 128), (16, 1, 64), (48, 4, 256), (11, 1, 128)]
+
+
+@pytest.mark.parametrize("Hq,Hkv,Dh", GEOMETRIES)
+def test_decode_groups(dev, Hq, Hkv, Dh):
     ctxs = [1, 17, 300, 2049]
-    args = _case(dev, Hq, Hkv, [1] * 4, ctxs, 1)
+    args = _case(dev, Hq, Hkv, [1] * 4, ctxs, 1, Dh=Dh)
     _check(paged_decode_attention_stacked, paged_decode_plain, args,
            [1] * 4, "paged_decode")
     _check(paged_decode_attention_stacked, paged_decode_plain, args,
            [1] * 4, "paged_decode", window=100, softcap=20.0)
 
 
-@pytest.mark.parametrize("Hq,Hkv", [(8, 8), (8, 4), (24, 8), (32, 4),
-                                    (40, 8), (28, 4)])
-def test_prefill_and_ragged_groups(dev, Hq, Hkv):
+@pytest.mark.parametrize("Hq,Hkv,Dh", GEOMETRIES)
+def test_prefill_and_ragged_groups(dev, Hq, Hkv, Dh):
     q_lens, ctxs, S = [77, 1, 130, 5], [77, 400, 1000, 5], 130
-    args = _case(dev, Hq, Hkv, q_lens, ctxs, S, seed=3)
+    args = _case(dev, Hq, Hkv, q_lens, ctxs, S, seed=3, Dh=Dh)
     for fn, plain, name in (
             (paged_prefill_attention_stacked, paged_prefill_plain,
              "paged_prefill"),
@@ -159,7 +167,8 @@ def test_decode_split_boundaries(dev, G):
     """Contexts ending one before, on and one after a split boundary, a
     full table, and a window whose start lies inside a split."""
     B, Hkv, P, ps = 4, 8, 256, 16
-    splits, per = decode_splits(B, Hkv, P, ps, _sms(dev))
+    splits, per = decode_splits(B * decode_subgroups(G), Hkv, P, ps,
+                                _sms(dev))
     assert splits > 1
     edge = per * ps
     args = _case(dev, G * Hkv, Hkv, [1] * B,
@@ -224,6 +233,28 @@ def test_prefill_prefix_hit_rows_round_as_chunked(dev):
                for _b, _s, _h, _p, kp, km, _pm in flagged), flagged
 
 
+def test_geometry_rows_round_as_chunked(dev):
+    """Phase 2's B2 and B3 cases at the widened geometries (head_dim 256
+    with window and softcap, head_dim 64, groups 12 and 16), rebuilt from
+    the same draws: every row more than 1 ulp from the plain version is
+    within 1 ulp of ``online_attention_rows`` (a B3 decode row over its
+    splits' ranges), so the excess is the chunked rounding."""
+    import chip_smoke as cs
+    labels = {label for label, _heads in cs.GEOMETRY_CASES}
+    seen = 0
+    for name, label, case, S, _d in cs.kernel_cases(
+            np.random.default_rng(0)):
+        if name == "paged_decode" or not any(label.startswith(t)
+                                             for t in labels):
+            continue
+        worst, flagged = cs.prefill_rows_report(case, S, name=name,
+                                                label=label)
+        assert worst["kernel_vs_plain"] <= TOL_ULPS, (label, worst)
+        assert all(km <= 1.0 for *_r, km, _pm in flagged), (label, flagged)
+        seen += 1
+    assert seen == 2 * len(labels)
+
+
 @pytest.mark.parametrize("ps", [8, 24, 64, 128])
 def test_prefill_page_sizes(dev, ps):
     """TMA boxes of gcd(ps, 64) rows: 8 (ps 8, 24), 64 (ps 64, 128); a
@@ -256,10 +287,31 @@ def test_ragged_split_rows(dev, G):
            "ragged_mixed", window=edge // 2 + 3, softcap=30.0)
 
 
+@pytest.mark.parametrize("Dh", [64, 256])
+@pytest.mark.parametrize("ps", [8, 64])
+def test_head_dims_page_sizes(dev, Dh, ps):
+    """Head dims 64 (a TMA row of one 64-column box) and 256 (Q in shared
+    memory, a 2-stage ring) at TMA boxes of 8 and 64 rows, contexts past
+    many ring turns, pad tiles, a window with softcap, and decode rows
+    beside a chunk in the ragged entry."""
+    q_lens, ctxs, S = [200, 1, 33, 1], [200, 1500, 1201, 4000], 200
+    args = _case(dev, 16, 8, q_lens, ctxs, S, ps=ps, seed=Dh + ps, Dh=Dh)
+    for fn, plain, name in (
+            (paged_prefill_attention_stacked, paged_prefill_plain,
+             "paged_prefill"),
+            (ragged_mixed_attention_stacked, ragged_mixed_plain,
+             "ragged_mixed")):
+        _check(fn, plain, args, q_lens, name)
+        _check(fn, plain, args, q_lens, name, window=150, softcap=50.0)
+    dec = _case(dev, 16, 8, [1] * 4, ctxs, 1, ps=ps, seed=Dh + ps, Dh=Dh)
+    _check(paged_decode_attention_stacked, paged_decode_plain, dec, [1] * 4,
+           "paged_decode", window=1000, softcap=50.0)
+
+
 def test_wrappers_reject_what_kernels_do_not_take(dev):
     args = list(_case(dev, 8, 4, [1], [40], 1))
     bad_dh = list(args)
-    bad_dh[0] = torch.zeros((1, 1, 8, 64), dtype=torch.bfloat16, device=dev)
+    bad_dh[0] = torch.zeros((1, 1, 8, 96), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         paged_decode_attention_stacked(*bad_dh)
     bad_dtype = list(args)
@@ -270,8 +322,8 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
     bad_table[3] = args[3].long()
     with pytest.raises(TypeError, match="int32"):
         paged_prefill_attention_stacked(*bad_table)
-    bad_groups = list(_case(dev, 16, 1, [1], [40], 1))
-    with pytest.raises(ValueError, match="groups"):
+    bad_groups = list(_case(dev, 32, 1, [1], [40], 1))
+    with pytest.raises(ValueError, match="group"):
         paged_decode_attention_stacked(*bad_groups)
 
 
@@ -1336,8 +1388,9 @@ def test_moe_engine_serves_both_backends_on_the_card(dev):
 
 def test_engine_refuses_geometries_the_kernels_do_not_take(dev):
     """On the card ``TorchEngine`` refuses at construction what the GQA
-    kernels do not take: head_dim 256 (Gemma-2-2B / 9B, ROADMAP Queue B),
-    a query group outside ``GROUPS``, a float32 model."""
+    kernels do not take: head_dim 96 or 512 (ROADMAP Queue C), a query
+    group outside ``GROUPS`` (32 heads over 1), a float32 model; and takes
+    head_dim 64 and 256 with a group of 16."""
     from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
                                                       TorchEngineConfig)
     from dynamo_tpu_torch.models.config import ModelConfig
@@ -1345,12 +1398,20 @@ def test_engine_refuses_geometries_the_kernels_do_not_take(dev):
                 num_layers=1, dtype="bfloat16")
     sizes = TorchEngineConfig(num_pages=8, page_size=16, max_num_seqs=2,
                               max_context=64)
-    for kw, match in ((dict(num_heads=4, num_kv_heads=2, head_dim=256,
-                            model_type="gemma2"), "head_dim=128, got 256"),
-                      (dict(num_heads=16, num_kv_heads=1, head_dim=128),
-                       "groups"),
+    for kw, match in ((dict(num_heads=4, num_kv_heads=2, head_dim=96),
+                       "got 96"),
+                      (dict(num_heads=4, num_kv_heads=2, head_dim=512,
+                            model_type="gemma2"), "got 512"),
+                      (dict(num_heads=32, num_kv_heads=1, head_dim=128),
+                       "32/1 is not a group"),
                       (dict(num_heads=4, num_kv_heads=2, head_dim=128,
                             dtype="float32"), "bfloat16")):
         cfg = ModelConfig(**dict(base, **kw))
         with pytest.raises(ValueError, match=match):
             TorchEngine.random_init(cfg, sizes, device=dev)
+    for kw in (dict(num_heads=16, num_kv_heads=1, head_dim=64),
+               dict(num_heads=4, num_kv_heads=2, head_dim=256,
+                    model_type="gemma2")):
+        engine = TorchEngine.random_init(ModelConfig(**dict(base, **kw)),
+                                         sizes, device=dev)
+        del engine

@@ -23,10 +23,15 @@ handed over as numpy) and go through both packages in one process:
   identical greedy streams, with a prefix-cache hit and mixed steps, on
   both expert backends, with equal drop counts in ``stats()``;
 - ``params_from_jax`` keeps ``router_bias`` float32, and ``init_params``
-  builds the reference's tree.
+  builds the reference's tree;
+- the checkpoint loader: a random tiny ``DeepseekV2ForCausalLM`` written
+  by transformers (sharded) loads through the port and the reference into
+  equal trees, and the engines on them give equal greedy streams; a
+  checkpoint missing a routed expert is refused.
 """
 
 import asyncio
+import os
 
 import jax
 import jax.numpy as jnp
@@ -584,3 +589,96 @@ def test_engine_refuses_geometry_the_kernels_do_not_take(monkeypatch):
     cfg = ModelConfig(**cfg_kw(dtype="bfloat16"))
     with pytest.raises(ValueError, match="num_heads=4"):
         TorchEngine(cfg, {}, TorchEngineConfig(**SIZES), device="cuda")
+
+
+def _write_deepseek_checkpoint(path):
+    """A random tiny ``DeepseekV2ForCausalLM`` written by transformers
+    (``tests/test_deepseek.py``'s geometry: layer 0 dense, layers 1-2 MoE
+    with shared experts), its norms random so a loader that skipped them
+    would show; returns its ``config.json``."""
+    import json
+    from transformers import DeepseekV2Config, DeepseekV2ForCausalLM
+    hf_cfg = DeepseekV2Config(
+        vocab_size=256, hidden_size=64, intermediate_size=96,
+        moe_intermediate_size=32, num_hidden_layers=3,
+        num_attention_heads=4, num_key_value_heads=4,
+        n_routed_experts=4, n_shared_experts=2, num_experts_per_tok=2,
+        first_k_dense_replace=1, norm_topk_prob=False,
+        routed_scaling_factor=1.0, topk_method="greedy",
+        q_lora_rank=None, kv_lora_rank=32, qk_rope_head_dim=16,
+        qk_nope_head_dim=32, v_head_dim=32, head_dim=48,
+        max_position_embeddings=128, rms_norm_eps=1e-6,
+        rope_theta=10000.0, tie_word_embeddings=False,
+        attention_bias=False)
+    torch.manual_seed(0)
+    model = DeepseekV2ForCausalLM(hf_cfg).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.copy_(1.0 + 0.1 * torch.randn_like(p))
+    model.save_pretrained(path, safe_serialization=True,
+                          max_shard_size="200KB")
+    with open(os.path.join(path, "config.json")) as f:
+        return json.load(f)
+
+
+def _tree_leaves(tree, prefix=()):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _tree_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+@pytest.mark.async_timeout(240)
+async def test_deepseek_checkpoint_loads_as_the_reference(tmp_path):
+    """A DeepSeek-V2 checkpoint (sharded safetensors) loads through the
+    port's ``load_hf_params`` -> ``deepseek.load_params`` into the
+    reference's two-stack tree, every leaf equal to the reference
+    loader's (float32), and the engines on the two loaded trees give the
+    same greedy streams (``_workload``, per step)."""
+    from dynamo_tpu.models.hf_loader import load_hf_params as jload
+    from dynamo_tpu_torch.models.hf_loader import load_hf_params
+    hf = _write_deepseek_checkpoint(str(tmp_path))
+    cfg = ModelConfig.from_hf(hf, dtype="float32")
+    jcfg = JModelConfig.from_hf(hf, dtype="float32")
+    got = dict(_tree_leaves(load_hf_params(cfg, str(tmp_path),
+                                           device="cpu")))
+    jtree = jload(jcfg, str(tmp_path))
+    want = dict(_tree_leaves(jtree))
+    assert sorted(got) == sorted(want)
+    assert ("moe_layers", "w_gate") in got and ("lm_head",) in got
+    for path, w in want.items():
+        g = got[path]
+        assert tuple(g.shape) == tuple(w.shape), path
+        assert g.dtype == torch.float32 and g.is_contiguous(), path
+        assert np.array_equal(g.numpy(), np.asarray(w)), path
+    jeng = JaxEngine(jcfg, jtree, JaxEngineConfig(
+        attn_impl="scan", decode_multistep=1, pipeline_decode=False,
+        **SIZES))
+    params = load_hf_params(cfg, str(tmp_path), device="cpu")
+    teng = TorchEngine(cfg, params, TorchEngineConfig(
+        decode_multistep=1, pipeline_decode=False, **SIZES), device="cpu")
+    ref = await _workload(jeng, JRequest, JSampling, JStop)
+    out = await _workload(teng, TRequest, TSampling, TStop)
+    for rid in MAX_TOKENS:
+        assert out[rid][:2] == ref[rid][:2], rid
+    assert all(n > 0 for n in teng.kernel_launches.values())
+
+
+def test_deepseek_loader_refuses_a_missing_expert(tmp_path):
+    """One routed expert tensor gone: the port's loader names it."""
+    from safetensors.torch import load_file, save_file
+    from dynamo_tpu_torch.models.hf_loader import load_hf_params
+    hf = _write_deepseek_checkpoint(str(tmp_path))
+    name = "model.layers.2.mlp.experts.3.down_proj.weight"
+    for f in os.listdir(tmp_path):
+        if f.endswith(".safetensors"):
+            tensors = load_file(str(tmp_path / f))
+            if name in tensors:
+                del tensors[name]
+                save_file(tensors, str(tmp_path / f),
+                          metadata={"format": "pt"})
+    cfg = ModelConfig.from_hf(hf, dtype="float32")
+    with pytest.raises(ValueError, match="moe_layers.w_down"):
+        load_hf_params(cfg, str(tmp_path), device="cpu")

@@ -18,6 +18,8 @@ reference's ``tests/test_kvbm.py`` cases with ``TieredEngine`` over
   ``kv_export`` endpoint.
 """
 
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -75,11 +77,12 @@ def teng(weights, **kw) -> TorchEngine:
 
 
 def tiered(weights, disk_path=None, host_bytes=1 << 20, disk_bytes=0,
-           **kw):
+           prefetch_depth_bytes=None, **kw):
     eng = teng(weights, **kw)
     return TieredEngine(eng, TieredKvConfig(
         host_budget_bytes=host_bytes, disk_budget_bytes=disk_bytes,
-        disk_path=disk_path or "/nonexistent")), eng
+        disk_path=disk_path or "/nonexistent",
+        prefetch_depth_bytes=prefetch_depth_bytes)), eng
 
 
 async def collect(engine, req):
@@ -178,6 +181,65 @@ def test_disk_files_cross_frameworks(tmp_path, dtype):
     assert jblk.data.tobytes() == ref_arr.tobytes()
 
 
+def referrer_chain(obj, depth: int = 12) -> str:
+    """Who keeps ``obj`` alive: the paths from ``obj`` up its referrers
+    (``gc.get_referrers``, breadth first, at most ``depth`` steps) to a
+    root that is not itself a container (a frame, a module's globals, a
+    running task), each step named by type (a dict by the key that holds
+    the step below it, a frame by its code). The frames and lists of this
+    walk are left out."""
+    import gc
+    import inspect
+    import types
+    walk = inspect.currentframe()
+    skip = {id(walk), id(walk.f_back)}      # the walk's and its caller's
+    parent = {id(obj): None}
+    keep = {id(obj): obj}
+    level, roots = [obj], []
+
+    def name(r, below):
+        if isinstance(r, dict):
+            keys = [k for k, v in r.items() if v is below][:2]
+            return f"dict{keys}"
+        if isinstance(r, types.FrameType):
+            return f"frame {r.f_code.co_name}:{r.f_lineno}"
+        if isinstance(r, types.CoroutineType):
+            return f"coroutine {r.__qualname__}"
+        if isinstance(r, types.MethodType):
+            return f"method {r.__func__.__qualname__}"
+        return type(r).__qualname__
+
+    for _ in range(depth):
+        nxt = []
+        skip.add(id(nxt))
+        for o in level:
+            for r in gc.get_referrers(o):
+                if id(r) in skip or id(r) in parent or r is level:
+                    continue
+                if isinstance(r, types.FrameType) and r.f_back is walk or \
+                        getattr(r, "cr_frame", None) is walk.f_back:
+                    continue        # the walk's caller holds obj to ask
+                parent[id(r)] = (id(o), name(r, o))
+                keep[id(r)] = r
+                if isinstance(r, (types.FrameType, types.ModuleType)):
+                    roots.append(id(r))
+                else:
+                    nxt.append(r)
+        level = nxt
+        if not level or len(roots) >= 4:
+            break
+    paths = []
+    for rid in (roots or [id(o) for o in level])[:4]:
+        steps, cur = [], rid
+        while parent.get(cur):
+            up, label = parent[cur]
+            steps.append(label)
+            cur = up
+        paths.append(" -> ".join(reversed(steps)))
+    del walk
+    return "still referenced: " + " | ".join(paths)
+
+
 class TestTieredEngine:
     async def test_onboarded_tokens_match_hot_cache(self, weights):
         """Fill a 9-page pool, evict the prompt's blocks into the host
@@ -218,37 +280,66 @@ class TestTieredEngine:
         cache = weakref.ref(eng.pages)
         del t, eng
         gc.collect()
-        assert cache() is None
+        held = cache()
+        assert held is None, referrer_chain(held)
 
     async def test_disk_spill_then_onboard(self, weights, tmp_path):
         """A one-block host tier demotes to disk; the prompt onboards back
         from host and disk with the hot cache's tokens."""
-        want = await hot_tokens(weights, PROMPT)
-        cfg = ModelConfig.tiny()
-        block_bytes = cfg.num_layers * 2 * cfg.num_kv_heads * 4 \
-            * cfg.head_dim * 4
-        t, eng = tiered(weights, disk_path=str(tmp_path),
-                        host_bytes=block_bytes, disk_bytes=1 << 20)
-        ptr = eng.pages.data_ptr()
-        try:
-            await collect(t, make_req(PROMPT, "a"))
-            await collect(t, make_req(PRESSURE, "b", max_tokens=20))
-            t.flush_spills()
-            assert t.offloaded >= 3
-            assert len(t.host) == 1 and len(t.disk) >= 1
-            frames = await collect(t, make_req(PROMPT, "a2"))
-            assert toks(frames) == want
-            assert t.onboarded >= 1
-            assert eng.pages.data_ptr() == ptr
-            s = t.kvbm_stats()
-            assert s["kvbm_offloaded_blocks"] >= 3
-            assert s["kvbm_pending_spills"] == 0
-            # the spill thread's copies, in bytes and seconds
-            assert s["kvbm_offload_bytes"] == \
-                s["kvbm_offloaded_blocks"] * block_bytes
-            assert s["kvbm_offload_seconds"] > 0
-        finally:
-            await t.stop()
+        await disk_spill_then_onboard(weights, tmp_path)
+
+    async def test_disk_spill_then_onboard_synchronously(self, weights,
+                                                          tmp_path):
+        """The same with the lookahead off (prefetch depth 0): the
+        synchronous onboard reads host and disk."""
+        await disk_spill_then_onboard(weights, tmp_path,
+                                      prefetch_depth_bytes=0)
+
+    async def test_disk_resident_head_onboards_on_a_slow_disk(
+            self, weights, tmp_path, monkeypatch):
+        """A disk that takes 0.3 s a read: the prompt's first chunk, which
+        the prefill cursor would compute at once, still onboards from
+        disk, since admission waits for its tier reads."""
+        read = DiskTier.get
+
+        def slow_read(self, block_hash):
+            time.sleep(0.3)
+            return read(self, block_hash)
+
+        monkeypatch.setattr(DiskTier, "get", slow_read)
+        await disk_spill_then_onboard(weights, tmp_path)
+
+
+async def disk_spill_then_onboard(weights, tmp_path, **kw):
+    """Spill PROMPT's blocks through a one-block host tier onto disk, then
+    serve PROMPT again: the hot cache's tokens, at least one block
+    onboarded, the spill thread's counters, the cache never moved."""
+    want = await hot_tokens(weights, PROMPT)
+    cfg = ModelConfig.tiny()
+    block_bytes = cfg.num_layers * 2 * cfg.num_kv_heads * 4 \
+        * cfg.head_dim * 4
+    t, eng = tiered(weights, disk_path=str(tmp_path),
+                    host_bytes=block_bytes, disk_bytes=1 << 20, **kw)
+    ptr = eng.pages.data_ptr()
+    try:
+        await collect(t, make_req(PROMPT, "a"))
+        await collect(t, make_req(PRESSURE, "b", max_tokens=20))
+        t.flush_spills()
+        assert t.offloaded >= 3
+        assert len(t.host) == 1 and len(t.disk) >= 1
+        frames = await collect(t, make_req(PROMPT, "a2"))
+        assert toks(frames) == want
+        assert t.onboarded >= 1
+        assert eng.pages.data_ptr() == ptr
+        s = t.kvbm_stats()
+        assert s["kvbm_offloaded_blocks"] >= 3
+        assert s["kvbm_pending_spills"] == 0
+        # the spill thread's copies, in bytes and seconds
+        assert s["kvbm_offload_bytes"] == \
+            s["kvbm_offloaded_blocks"] * block_bytes
+        assert s["kvbm_offload_seconds"] > 0
+    finally:
+        await t.stop()
 
 
 def seed_chain(t, tokens, host_blocks=None):

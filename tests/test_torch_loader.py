@@ -14,9 +14,9 @@ against the reference's and against the ``safetensors`` package.
   ``Qwen3MoeForCausalLM`` load into the same ``[L, E, in, out]`` expert
   stacks in both packages, and a checkpoint missing one expert tensor is
   refused as the reference refuses it.
-- DeepSeek's latent tree, which the port does not load yet, is refused
-  naming its ROADMAP item, and a truncated checkpoint is refused as the
-  reference refuses it.
+- A checkpoint of an architecture no name map knows, and a truncated
+  checkpoint, are refused as the reference refuses them (DeepSeek's latent
+  tree loads: ``tests/test_torch_deepseek.py``).
 """
 
 import json
@@ -144,9 +144,21 @@ def test_loader_equals_reference_bit_for_bit(tmp_path, family, tied, ckpt,
 
 
 def test_loader_refuses_unported_families(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+    """Every family the port serves loads now (DeepSeek's latent tree
+    through ``deepseek.load_params``, ``tests/test_torch_deepseek.py``):
+    an empty directory is a missing checkpoint, not a refused family. A
+    checkpoint whose tensor names no map knows is refused as an
+    unsupported architecture, by both loaders."""
+    with pytest.raises(FileNotFoundError, match="no safetensors"):
         load_hf_params(ModelConfig.deepseek_v2_lite(), str(tmp_path),
                        device="cpu")
+    save_file({"transformer.h.0.attn.c_attn.weight": torch.zeros(4, 4)},
+              str(tmp_path / "model.safetensors"))
+    with pytest.raises(ValueError, match="unsupported architecture"):
+        load_hf_params(ModelConfig.tiny(num_layers=1), str(tmp_path),
+                       device="cpu")
+    with pytest.raises(ValueError, match="unsupported architecture"):
+        jload(JModelConfig.tiny(num_layers=1), str(tmp_path))
 
 
 @pytest.mark.parametrize("family,name", [

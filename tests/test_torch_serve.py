@@ -75,7 +75,8 @@ COPIES = [
     "kv_router/indexer.py", "kv_router/recorder.py", "kv_router/router.py",
     "kv_router/scheduler.py", "kvbm/tiers.py", "llm/__init__.py",
     "llm/model_manager.py", "llm/operators.py", "llm/pipeline.py",
-    "llm/register.py", "models/hub.py", "preprocessor/__init__.py",
+    "llm/register.py", "models/gguf.py", "models/hub.py",
+    "preprocessor/__init__.py",
     "preprocessor/preprocessor.py", "preprocessor/sp_tokenizer.py",
     "preprocessor/template.py", "preprocessor/tokenizer.py",
     "preprocessor/tools.py", "protocols/common.py", "protocols/events.py",
@@ -94,14 +95,10 @@ COPIES = [
 # hunk between the two anchors raises in the port instead of reaching a
 # module that is not ported
 OVERRIDES = {
-    "model_card.py": [(
-        "        or pass ``tokenizer_path`` explicitly.\n        \"\"\"\n",
-        "\n\n\n@dataclass\nclass ModelEntry",
-        "A6b", "a GGUF card needs models/gguf.py, which imports jax")],
     "models/hub.py": [(
         "            f\"not an HF repo id\")\n",
         "\n\n\ndef _looks_like_repo_id",
-        "A6b", "a hub download is not part of the port: it loads local "
+        "Queue C", "a hub download is not part of the port: it loads local "
                "checkpoints (nothing may be downloaded where it runs)")],
 }
 
@@ -146,6 +143,27 @@ NAMED = {
         (_DDTP_REF, None,
          "the device-direct plane is CUDA IPC on a CUDA cache, None on the "
          "CPU (the reference: jax.experimental.transfer, None without it)"),
+    ],
+    "models/gguf.py": [
+        ('''def load_gguf_params(cfg: ModelConfig, path: str) -> Dict[str, Any]:
+    """Assemble the stacked-layer param pytree from a GGUF file."""
+    import jax.numpy as jnp
+''', '''def load_gguf_params(cfg: ModelConfig, path: str,
+                     device=None) -> Dict[str, Any]:
+    """Assemble the stacked-layer param pytree from a GGUF file, as torch
+    tensors on ``device`` (None: the GPU)."""
+    import torch
+
+    from dynamo_tpu_torch.models.llama import torch_dtype
+    from dynamo_tpu_torch.utils.device import resolve_device
+''', "the port's loader takes the device its tensors go to"),
+        ('''    target = jnp.dtype(cfg.dtype)
+''', '''    target = torch_dtype(cfg.dtype)
+    dev = resolve_device(device)
+''', "the last step makes torch tensors"),
+        ("node[tree_path[-1]] = jnp.asarray(arr).astype(target)",
+         "node[tree_path[-1]] = torch.tensor(arr, device=dev).to(target)",
+         "the last step makes torch tensors (the reference: jnp.asarray)"),
     ],
     "kvbm/tiers.py": [
         ("from dynamo_tpu_torch.engine.transfer import BlockPayload\n",
