@@ -83,9 +83,10 @@ and suppresses the final result line):
     step, tok/s beside the per-step and fused serves, and where each stream
     leaves the per-step one, with the top-2 margin there.
 
-Then, with the Llama model freed, Gemma-2-27B (``ModelConfig.gemma2_27b``,
-46 layers at full width, 54.5 GB of random bf16 weights made on the card):
-its forward on seven steps (``gemma_plan``: a 5633-token row past the
+Then, with the Llama model freed, Gemma-2-27B (``ModelConfig.gemma2_27b``
+at full width, cut to ``GEMMA27_LAYERS`` of its 46 layers: Gemma-2-9B serves
+the family at full depth below, and 27B's attention geometry stays in phase
+2's rows; random bf16 weights made on the card): its forward on seven steps (``gemma_plan``: a 5633-token row past the
 sliding layers' 4096-position window beside a 1502-token one; prefill,
 mixed and decode) under phase 3's checks, and phase 4's serve fused (cold,
 warm, graph vs eager) and per step; then:
@@ -117,7 +118,30 @@ warm, graph vs eager) and per step; then:
    writer, read onto the card by ``models/hf_loader.py``: bit for bit,
    with its time.
 
-After phase 6, each alone on the card: Gemma-2-9B (``ModelConfig.gemma2_9b``,
+7. the planner's path (``phase_planner``): (a) the port's profiler
+   (``dynamo_tpu_torch/planner/profile.py`` ``amain``, ``--engine torch
+   --random-weights`` on phase 5's model directory, the CLI's default
+   sweep: isl 128 / 512 / 1024 / 2048, concurrency 1-32, osl 32) in this
+   process: 4 prefill and 6 decode rows, finite and positive (``itl_s``
+   may be 0: a fused block's tokens arrive in one burst), printed beside
+   phase 4's replayed block token, loaded by ``MultiPerfInterpolator``,
+   B1 and B2 launched; (b) the mocker with ``calibrate_mock_args``'s
+   constants fitted to (a), profiled the same way, each row beside the
+   card's as a ratio (reported); (c) the port's coordinator and frontend
+   and ``python -m dynamo_tpu_torch.planner.main --connector local`` as
+   processes, the planner spawning the port's ``--disagg prefill`` /
+   ``--disagg decode`` workers on the card (min 1 / 1, at most 2 / 1;
+   the planner's default EWMA predictor): a load step of 16 clients
+   sending 2048-token prompts saturates the pair, which the planner's
+   arithmetic over (a)'s profile (its TTFT correction at its clamp of 4)
+   sizes at 2 prefill workers once the pair delivers more than a fourth
+   of the profiled prefill rate over the headroom; the pool must reach 2
+   only after the new worker's ``/healthz/ready`` answers 200, every
+   request finish with
+   its tokens, the pool return to 1 by a drain, no crash be counted and
+   the workers' ``/metrics`` show B1 and B2 launched.
+
+After phase 7, each alone on the card: Gemma-2-9B (``ModelConfig.gemma2_9b``,
 head_dim 256, 42 layers, 18.5 GB) and Llama-3.2-1B (``llama32_1b``, head_dim
 64, 16 layers) at full width and depth through phase 3's forward check
 (Gemma's with ``gemma_plan``'s row past the window) and phase 4's serve
@@ -175,7 +199,8 @@ line before it lists the kernels, each with its launches from its own
 model's greedy serve (``launches``), sampled serve (``launches_sampled``),
 speculating serve (``launches_spec``) and, for the Llama tree's three,
 phase 5's worker (``launches_serve_entry``), phase 6's workers
-(``launches_disagg``), the int8 serves (``launches_int8``), Gemma-2's
+(``launches_disagg``), phase 7's profiler engine and planner-spawned
+workers (``launches_planner``), the int8 serves (``launches_int8``), Gemma-2's
 fused serves (``launches_gemma``), Qwen3-30B-A3B's serves on both
 expert backends (``launches_moe``), Gemma-2-9B's and Llama-3.2-1B's fused
 serves (``launches_gemma9b``, ``launches_llama1b``) and the GGUF model's
@@ -1406,8 +1431,9 @@ def graph_vs_eager(engine):
             lambda _l: engine._run_block(x, GRAPH_W, draw, report=False),
             reps=5)
         engine.pages[:, ids] = saved
-        BLOCK_MS[(engine.model_cfg.model_type,
-                  engine.model_cfg.moe_backend, label)] = graph / GRAPH_W
+        if not engine.cfg.quantize:     # the int8 block has its own line
+            BLOCK_MS[(engine.model_cfg.model_type,
+                      engine.model_cfg.moe_backend, label)] = graph / GRAPH_W
         log(f"[graphs] block B={GRAPH_B} ctx={GRAPH_CTX} w={GRAPH_W} "
             f"{label}: replay equals eager bit for bit (packed, carry, KV; "
             f"{len(engine.graphs or ()) - fresh} capture); eager {eager:.3f} ms, "
@@ -2156,9 +2182,13 @@ def http_stream(url: str, body: dict, on_text=None) -> dict:
 
 def scrape_metrics(sys_port: int) -> dict:
     """Every sample of the worker's ``/metrics``: series -> value."""
+    return scrape_metrics_url(f"http://127.0.0.1:{sys_port}/metrics")
+
+
+def scrape_metrics_url(url: str) -> dict:
+    """Every sample of a ``/metrics`` page: series -> value."""
     import urllib.request
-    with urllib.request.urlopen(f"http://127.0.0.1:{sys_port}/metrics",
-                                timeout=60) as resp:
+    with urllib.request.urlopen(url, timeout=60) as resp:
         text = resp.read().decode()
     return {line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1])
             for line in text.splitlines()
@@ -3343,11 +3373,12 @@ def phase_kvbm(params, cfg) -> None:
     shutil.rmtree(disk, ignore_errors=True)
 
 
-def _worker_args(model_dir, coord, extra):
+def _worker_args(model_dir, coord, extra, engine_sizes=None):
     sizes = []
     for k in ("num_pages", "page_size", "max_num_seqs", "max_prefill_chunk",
               "max_context"):
-        sizes += [f"--{k.replace('_', '-')}", str(SERVE_SIZES[k])]
+        sizes += [f"--{k.replace('_', '-')}",
+                  str((engine_sizes or SERVE_SIZES)[k])]
     return (["--coordinator", coord, "--model-path", model_dir,
              "--random-weights", "--dtype", "bfloat16"] + sizes + extra)
 
@@ -3831,6 +3862,505 @@ def drain_drill(stack, model, cfg) -> None:
         f"after its drain")
 
 
+# -- phase 7: the planner's path ----------------------------------------------
+
+# the planner's workers run the engine the profile measured (the profile
+# CLI's sizes: 4096 pages of 16, 32 rows, 1024-token prefill chunks, 4096
+# positions): two prefill workers and a decode worker, each 6.4 GB of
+# weights and 7.5 GB of cache, fit on the card together
+PLANNER_SIZES = dict(SERVE_SIZES, num_pages=4096, max_prefill_chunk=1024)
+PLANNER_ISL = 2048          # the load step's prompt length (the profile's
+                            # longest row)
+PLANNER_TOKENS = 8          # its completion length
+PLANNER_CLIENTS = 16        # the step's clients, each a request at a time
+PLANNER_INTERVAL_S = 3.0    # the planner's --interval (its predictor is
+                            # its default, an EWMA of rate and isl)
+PLANNER_HEADROOM = 1.15     # PlannerConfig.headroom (the reference's)
+PLANNER_STEP_MAX_S = 150.0  # the load step ends by then if the pool never
+                            # reached 2 (the phase then fails)
+PLANNER_DRAIN_S = 120.0     # the step's answers must all be in by then
+PLANNER_WARM = 4            # warming requests; the last 3 give the TTFT
+
+
+def planner_profile(model_dir: str, work: str, card: str):
+    """7(a): the port's profiler CLI in this process, ``--engine torch
+    --random-weights`` on phase 5's model directory with the CLI's default
+    sweep. Returns (the profile, the profile file, the wrappers'
+    launches)."""
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from dynamo_tpu_torch.planner import profile as prof
+    from dynamo_tpu_torch.planner.perf_interpolation import (
+        MultiPerfInterpolator)
+    out = os.path.join(work, "profile.json")
+    args = prof.build_parser().parse_args(
+        ["--engine", "torch", "--random-weights", "--model-path", model_dir,
+         "--output", out])
+    built = []
+    real = prof._build_torch
+
+    def build(a):                   # keep the engine to read its counters
+        built.append(real(a))
+        return built[-1]
+    prof._build_torch = build
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        profile = asyncio.run(prof.amain(args))
+    finally:
+        prof._build_torch = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in ("paged_decode", "paged_prefill",
+                                         "ragged_mixed")}
+    calls = dict(built[0].kernel_launches)
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    block = BLOCK_MS.get(("llama", llama_cfg().moe_backend, "greedy"))
+    log(f"[planner] ({card}) 7(a) profile of TorchEngine (Llama-3.2-3B, "
+        f"random weights, isl {args.isl}, concurrency {args.concurrency}, "
+        f"osl {args.osl}) in {wall:.1f} s")
+    for r in profile["prefill"]:
+        log(f"[planner] ({card}) prefill isl={r['isl']}: ttft_s="
+            f"{r['ttft_s']!r} tokens_per_s={r['tokens_per_s']!r}")
+    for r in profile["decode"]:
+        log(f"[planner] ({card}) decode concurrency={r['concurrency']}: "
+            f"itl_s={r['itl_s']!r} tokens_per_s={r['tokens_per_s']!r}; "
+            f"a replayed block token (B=16, ctx 1024, phase 4) "
+            + (f"{block:.3f} ms" if block else "not measured in this run"))
+    log(f"[planner] ({card}) the wrappers' CUDA launches {launches}; the "
+        f"engine's attention calls {calls} (B3: {launches['ragged_mixed']} "
+        f"launches)")
+    if len(profile["prefill"]) != 4 or len(profile["decode"]) != 6:
+        raise AssertionError("the profile has not 4 prefill and 6 decode "
+                             "rows")
+    for r in profile["prefill"]:
+        if not all(math.isfinite(r[k]) and r[k] > 0
+                   for k in ("ttft_s", "tokens_per_s")):
+            raise AssertionError(f"prefill row {r}")
+    for r in profile["decode"]:
+        if not (math.isfinite(r["itl_s"]) and r["itl_s"] >= 0
+                and math.isfinite(r["tokens_per_s"])
+                and r["tokens_per_s"] > 0):
+            raise AssertionError(f"decode row {r}")
+    MultiPerfInterpolator.from_file(out)
+    for k in ("paged_decode", "paged_prefill"):
+        if launches[k] <= 0 or calls.get(k, 0) <= 0:
+            raise AssertionError(f"{k} never launched in the profile")
+    return profile, out, launches
+
+
+def planner_mocker(profile: dict, vocab: int, card: str) -> None:
+    """7(b): the mocker with the constants ``calibrate_mock_args`` fits to
+    7(a)'s profile, profiled the same way (reported, not gated)."""
+    from dynamo_tpu_torch.mocker import MockEngineArgs, MockerEngine
+    from dynamo_tpu_torch.planner import profile as prof
+    fit = prof.calibrate_mock_args(profile)
+    isls = [r["isl"] for r in profile["prefill"]]
+    concs = [r["concurrency"] for r in profile["decode"]]
+    speedup = 10.0                  # the profile CLI's default
+    engine = MockerEngine(MockEngineArgs(
+        num_pages=4096, page_size=PS, max_num_seqs=max(concs),
+        max_prefill_chunk=1024, max_context=4096, speedup_ratio=speedup,
+        vocab_size=vocab, **fit))
+
+    async def run():
+        try:
+            return await prof.profile_engine(
+                engine, isls=isls, concurrencies=concs,
+                osl=profile["meta"]["osl"], vocab=vocab, time_scale=speedup)
+        finally:
+            await engine.stop()
+    mock = asyncio.run(run())
+    log(f"[planner] ({card}) 7(b) the mocker fitted to the card: {fit}")
+    for got, want in zip(mock["prefill"], profile["prefill"]):
+        log(f"[planner] ({card}) prefill isl={want['isl']}: mocker ttft_s "
+            f"{got['ttft_s']!r} / card {want['ttft_s']!r} = "
+            f"{got['ttft_s'] / want['ttft_s']:.3f}")
+    for got, want in zip(mock["decode"], profile["decode"]):
+        ratio = (f"{got['itl_s'] / want['itl_s']:.3f}" if want["itl_s"]
+                 else "n/a")
+        log(f"[planner] ({card}) decode concurrency={want['concurrency']}: "
+            f"mocker itl_s {got['itl_s']!r} / card {want['itl_s']!r} = "
+            f"{ratio}; tokens_per_s {got['tokens_per_s']!r} / "
+            f"{want['tokens_per_s']!r} = "
+            f"{got['tokens_per_s'] / want['tokens_per_s']:.3f}")
+
+
+def _planner_workers(log_text: str) -> dict:
+    """Worker (role, generation) -> (pid, system port), from the planner's
+    ``spawned <role> worker pid=.. port=.. log=<dir>/<role>-g<gen>.log``
+    lines."""
+    import re
+    return {(m.group(1), int(m.group(4))): (int(m.group(2)),
+                                            int(m.group(3)))
+            for m in re.finditer(
+                r"spawned (prefill|decode) worker pid=(\d+) port=(\d+) "
+                r"log=\S*-g(\d+)\.log", log_text)}
+
+
+def _ready(port: int) -> bool:
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/healthz/ready", timeout=2) as r:
+            return r.status == 200
+    except (urllib.error.URLError, OSError):
+        return False
+
+
+def _load_step(base, model, prompts, until, res, progress):
+    """``PLANNER_CLIENTS`` clients, each sending ``prompts`` (token ids,
+    non-streamed completions of ``PLANNER_TOKENS`` tokens with EOS
+    ignored) one request at a time until ``until()`` says stop; then
+    waits for the answers up to ``PLANNER_DRAIN_S``. ``res`` gets each
+    request's (finish, completion tokens) or its error; ``progress`` is
+    called about every 5 s. Returns (sent, seconds sending, seconds to the
+    last answer)."""
+    import itertools
+    import threading
+    order = itertools.count()
+    lock = threading.Lock()
+
+    def client():
+        while not until():
+            with lock:
+                i = next(order)
+                res.append(None)
+            try:
+                r = http_post(f"{base}/v1/completions", {
+                    "model": model,
+                    "prompt": prompts[i % len(prompts)].tolist(),
+                    "max_tokens": PLANNER_TOKENS, "temperature": 0,
+                    "nvext": {"ignore_eos": True}})
+                res[i] = (r["choices"][0]["finish_reason"],
+                          r["usage"]["completion_tokens"])
+            except Exception as e:              # reported by the caller
+                res[i] = ("error", repr(e))
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(PLANNER_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    while not until():
+        time.sleep(5.0)
+        progress(len(res), time.perf_counter() - t0)
+    sent = time.perf_counter() - t0
+    deadline = time.perf_counter() + PLANNER_DRAIN_S
+    for th in threads:
+        th.join(max(0.0, deadline - time.perf_counter()))
+    return len(res), sent, time.perf_counter() - t0
+
+
+def _frontend_ttft(m0: dict, m1: dict) -> float:
+    """The frontend's mean TTFT between two scrapes of its ``/metrics``:
+    what the planner's ``PrometheusSource`` reads as ``observed_ttft_s``."""
+    def total(m, stat):
+        head = f"dynamo_frontend_time_to_first_token_seconds_{stat}"
+        return sum(v for k, v in m.items() if k.startswith(head))
+    n = total(m1, "count") - total(m0, "count")
+    return (total(m1, "sum") - total(m0, "sum")) / n if n else float("nan")
+
+
+def planner_closed_loop(model_dir, work, profile_path, profile, card):
+    """7(c): the port's coordinator and frontend as processes, and
+    ``python -m dynamo_tpu_torch.planner.main --connector local`` spawning
+    the port's disaggregated workers on the card (``--disagg prefill`` /
+    ``--disagg decode``, random weights, ``PLANNER_SIZES``): min 1 / 1, at
+    most 2 prefill and 1 decode workers. A load step that saturates the
+    pair (``PLANNER_CLIENTS`` clients of ``PLANNER_ISL``-token prompts),
+    which the planner's arithmetic over (a)'s profile sizes at 2 prefill
+    workers once the pair delivers more than a fourth of the profiled
+    prefill rate over the headroom, must take the pool from 1 to 2, the
+    gauge reaching 2 only once the new worker's ``/healthz/ready`` answers
+    200; when it ends, the pool must return to 1 by a drain. Every request
+    of the step must finish with its tokens, no worker crash may be
+    counted, and the workers' ``/metrics`` must show B1 and B2 launched.
+    Returns the kernels' launches over the workers."""
+    import shlex
+    import signal
+
+    from dynamo_tpu_torch.planner.perf_interpolation import PerfInterpolator
+    cfg = llama_cfg()
+    interp = PerfInterpolator(profile)
+    tps = interp.prefill_tokens_per_s(PLANNER_ISL)
+    stack = _Stack(work)
+    logs = os.path.join(work, "workers")
+    os.makedirs(logs, exist_ok=True)
+    worker = [sys.executable, "-m", "dynamo_tpu_torch.worker.main"]
+    t0 = time.perf_counter()
+    planner = None
+    launches = {}
+    try:
+        stack.start_coordinator()
+        stack.start_frontend()
+        pre_cmd = worker + _worker_args(
+            model_dir, stack.coord, ["--disagg", "prefill", "--component",
+                                     "prefill"], PLANNER_SIZES)
+        dec_cmd = worker + _worker_args(
+            model_dir, stack.coord, ["--disagg", "decode"], PLANNER_SIZES)
+        plan_port = free_port()
+        planner = Child(
+            "planner", "dynamo_tpu_torch.planner.main",
+            ["--connector", "local", "--profile", profile_path,
+             "--metrics-url", f"{stack.base}/metrics",
+             "--interval", str(PLANNER_INTERVAL_S), "--predictor",
+             "ewma", "--min-prefill", "1", "--max-prefill", "2",
+             "--min-decode", "1", "--max-decode", "1",
+             "--prefill-cmd", shlex.join(pre_cmd),
+             "--decode-cmd", shlex.join(dec_cmd),
+             "--worker-log-dir", logs], work,
+            {"DYN_SYSTEM_ENABLED": "1", "DYN_SYSTEM_PORT": str(plan_port)})
+        stack.kids["planner"] = planner
+        planner.wait_for("planner running")
+        gauge = 'dynamo_planner_replicas{role="prefill"}'
+
+        def pm():
+            return scrape_metrics(plan_port)
+        deadline = time.monotonic() + ENTRY_TIMEOUT_S
+        while not (pm().get(gauge) == 1.0 and pm().get(
+                'dynamo_planner_replicas{role="decode"}') == 1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the planner's floor of 1 / 1 never "
+                                   "became ready")
+            time.sleep(0.2)
+        model = stack.model()
+        log(f"[planner] ({card}) coordinator, frontend, planner and its 1 "
+            f"prefill + 1 decode workers up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # fresh prompts (no prefix hits) for every request the step can
+        # send: a few a second for at most PLANNER_STEP_MAX_S
+        prompts = np.random.default_rng(13).integers(
+            3, cfg.vocab_size, size=(1024, PLANNER_ISL))
+        # a warming pass, one request at a time; the frontend's TTFT over
+        # its last requests (what the planner reads) is reported
+        fe0 = None
+        for i, p in enumerate(prompts[:PLANNER_WARM]):
+            if i == 1:
+                fe0 = scrape_metrics_url(f"{stack.base}/metrics")
+            r = http_post(f"{stack.base}/v1/completions", {
+                "model": model, "prompt": p.tolist(),
+                "max_tokens": PLANNER_TOKENS,
+                "temperature": 0, "nvext": {"ignore_eos": True}})
+            if r["usage"]["completion_tokens"] != PLANNER_TOKENS:
+                raise AssertionError(f"a warming request: {r}")
+        prompts = prompts[PLANNER_WARM:]
+        ttft = _frontend_ttft(fe0, scrape_metrics_url(f"{stack.base}/metrics"))
+        profiled = interp.ttft(PLANNER_ISL)
+        corr = max(0.25, min(4.0, ttft / profiled))
+        floor = tps / (4.0 * PLANNER_HEADROOM)
+        log(f"[planner] ({card}) 7(c) the load step: {PLANNER_CLIENTS} "
+            f"clients, each sending {PLANNER_ISL}-token prompts of "
+            f"{PLANNER_TOKENS} tokens one at a time. The planner's prefill "
+            f"need is r * isl / tokens_per_s(isl) * c * headroom: r the "
+            f"completions a second it scrapes, c the frontend's TTFT over "
+            f"the profile's, clamped to 0.25-4. The profile gives "
+            f"{tps:.1f} tokens/s and {profiled * 1e3:.2f} ms at "
+            f"{PLANNER_ISL}; one request at a time the frontend saw "
+            f"{ttft * 1e3:.2f} ms (c = {corr:.3f}), and a saturated pair "
+            f"queues, so c = 4: the need passes 1, and the pool 2, once the "
+            f"pair delivers more than {tps:.1f} / (4 * {PLANNER_HEADROOM}) "
+            f"= {floor:.1f} prompt tokens/s ({floor / PLANNER_ISL:.3f} "
+            f"requests/s)")
+        # the monitor: the planner's gauge, then the readiness of every
+        # prefill worker spawned after the first (in that order: a gauge of
+        # 2 read before probes that all fail would be a worker banked
+        # before it was ready)
+        import threading
+        state = {"two_at": None, "ready_at": None, "gated": 0, "bad": [],
+                 "one_again_at": None, "stop": False, "metrics": {},
+                 "last": {}, "was_ready": set()}
+
+        def extra_prefill(kids):
+            gens = sorted(g for (r, g) in kids if r == "prefill")
+            return {g: kids[("prefill", g)] for g in gens[1:]}
+
+        def monitor():
+            tick = 0
+            while not state["stop"]:
+                tick += 1
+                try:
+                    m = pm()
+                except OSError:
+                    time.sleep(0.05)
+                    continue
+                state["last"] = m
+                g = m.get(gauge)
+                kids = _planner_workers(planner.text())
+                now = time.perf_counter()
+                extra = extra_prefill(kids)
+                ready = {gen for gen, (_pid, port) in extra.items()
+                         if _ready(port)}
+                state["was_ready"] |= ready
+                if ready and state["ready_at"] is None:
+                    state["ready_at"] = now
+                if g == 2.0 and state["two_at"] is None:
+                    state["two_at"] = now
+                    if not ready:
+                        state["bad"].append(now)
+                elif g == 1.0 and state["two_at"] is None and any(
+                        _pid_alive(pid) for gen, (pid, _p) in extra.items()
+                        if gen not in ready):
+                    state["gated"] += 1
+                if g == 1.0 and state["two_at"] is not None and \
+                        state["one_again_at"] is None:
+                    state["one_again_at"] = now
+                for key, (_pid, port) in kids.items():
+                    if tick % 20:       # the workers' counters once a second
+                        break
+                    try:
+                        state["metrics"][key] = scrape_launches(port)
+                    except OSError:
+                        pass            # not up yet, or gone
+                time.sleep(0.05)
+        mon = threading.Thread(target=monitor, daemon=True)
+        mon.start()
+        res = []
+        t1 = time.perf_counter()
+
+        def until():
+            two = state["two_at"]
+            return ((two is not None
+                     and time.perf_counter() - two > 2 * PLANNER_INTERVAL_S)
+                    or time.perf_counter() - t1 > PLANNER_STEP_MAX_S)
+        def progress(n_sent, secs):
+            done = sum(r is not None for r in res)
+            errs = sum(r is not None and r[0] == "error" for r in res)
+            log(f"[planner] ({card}) step +{secs:.0f} s: {n_sent} sent, "
+                f"{done} answered ({errs} errors); prefill gauge "
+                f"{state['last'].get(gauge)}; a new worker "
+                + ("ready" if state["ready_at"] else "not ready"))
+        fe1 = scrape_metrics_url(f"{stack.base}/metrics")
+        n, sent, wall = _load_step(stack.base, model, prompts, until, res,
+                                   progress)
+        step_end = time.perf_counter()
+        fe2 = scrape_metrics_url(f"{stack.base}/metrics")
+        delivered = (sum(1 for r in res if r == ("length", PLANNER_TOKENS))
+                     / wall)
+        need = (delivered * PLANNER_ISL / tps
+                * max(0.25, min(4.0, _frontend_ttft(fe1, fe2) / profiled))
+                * PLANNER_HEADROOM)
+        bad = [(i, r) for i, r in enumerate(res)
+               if r != ("length", PLANNER_TOKENS)]
+        up = (state["two_at"] - t1) if state["two_at"] else None
+        log(f"[planner] ({card}) load step: {n} requests over {sent:.1f} "
+            f"s, all answered in {wall:.1f} s: {delivered:.3f} requests/s, "
+            f"{delivered * PLANNER_ISL:.1f} prompt tokens/s; frontend TTFT "
+            f"{_frontend_ttft(fe1, fe2):.4f} s; the arithmetic over the "
+            f"whole step: need {need:.3f}; prefill pool at 2 "
+            + (f"{up:.1f} s into the step" if up is not None else "never")
+            + f"; a new prefill worker answered ready "
+            + (f"{state['ready_at'] - t1:.1f} s into it"
+               if state["ready_at"] else "never")
+            + f"; the gauge read 1 in {state['gated']} scrapes while a new "
+              f"worker was alive and not ready")
+        if bad:
+            raise AssertionError(f"{len(bad)} requests of the step did not "
+                                 f"finish with {PLANNER_TOKENS} tokens: "
+                                 f"{bad[:5]}")
+        if state["two_at"] is None:
+            raise AssertionError("the prefill pool never reached 2")
+        if state["bad"] or state["ready_at"] is None or \
+                state["ready_at"] > state["two_at"] or state["gated"] < 1:
+            raise AssertionError("the gauge counted a second prefill worker "
+                                 "before its /healthz/ready answered 200")
+        deadline = time.monotonic() + ENTRY_TIMEOUT_S
+        while state["one_again_at"] is None or any(
+                _pid_alive(pid) for pid, _port in extra_prefill(
+                    _planner_workers(planner.text())).values()):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the prefill pool never drained back to "
+                                   "1")
+            time.sleep(0.2)
+        down = time.perf_counter() - step_end
+        m = pm()
+        drained = {}            # each new worker that was ready: drained?
+        for gen in sorted(state["was_ready"]):
+            with open(os.path.join(logs, f"prefill-g{gen}.log"),
+                      errors="replace") as f:
+                text = f.read()
+            drained[f"prefill-g{gen}"] = ("graceful drain started" in text
+                                          and "drain complete" in text)
+        crashes = {r: m.get(f'dynamo_planner_worker_crashes_total'
+                            f'{{role="{r}"}}') for r in ("prefill", "decode")}
+        decisions = {a: m.get(f'dynamo_planner_decisions_total'
+                              f'{{action="{a}"}}')
+                     for a in ("up", "down", "hold")}
+        state["stop"] = True
+        mon.join(10)
+        for key, (_pid, port) in _planner_workers(planner.text()).items():
+            try:                    # the live workers' final counts
+                state["metrics"][key] = scrape_launches(port)
+            except OSError:
+                pass
+        for k in ("paged_decode", "paged_prefill", "ragged_mixed"):
+            launches[k] = int(sum(v.get(k, 0)
+                                  for v in state["metrics"].values()))
+        per = {f"{r}-g{g}": {k: int(v.get(k, 0)) for k in launches}
+               for (r, g), v in state["metrics"].items()}
+        log(f"[planner] ({card}) back to 1 prefill worker {down:.1f} s "
+            f"after the step (drained: {drained}); decisions "
+            f"{decisions}; crashes {crashes}; kernel launches by worker "
+            f"{per}")
+        if not drained or not all(drained.values()):
+            raise AssertionError("a second prefill worker did not leave by "
+                                 "a drain")
+        if any(crashes.values()):
+            raise AssertionError(f"worker crashes counted: {crashes}")
+        if launches["paged_decode"] <= 0 or launches["paged_prefill"] <= 0:
+            raise AssertionError("B1 or B2 never launched in the planner's "
+                                 "workers")
+    except Exception:
+        stack.tails()
+        for name in sorted(os.listdir(logs)):
+            with open(os.path.join(logs, name), errors="replace") as f:
+                tail = "\n".join(f.read().splitlines()[-40:])
+            log(f"[planner] last 40 lines of {name}:\n{tail}")
+        raise
+    finally:
+        if planner is not None and planner.proc.poll() is None:
+            # SIGINT: the planner closes its connector, which drains and
+            # waits for every worker it spawned
+            planner.proc.send_signal(signal.SIGINT)
+            try:
+                planner.proc.wait(90)
+            except subprocess.TimeoutExpired:
+                pass
+        stack.stop()
+    return launches
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    # a zombie: the planner has not reaped it yet
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split()[2] != "Z"
+    except OSError:
+        return False
+
+
+def phase_planner() -> dict:
+    """7: the planner's path on the card. (a) the port's profiler on
+    TorchEngine, (b) the mocker fitted to it, (c) the SLA planner scaling
+    the port's workers in a closed loop. Returns the kernels' launches:
+    the profiler's engine plus the planner's workers."""
+    card = smi_line().strip()
+    cfg = llama_cfg()
+    work = os.path.join(ROOT, "build", "planner")
+    os.makedirs(work, exist_ok=True)
+    model_dir = os.path.join(ROOT, "build", "serve_entry", "llama32_3b")
+    write_entry_model(model_dir, cfg)
+    profile, path, prof_launches = planner_profile(model_dir, work, card)
+    planner_mocker(profile, cfg.vocab_size, card)
+    workers = planner_closed_loop(model_dir, work, path, profile, card)
+    return {k: prof_launches[k] + workers[k] for k in prof_launches}
+
+
 # -- int8 W8A8, speculative decoding and Gemma-2 ------------------------------
 
 
@@ -4005,6 +4535,19 @@ def phase_spec_mla(params, cfg, per_step):
 # enough for phase 4's workload and the graph-vs-eager block's 1041 pages)
 # and its published 8192-position context
 GEMMA_SIZES = dict(SERVE_SIZES, num_pages=1280, max_context=8192)
+# Gemma-2-27B's served phases run at this depth of its 46 layers (its
+# widths as published): Gemma-2-9B serves the family at full depth and
+# 27B's attention geometry stays in phase 2's rows, and the time this saves
+# goes to phase 7
+GEMMA27_LAYERS = 8
+
+
+def gemma27_cut():
+    import dataclasses
+
+    from dynamo_tpu_torch.models.config import ModelConfig
+    return dataclasses.replace(ModelConfig.gemma2_27b(),
+                               num_layers=GEMMA27_LAYERS)
 
 
 def served_model_phases(name, cfg, failures, profile, plan=gemma_plan,
@@ -4294,6 +4837,7 @@ def main() -> int:
     sampled = {k: 0 for k in SOURCES}
     entry = {}
     disagg = {}
+    planner = {}
     slice_counts = {"int8": {}, "spec": {}, "gemma": {}, "dispatch": {},
                     "moe": {}, "gemma9b": {}, "llama1b": {}, "gguf": {}}
     profile = "--profile" in args
@@ -4312,10 +4856,9 @@ def main() -> int:
             for tag, got in ex.items():
                 slice_counts[tag].update(got or {})
             if name == "llama32_3b":
-                # Gemma-2-27B (54.5 GB of bf16), alone on the card
+                # Gemma-2-27B at GEMMA27_LAYERS of its 46 layers, alone
                 slice_counts["gemma"] = served_model_phases(
-                    "gemma2_27b", ModelConfig.gemma2_27b(), failures,
-                    profile)
+                    "gemma2_27b", gemma27_cut(), failures, profile)
                 # the entry points, with the in-process models freed
                 entry = run_phase("serve-entry", phase_serve_entry,
                                   failures) or {}
@@ -4325,6 +4868,9 @@ def main() -> int:
                 run_phase("kv-local", phase_kv_local, failures)
                 disagg = run_phase("disagg", phase_disagg, failures) or {}
                 log(f"[phase] phase 6 {time.perf_counter() - t6:.1f} s")
+                # the planner's path (phase 7): profiler, mocker, planner
+                planner = run_phase("planner", phase_planner,
+                                    failures) or {}
                 # head_dim 256 and 64, each alone on the card, then the
                 # GGUF and DeepSeek checkpoint loaders
                 slice_counts["gemma9b"] = served_model_phases(
@@ -4351,6 +4897,7 @@ def main() -> int:
             "launches_sampled": sampled[name],
             "launches_serve_entry": entry.get(name),
             "launches_disagg": disagg.get(name),
+            "launches_planner": planner.get(name),
             "launches_int8": slice_counts["int8"].get(name),
             "launches_spec": slice_counts["spec"].get(name),
             "launches_gemma": slice_counts["gemma"].get(name),

@@ -15,8 +15,11 @@ Its entry points are the reference's: ``python -m
 dynamo_tpu_torch.runtime.coordinator``, ``...frontend.main`` and
 ``...worker.main`` (the serving half copied from the reference's JAX-free
 modules, the worker serving ``TorchEngine`` with weights from
-``models/hf_loader.py``), and ``python -m dynamo_tpu_torch.run
-in=http|text|stdin|batch:FILE out=torch|echo``.
+``models/hf_loader.py``), ``python -m dynamo_tpu_torch.run
+in=http|text|stdin|batch:FILE out=torch|mocker|echo``, and the planner's
+path: ``...planner.profile --engine torch`` (a profile of ``TorchEngine``),
+``...planner.main`` (the SLA planner, whose local connector spawns the
+port's workers) and ``...mocker.main``.
 
 The package imports ``torch`` and never ``jax`` or ``dynamo_tpu``. Its entry
 points run on the GPU unless the caller passes ``device="cpu"``, where every

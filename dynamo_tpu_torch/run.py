@@ -13,10 +13,9 @@ One process, no coordinator: build the engine, wrap it in the local pipeline
   in=stdin           one prompt per stdin line -> completion per line
   in=batch:FILE      jsonl {"prompt": ...} -> --output jsonl, concurrent
   out=echo           token-echo engine (no model needed)
+  out=mocker         simulated engine (timing model, test tokenizer ok)
   out=torch          the PyTorch + CUDA engine (requires --model-path;
                      --device cpu runs the kernels' plain versions)
-
-``out=mocker`` waits for the mocker's port (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -40,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="dynamo_tpu single-process runner",
         usage="python -m dynamo_tpu_torch.run in=<http|text|stdin|batch:FILE> "
-              "out=<echo|torch> [options]")
+              "out=<echo|mocker|torch> [options]")
     p.add_argument("io", nargs=2, metavar="in=.../out=...",
                    help="input and engine selectors")
     p.add_argument("--model-path", default=None)
@@ -89,8 +88,15 @@ def build_engine_and_card(out: str, args) -> Tuple[EngineBase, ModelDeploymentCa
                 if args.model_path else make_test_card(name="echo"))
         return EchoEngine(), card
     if out == "mocker":
-        raise SystemExit("out=mocker: the mocker is not ported yet "
-                         "(ROADMAP A14)")
+        from dynamo_tpu_torch.mocker import MockEngineArgs, MockerEngine
+        from dynamo_tpu_torch.utils.testing import make_test_card
+        card = (ModelDeploymentCard.from_local_path(args.model_path,
+                                                    name=args.model_name)
+                if args.model_path else make_test_card(name="mock-model"))
+        return MockerEngine(MockEngineArgs(
+            num_pages=args.num_pages, page_size=args.page_size,
+            max_num_seqs=args.max_num_seqs,
+            max_context=args.max_context)), card
     if out == "torch":
         if not args.model_path:
             raise SystemExit("out=torch requires --model-path")
@@ -112,7 +118,7 @@ def build_engine_and_card(out: str, args) -> Tuple[EngineBase, ModelDeploymentCa
         engine = build_engine(ns)
         arm_guided(engine, card)
         return engine, card
-    raise SystemExit(f"unknown engine {out!r}; choose echo|torch")
+    raise SystemExit(f"unknown engine {out!r}; choose echo|mocker|torch")
 
 
 async def run_http(pipeline: LocalEnginePipeline, args) -> None:
