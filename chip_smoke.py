@@ -140,6 +140,24 @@ warm, graph vs eager) and per step; then:
    request finish with
    its tokens, the pool return to 1 by a drain, no crash be counted and
    the workers' ``/metrics`` show B1 and B2 launched.
+8. tensor parallelism (``phase_tp``): Llama-3.2-3B at full width and depth
+   (seed 0's bf16 weights, phase 3's) as a world of two ranks, one process
+   each (``--tp-rank``). The backend is printed first, with the card
+   count: NCCL over two cards where there are two; on one card NCCL with
+   two ranks there is tried first and what it says printed, and where it
+   refuses both ranks run on the one card over gloo (all-reduce on CUDA
+   tensors; fused blocks eager), a check of correctness, not a speed of
+   tensor parallelism. (a) phase 3's steps (prefill, mixed, decode:
+   B2, B3, B1) through the kernels on each rank's shards: rank 0's logits
+   within phase 3's gate of the tp=1 forward's (1.5 times plain vs
+   oracle, of the same run), the greatest per-layer attention distance
+   printed, both ranks launching B1-B3; (b) the frontend and one worker
+   with ``--tensor-parallel-size 2 --random-weights --dist-backend`` on
+   phase 5's model directory: phase 5's identity pass (every answer
+   checked; each chat's tokens against phase 5's tp=1 worker's, reported:
+   bf16 near ties part), one of phase 5's warm timed windows (TTFT and
+   tok/s beside phase 5's), and each rank's B1-B3 launches, printed by the
+   rank when the leader stops: both must have launched all three.
 
 After phase 7, each alone on the card: Gemma-2-9B (``ModelConfig.gemma2_9b``,
 head_dim 256, 42 layers, 18.5 GB) and Llama-3.2-1B (``llama32_1b``, head_dim
@@ -204,8 +222,10 @@ workers (``launches_planner``), the int8 serves (``launches_int8``), Gemma-2's
 fused serves (``launches_gemma``), Qwen3-30B-A3B's serves on both
 expert backends (``launches_moe``), Gemma-2-9B's and Llama-3.2-1B's fused
 serves (``launches_gemma9b``, ``launches_llama1b``) and the GGUF model's
-serve (``launches_gguf``); for the latent kernels, DeepSeek's serves on the
-dispatch backend (``launches_dispatch``).
+serve (``launches_gguf``), and phase 8's per rank, its forward's
+(``launches_tp_forward``) and its worker's (``launches_tp_serve``); for
+the latent kernels, DeepSeek's serves on the dispatch backend
+(``launches_dispatch``).
 """
 
 from __future__ import annotations
@@ -2438,6 +2458,7 @@ def phase_serve_entry() -> dict:
                 f"({r['hop'] / r['ttft_mean']:.1%})")
             if tag == "warm":
                 warm.append(r)
+        ENTRY_ANSWERS["warm"] = warm
         hops = [r["hop"] * 1e3 for r in warm]
         toks = [r["tok_s"] for r in warm]
         log(f"[serve-entry] warm windows: {len(warm)} x {warm[0]['n']} "
@@ -4702,6 +4723,369 @@ def moe_phases(failures, profile):
     return counts
 
 
+
+# -- phase 8: tensor parallelism, a world of two ranks ---------------------
+
+TP_WORLD = 2
+TP_PROBE_TIMEOUT_S = 90
+TP_FORWARD_TIMEOUT_S = 400
+TP_B = ("paged_decode", "paged_prefill", "ragged_mixed")
+
+
+def tp_rank_main(spec_path: str, local_rank: int) -> int:
+    """One rank of phase 8's worlds (``--tp-rank SPEC``): local rank 0
+    starts the others (``start_local_ranks``); every rank joins the world
+    on the spec's backend and runs the spec's task; each writes its result
+    to ``<out>.<rank>``. Tasks: ``probe`` (one all-reduce) and ``forward``
+    (``tp_forward_rank``)."""
+    import datetime
+    from dynamo_tpu_torch.parallel import multihost as mh
+    with open(spec_path) as f:
+        spec = json.load(f)
+    procs = []
+    if local_rank == 0:
+        procs = mh.start_local_ranks(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank",
+             spec_path], spec["world"])
+    out, rank = {}, local_rank
+    world = None
+    try:
+        world = mh.initialize_distributed(
+            spec["address"], 1, 0, spec["world"], local_rank=local_rank,
+            device="cuda", backend=spec["backend"],
+            timeout=datetime.timedelta(seconds=TP_FORWARD_TIMEOUT_S))
+        rank = world.rank
+        if spec["task"] == "probe":
+            import torch.distributed as dist
+            x = torch.full((4,), float(rank + 1), device=world.device)
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            out["sum"] = x.tolist()
+        else:
+            out = tp_forward_rank(world)
+    except Exception:                      # noqa: BLE001 — reported
+        out["error"] = traceback.format_exc()
+    finally:
+        with open(f"{spec['out']}.{rank}", "w") as f:
+            json.dump(out, f)
+        mh.stop_local_ranks(procs, timeout=TP_FORWARD_TIMEOUT_S)
+        if "error" not in out:
+            mh.shutdown_distributed()
+    return 1 if "error" in out else 0
+
+
+def tp_forward_rank(world) -> dict:
+    """Phase 8(a) on one rank: Llama-3.2-3B's whole tree from seed 0 on
+    the rank's card (phase 3's weights), phase 3's steps (prefill, mixed,
+    decode: B2, B3, B1) through the kernels on the rank's shards at tp=2.
+    Rank 0 first runs the same steps at tp=1 on the whole tree, through
+    the kernels, their plain versions and the oracle (phase 3's gate: the
+    kernels' logits may be no further from the tp=1 ones than 1.5 times
+    plain vs oracle), recording each layer's attention of its own heads;
+    it returns, per step, the tp=2 logits' distance to the tp=1 kernel
+    forward's, the gate, and the greatest per-layer attention distance.
+    Every rank returns its launches of B1-B3 in the tp=2 forward."""
+    from dynamo_tpu_torch.models import get_family
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from dynamo_tpu_torch.parallel.sharding import (ModelSharding,
+                                                    local_config)
+    cfg = llama_cfg()
+    fam = get_family(cfg)
+    dev = world.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = fam.init_params(cfg, gen, device=dev)
+    kernel, plain, oracle = llama_impls()
+    steps, table, num_pages = llama_plan(cfg, np.random.default_rng(1))
+    mesh = make_mesh(MeshSpec(tp=world.world))
+    heads = cfg.num_heads // world.world
+    h0 = mesh.coords["tp"] * heads
+
+    def arrays(step):
+        _n, _k, toks, pos, total, new, _w = step
+        return [torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+                for x in (toks, pos, table, total, new)]
+
+    def recorder(impl, into):
+        def attn(*a, **kw):
+            out = impl(*a, **kw)
+            into.append(out)
+            return out
+        return attn
+
+    ref = {}
+    with torch.no_grad():
+        if world.leader:
+            caches = {k: fam.make_pages(cfg, num_pages, PS, device=dev)
+                      for k in ("kernel", "plain", "oracle")}
+            for step in steps:
+                a = arrays(step)
+                rec = []
+                got = {}
+                for k, impl in (("kernel", recorder(kernel[step[1]], rec)),
+                                ("plain", plain[step[1]]),
+                                ("oracle", oracle)):
+                    got[k] = fam.forward(full, cfg, a[0], a[1], caches[k],
+                                         a[2], a[3], a[4], attn_impl=impl)[0]
+                ref[step[0]] = (got["kernel"], float(
+                    (got["plain"] - got["oracle"]).abs().max()),
+                    [r[:, :, h0:h0 + heads].clone() for r in rec])
+            del caches
+        shard = ModelSharding(cfg, mesh, device=dev)
+        params = shard.shard_params(full)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        lcfg = local_config(cfg, mesh)
+        pages = shard.shard_pages(fam.make_pages(cfg, num_pages, PS,
+                                                 device=dev))
+        before = {k: LAUNCHES.get(k, 0) for k in TP_B}
+        out = {"rank": world.rank, "steps": {}}
+        for step in steps:
+            a = arrays(step)
+            rec = []
+            logits = fam.forward(params, lcfg, a[0], a[1], pages, a[2],
+                                 a[3], a[4],
+                                 attn_impl=recorder(kernel[step[1]], rec),
+                                 mesh=mesh)[0]
+            torch.cuda.synchronize()
+            if world.leader:
+                lk, odiff, ref_attn = ref[step[0]]
+                real = (torch.arange(a[0].shape[1], device=dev)[None, :]
+                        < a[4][:, None])
+                layer = [float((x.float() - y.float()).abs()[real].max())
+                         for x, y in zip(rec, ref_attn)]
+                out["steps"][step[0]] = {
+                    "diff": float((logits - lk).abs().max()),
+                    "tol": LOGITS_VS_ORACLE * odiff, "odiff": odiff,
+                    "max_logit": float(lk.abs().max()),
+                    "finite": bool(torch.isfinite(logits).all()),
+                    "argmax_same": float((logits.argmax(-1)
+                                          == lk.argmax(-1)).float().mean()),
+                    "layer_max": max(layer), "layers": len(layer),
+                    "attn_max": max(float(r.float().abs().max())
+                                    for r in ref_attn)}
+        out["launches"] = {k: LAUNCHES.get(k, 0) - before[k] for k in TP_B}
+    return out
+
+
+def tp_world(task: str, backend: str, timeout: float) -> dict:
+    """Run phase 8's world of ``TP_WORLD`` ranks for ``task``; returns
+    {rank: result}, with the ranks' output's tail under "log"."""
+    from dynamo_tpu_torch.parallel.multihost import free_address
+    work = os.path.join(ROOT, "build", "tp")
+    os.makedirs(work, exist_ok=True)
+    spec_path = os.path.join(work, f"{task}-{backend}.json")
+    out = os.path.join(work, f"{task}-{backend}.out")
+    for r in range(TP_WORLD):
+        if os.path.exists(f"{out}.{r}"):
+            os.unlink(f"{out}.{r}")
+    with open(spec_path, "w") as f:
+        json.dump({"task": task, "backend": backend, "world": TP_WORLD,
+                   "address": free_address(), "out": out}, f)
+    log_path = os.path.join(work, f"{task}-{backend}.log")
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank",
+             spec_path], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            import signal
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    got = {}
+    for r in range(TP_WORLD):
+        try:
+            with open(f"{out}.{r}") as f:
+                got[r] = json.load(f)
+        except FileNotFoundError:
+            got[r] = {"error": f"rank {r} wrote no result (exit "
+                               f"{proc.returncode})"}
+    with open(log_path, errors="replace") as f:
+        got["log"] = "\n".join(f.read().splitlines()[-12:])
+    return got
+
+
+def nccl_probe() -> tuple:
+    """Two ranks on the cards there are over NCCL, one all-reduce: (ok,
+    what it said)."""
+    got = tp_world("probe", "nccl", TP_PROBE_TIMEOUT_S)
+    errs = [got[r]["error"] for r in range(TP_WORLD) if "error" in got[r]]
+    if not errs:
+        return True, f"all-reduce sums {got[0]['sum']}"
+    # the exception's own lines: the traceback's last frame onwards
+    lines = errs[0].strip().splitlines()
+    tail = [ln.strip() for ln in lines[max(i for i, ln in enumerate(lines)
+                                           if ln.startswith("  ")) + 1:]]
+    return False, " | ".join(ln for ln in tail if ln)[:600]
+
+
+def tp_serve(backend: str) -> dict:
+    """Phase 8(b): the frontend and one worker with
+    ``--tensor-parallel-size 2 --random-weights --dist-backend BACKEND`` on
+    phase 5's model directory. Phase 5's identity pass (its chats with
+    their logprobs, echo scoring, embeddings: every answer checked), each
+    chat's tokens held against phase 5's tp=1 worker's (reported), then
+    one of phase 5's warm timed windows (TTFT and tok/s beside phase 5's).
+    The leader is stopped alone, so that it releases its follower, and
+    each rank prints its kernel launches; both must have launched B1, B2
+    and B3. Returns {rank: launches}."""
+    import re
+    import signal
+    cfg = llama_cfg()
+    work = os.path.join(ROOT, "build", "serve_entry")
+    model_dir = os.path.join(work, "llama32_3b")
+    if not os.path.exists(os.path.join(model_dir, "config.json")):
+        write_entry_model(model_dir, cfg)
+    ports = [free_port() for _ in range(3)]
+    coord = f"127.0.0.1:{ports[0]}"
+    sizes = []
+    for k in ("num_pages", "page_size", "max_num_seqs", "max_prefill_chunk",
+              "max_context"):
+        sizes += [f"--{k.replace('_', '-')}", str(SERVE_SIZES[k])]
+    children = []
+    t0 = time.perf_counter()
+    try:
+        children.append(Child("tp-coordinator",
+                              "dynamo_tpu_torch.runtime.coordinator",
+                              ["--host", "127.0.0.1", "--port",
+                               str(ports[0])], work))
+        children[-1].wait_for("coordinator listening")
+        worker = Child(
+            "tp-worker", "dynamo_tpu_torch.worker.main",
+            ["--coordinator", coord, "--model-path", model_dir,
+             "--random-weights", "--dtype", "bfloat16",
+             "--tensor-parallel-size", str(TP_WORLD), "--dist-backend",
+             backend] + sizes, work,
+            {"DYN_SYSTEM_ENABLED": "1", "DYN_SYSTEM_PORT": str(ports[2])})
+        children.append(worker)
+        children.append(Child(
+            "tp-frontend", "dynamo_tpu_torch.frontend.main",
+            ["--coordinator", coord, "--http-host", "127.0.0.1",
+             "--http-port", str(ports[1])], work))
+        worker.wait_for("torch worker serving model")
+        worker.wait_for(f"torch follower rank 1/{TP_WORLD} in lockstep")
+        children[2].wait_for("frontend listening")
+        base = f"http://127.0.0.1:{ports[1]}"
+        import urllib.request
+        model, deadline = None, time.monotonic() + ENTRY_TIMEOUT_S
+        while model is None and time.monotonic() < deadline:
+            with urllib.request.urlopen(f"{base}/v1/models") as resp:
+                data = json.loads(resp.read())["data"]
+            model = data[0]["id"] if data else time.sleep(0.2)
+        line = [ln for ln in worker.text().splitlines()
+                if "torch worker serving model" in ln][0]
+        log(f"[tp] stack up in {time.perf_counter() - t0:.1f} s: {line}")
+        t1 = time.perf_counter()
+        ans = entry_requests(base, model, seed=5)
+        check_entry_answers(ans, cfg.hidden_size)
+        log(f"[tp] identity pass (4 chats, echo, embeddings) in "
+            f"{time.perf_counter() - t1:.1f} s: every answer checked")
+        ref = ENTRY_ANSWERS.get("first")
+        if ref:
+            same = total = 0
+            firsts = []
+            for i in range(len(ENTRY_CHAT_WORDS)):
+                a = [e["token"] for e in ans[f"chat{i}"]["logprobs"]]
+                b = [e["token"] for e in ref[f"chat{i}"]["logprobs"]]
+                total += max(len(a), len(b))
+                same += sum(x == y for x, y in zip(a, b))
+                firsts.append(next((j for j, (x, y) in enumerate(zip(a, b))
+                                    if x != y), None))
+            log(f"[tp] chat tokens equal to phase 5's tp=1 worker's: "
+                f"{same}/{total} ({same / max(total, 1):.1%}); first "
+                f"differing token per chat {firsts} (reported: bf16 near "
+                f"ties part, ROADMAP Queue C)")
+        r = entry_window(base, model, cfg.vocab_size, WARM_SEED)
+        log(f"[tp] timed window (phase 4's requests, seed {WARM_SEED}) at "
+            f"tp={TP_WORLD} over {backend}: {r['tokens']} tokens in "
+            f"{r['wall']:.4f} s: {r['tok_s']:.2f} tok/s; client TTFT p50="
+            f"{r['ttft_p50']:.4f} s max={r['ttft_max']:.4f} s mean="
+            f"{r['ttft_mean']:.4f} s")
+        for w in ENTRY_ANSWERS.get("warm", []):
+            log(f"[tp] beside phase 5's tp=1 warm window: "
+                f"{w['tok_s']:.2f} tok/s, TTFT p50={w['ttft_p50']:.4f} s "
+                f"mean={w['ttft_mean']:.4f} s")
+        os.kill(worker.proc.pid, signal.SIGTERM)
+        worker.proc.wait(timeout=120)
+        launches = {}
+        for rank, pat in ((0, r"torch worker rank 0 stopped: kernel "
+                              r"launches (\{.*?\})"),
+                          (1, r"torch follower rank 1 released: kernel "
+                              r"launches (\{.*?\})")):
+            m = re.search(pat, worker.text())
+            if m is None:
+                raise AssertionError(f"rank {rank} printed no launches")
+            launches[rank] = {k: v for k, v in json.loads(m.group(1)).items()
+                              if k in TP_B}
+        log(f"[tp] kernel launches per rank over the worker's life: "
+            f"{launches}")
+        for rank, got in launches.items():
+            for k in TP_B:
+                if got.get(k, 0) <= 0:
+                    raise AssertionError(f"rank {rank} never launched {k}")
+        return launches
+    except Exception:
+        for c in children:
+            log(f"[tp] last 40 lines of {c.name}:\n{c.tail()}")
+        raise
+    finally:
+        for c in reversed(children):
+            c.stop()
+
+
+def phase_tp() -> dict:
+    """Phase 8: Llama-3.2-3B at full width and depth as a world of two
+    ranks. With two or more cards: NCCL over two of them, fused blocks
+    captured. With one: NCCL with two ranks on that card is tried first
+    and what it says printed; where it refuses, both ranks run on the one
+    card over gloo (all-reduce on CUDA tensors; fused blocks eager), which
+    is a check of correctness, not a speed of tensor parallelism. Then
+    (a) ``tp_forward_rank`` under phase 3's gate, and (b) ``tp_serve``.
+    Returns {"forward": {rank: launches}, "serve": {rank: launches}}."""
+    cards = torch.cuda.device_count()
+    if cards >= TP_WORLD:
+        backend = "nccl"
+        log(f"[tp] {cards} cards: ranks on cuda:0..{TP_WORLD - 1} over "
+            f"nccl, fused blocks captured")
+    else:
+        ok, said = nccl_probe()
+        log(f"[tp] nccl with {TP_WORLD} ranks on {cards} card: "
+            f"{'works' if ok else 'refused'}: {said}")
+        backend = "nccl" if ok else "gloo"
+        log(f"[tp] {cards} card: both ranks on cuda:0 over {backend} "
+            f"(fused blocks {'captured' if ok else 'eager'}); a check of "
+            f"correctness, not a speed of tensor parallelism")
+    t0 = time.perf_counter()
+    got = tp_world("forward", backend, TP_FORWARD_TIMEOUT_S)
+    bad = [got[r]["error"] for r in range(TP_WORLD) if "error" in got[r]]
+    if bad:
+        raise AssertionError(f"tp forward failed: {bad[0]}\n{got['log']}")
+    for name, st in got[0]["steps"].items():
+        log(f"[tp] forward {name} at tp={TP_WORLD} over {backend}: logits vs "
+            f"tp=1 max|d|={st['diff']:.4e} (tol {st['tol']:.4e} = "
+            f"{LOGITS_VS_ORACLE} x plain vs oracle {st['odiff']:.4e}; "
+            f"max|logits| {st['max_logit']:.4e}, argmax agreement "
+            f"{st['argmax_same']:.3f}); greatest per-layer attention "
+            f"distance to tp=1 {st['layer_max']:.4e} over {st['layers']} "
+            f"layers (max|attention| {st['attn_max']:.4e}); finite="
+            f"{st['finite']}")
+        if not st["finite"] or st["diff"] > st["tol"]:
+            raise AssertionError(f"tp forward {name}: outside phase 3's "
+                                 f"gate")
+    fwd = {r: got[r]["launches"] for r in range(TP_WORLD)}
+    log(f"[tp] forward launches per rank {fwd} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r, n in fwd.items():
+        for k in TP_B:
+            if n.get(k, 0) <= 0:
+                raise AssertionError(f"tp forward: rank {r} never launched "
+                                     f"{k}")
+    return {"forward": fwd, "serve": tp_serve(backend)}
+
+
 SOURCES = {
     "paged_decode": ("dynamo_tpu_torch/ops/kernels/csrc/decode.cu",
                      "dynamo_tpu/ops/pallas/decode.py:69"),
@@ -4789,6 +5173,11 @@ def model_phases(name, cfg, impls, strict_logits, failures, profile,
 
 def main() -> int:
     args = sys.argv[1:]
+    if "--tp-rank" in args:
+        # a rank process of phase 8's worlds
+        local = (int(args[args.index("--local-rank") + 1])
+                 if "--local-rank" in args else 0)
+        return tp_rank_main(args[args.index("--tp-rank") + 1], local)
     quick = "--quick" in args
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
@@ -4840,6 +5229,7 @@ def main() -> int:
     planner = {}
     slice_counts = {"int8": {}, "spec": {}, "gemma": {}, "dispatch": {},
                     "moe": {}, "gemma9b": {}, "llama1b": {}, "gguf": {}}
+    tp = {}
     profile = "--profile" in args
     if not failures:
         # one model on the card at a time: each is freed before the next
@@ -4871,6 +5261,8 @@ def main() -> int:
                 # the planner's path (phase 7): profiler, mocker, planner
                 planner = run_phase("planner", phase_planner,
                                     failures) or {}
+                # tensor parallelism (phase 8): two ranks, each alone
+                tp = run_phase("tp", phase_tp, failures) or {}
                 # head_dim 256 and 64, each alone on the card, then the
                 # GGUF and DeepSeek checkpoint loaders
                 slice_counts["gemma9b"] = served_model_phases(
@@ -4906,6 +5298,12 @@ def main() -> int:
             "launches_gemma9b": slice_counts["gemma9b"].get(name),
             "launches_llama1b": slice_counts["llama1b"].get(name),
             "launches_gguf": slice_counts["gguf"].get(name),
+            "launches_tp_forward": {
+                r: n.get(name) for r, n in tp.get("forward", {}).items()
+            } if name in TP_B else None,
+            "launches_tp_serve": {
+                r: n.get(name) for r, n in tp.get("serve", {}).items()
+            } if name in TP_B else None,
             "max_abs_err": row["max_abs_err"],
             "max_err_ulps": row["max_err_ulps"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "ms_per_call": row["ms_per_call"],

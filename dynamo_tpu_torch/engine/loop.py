@@ -14,12 +14,15 @@ imports and prose differ, and one behaviour: the loop's thread work
 ``stop()`` waits for it. A cancelled loop leaves such a call running in
 its thread, whose frame held the engine, its cache and its weights after
 ``stop()`` returned (the KVBM test that drops a stopped tiered engine
-failed on a loaded host).
+failed on a loaded host). An engine may also name the executor those calls
+run on (``_step_executor``): a rank of a multi-process world runs them all
+on one thread, which issues its collectives in one order.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import logging
 import time
 from collections import deque
@@ -111,6 +114,10 @@ class ScheduledEngineBase(EngineBase):
         self._loop_task: Optional[asyncio.Task] = None
         # the loop's calls running in threads (``_to_thread``)
         self._thread_work: set = set()
+        # None: the default pool; an engine of a rank world sets a
+        # single-thread executor, so every call that reaches a collective
+        # runs on one thread in the order the loop issues it
+        self._step_executor = None
         self._stopping = False
         self.kv_event_cb: Optional[Callable[[List[KvCacheEvent]], None]] = None
         # supervision: called when the engine loop DIES (exception — not a
@@ -922,7 +929,11 @@ class ScheduledEngineBase(EngineBase):
         """``asyncio.to_thread`` for the loop's own work, tracked: when the
         loop is cancelled the call goes on in its thread to its end, and
         ``stop()`` waits for it."""
-        task = asyncio.ensure_future(asyncio.to_thread(fn, *args))
+        if self._step_executor is not None:
+            task = asyncio.get_running_loop().run_in_executor(
+                self._step_executor, functools.partial(fn, *args))
+        else:
+            task = asyncio.ensure_future(asyncio.to_thread(fn, *args))
         self._thread_work.add(task)
         task.add_done_callback(self._thread_done)
         return await asyncio.shield(task)

@@ -77,8 +77,27 @@ The decode knobs left ``None`` in ``TorchEngineConfig`` resolve at build
 from ``RuntimeConfig`` and the short-form env (``DYN_DECODE_MULTISTEP``,
 ``DYN_MIXED_BATCH``, ``DYN_DECODE_PROGRESS``), as the reference's do.
 
-Refused rather than approximated: sequence-parallel ring prefill (ROADMAP
-A13).
+Tensor and expert parallelism (``TorchEngineConfig.mesh``, with the
+``shard_params_fn`` / ``shard_pages_fn`` hooks of ``parallel/sharding.py``):
+each rank is a process holding its slice of the weights and the cache, and
+its forwards run at its local shapes (``local_config``) with the model's
+collectives over the mesh. Rank 0 schedules; before every dispatch it taps
+the dispatch's padded host arrays (``step_tap``, set by
+``parallel/multihost.StepFanout``) and runs ``_invoke_step`` /
+``_invoke_block`` on them, and a follower runs the same function on the
+same arrays (``execute_arrays``): steps, chained steps (on its own last
+packed output), verify steps, fused blocks (chained ones on its own last
+carry), embeddings and scoring. Every sampled token is the same on every
+rank, so the chained KV stays in step. On a rank of a world, every call of
+the loop that reaches a collective runs on one thread (the loop's
+``_step_executor``), the embeddings and scoring on the exclusive lane
+included. Fused blocks are captured as CUDA graphs over NCCL; over gloo (a
+group that cannot be captured) they run eagerly, as the engine's startup
+line says.
+
+Refused rather than approximated: sequence-parallel ring prefill, and at
+world size > 1 the KV page gathers and scatters of the data plane (ROADMAP
+A13b).
 """
 
 from __future__ import annotations
@@ -93,7 +112,8 @@ import time
 import weakref
 from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -120,6 +140,7 @@ from dynamo_tpu_torch.ops.kernels.mla_prefill import mla_paged_prefill_stacked
 from dynamo_tpu_torch.ops.kernels.prefill import (
     paged_prefill_attention_stacked)
 from dynamo_tpu_torch.ops.kernels.ragged import ragged_mixed_attention_stacked
+from dynamo_tpu_torch.parallel.sharding import local_config
 from dynamo_tpu_torch.ops.sampling import (TOPK_MAX, apply_penalties,
                                            apply_vocab_mask, log_softmax_at,
                                            penalty_window_entries,
@@ -224,6 +245,12 @@ class TorchEngineConfig:
     spec_ngram_max: int = 4
     spec_ngram_min: int = 2
     spec_chain_break: int = 8
+    # tensor / expert parallelism (filled by dynamo_tpu_torch.parallel for a
+    # rank of a world): this rank's mesh, and the hooks that slice the
+    # whole parameter tree and cache to its shards
+    shard_params_fn: Optional[Callable] = None
+    shard_pages_fn: Optional[Callable] = None
+    mesh: Optional[object] = None
 
 
 # prompt-scoring chunk: each full chunk of the prompt is one forward whose
@@ -342,19 +369,25 @@ class TorchEngine(ScheduledEngineBase):
         self.cfg = config or TorchEngineConfig()
         self.family = get_family(model_cfg)
         self.mla = bool(model_cfg.kv_lora_rank)
+        mesh = self.cfg.mesh
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # the forwards' config: this rank's heads and FFN widths
+        self.fwd_cfg = local_config(model_cfg, self.mesh)
         if self.device.type == "cuda":
+            lc = self.fwd_cfg
             if self.mla:
                 what = "latent attention kernels"
-                bad = mla_geometry_error(model_cfg.num_heads,
-                                         model_cfg.kv_lora_rank,
-                                         model_cfg.qk_rope_head_dim,
+                bad = mla_geometry_error(lc.num_heads, lc.kv_lora_rank,
+                                         lc.qk_rope_head_dim,
                                          self.cfg.page_size)
+                if bad and self.mesh is not None:
+                    bad += (f" ({lc.num_heads} query heads a rank at "
+                            f"tp={self.mesh.shape['tp']}: ROADMAP Queue B "
+                            "item 8)")
             else:
                 what = "attention kernels"
-                bad = gqa_geometry_error(model_cfg.num_heads,
-                                         model_cfg.num_kv_heads,
-                                         model_cfg.head_dim,
-                                         self.cfg.page_size)
+                bad = gqa_geometry_error(lc.num_heads, lc.num_kv_heads,
+                                         lc.head_dim, self.cfg.page_size)
             if bad is None and model_cfg.dtype != "bfloat16":
                 bad = f"dtype {model_cfg.dtype}, not bfloat16"
             if bad:
@@ -411,11 +444,15 @@ class TorchEngine(ScheduledEngineBase):
         if self.cfg.quantize:
             from dynamo_tpu_torch.ops.quant import quantize_params
             self.params = quantize_params(self.params)
+        if self.cfg.shard_params_fn is not None:
+            self.params = self.cfg.shard_params_fn(self.params)
         # the paged cache, written in place by every step and block (a
         # captured graph holds its address: never rebound)
         self.pages = self.family.make_pages(model_cfg, self.cfg.num_pages,
                                             self.cfg.page_size,
                                             device=self.device)
+        if self.cfg.shard_pages_fn is not None:
+            self.pages = self.cfg.shard_pages_fn(self.pages)
         self.table_width = self.cfg.max_context // self.cfg.page_size
         # JAX's PRNGKey(seed): step keys are fold_in(_rng, step)
         self._rng = prng.PRNGKey(self.cfg.seed, device=self.device)
@@ -439,10 +476,29 @@ class TorchEngine(ScheduledEngineBase):
         # the fetch ring: (packed shape, dtype) -> pinned slots
         self._pinned: Dict[tuple, list] = {}
         # one CUDA graph per fused block shape (none on the CPU, where the
-        # block body runs as it is)
+        # block body runs as it is). A rank's blocks hold its collectives:
+        # NCCL's are captured, a gloo group's cannot be, so over gloo the
+        # block runs eagerly — decided here, from the group's backend
+        backend = None if self.mesh is None else self.mesh.backend
         self.graphs = (BlockGraphs(self.device, [LAUNCHES,
                                                  self.kernel_launches])
-                       if self.device.type == "cuda" else None)
+                       if self.device.type == "cuda"
+                       and backend in (None, "nccl") else None)
+        # multi-process lockstep (parallel/multihost.py): the leader's tap,
+        # and each rank's last packed step output and block carry (a
+        # follower's chained dispatches take their inputs from these)
+        self.step_tap: Optional[Callable] = None
+        self._last_packed: Optional[torch.Tensor] = None
+        self._last_block: Optional[dict] = None
+        if self.mesh is not None:
+            self._step_executor = ThreadPoolExecutor(
+                1, thread_name_prefix="dynamo-step")
+        if self.mesh is not None or self.device.type == "cuda":
+            logger.info(
+                "TorchEngine: rank %d of mesh %s on %s, backend %s, fused "
+                "blocks %s", 0 if self.mesh is None else self.mesh.rank,
+                None if self.mesh is None else self.mesh.shape, self.device,
+                backend or "-", self.block_mode)
         # graph captures, drained by the loop as the reference's jit
         # compiles are (engine/steptrace.py)
         self._pending_compiles: list = []
@@ -473,6 +529,24 @@ class TorchEngine(ScheduledEngineBase):
         self._moe_drops_lock = threading.Lock()
         self._moe_dispatch_active = (
             getattr(model_cfg, "moe_backend", "") == "dispatch")
+
+    @property
+    def block_mode(self) -> str:
+        """How fused blocks run: "graphs" (CUDA graph replays) or "eager"
+        (the CPU, and a rank over a gloo group)."""
+        return "graphs" if self.graphs is not None else "eager"
+
+    def _tap(self, kind: str, arrays: dict) -> None:
+        """Fan one dispatch's host arrays out before running it (rank 0 of
+        a world); the step rides the message itself."""
+        if self.step_tap is not None:
+            self.step_tap(kind, {k: v for k, v in arrays.items()
+                                 if k != "step"}, self._step_counter)
+
+    async def run_on_step_thread(self, fn, *args):
+        """``fn(*args)`` on the thread that issues this rank's collectives
+        (the loop's ``_to_thread``): the fanout's close, for one."""
+        return await self._to_thread(fn, *args)
 
     def _counted(self, kernel: str):
         impl = self.attention[kernel]
@@ -943,16 +1017,14 @@ class TorchEngine(ScheduledEngineBase):
         for i, ids in enumerate(stop_lists):
             stop_ids[i, :len(ids)] = ids
         dev = self.device
-        pen: Dict[str, torch.Tensor] = {}
+        pen_host: Dict[str, np.ndarray] = {}
         gt_host = None
         if pen_active or guided_specs:
-            pen = {"seeds": _upload(seeds, dev), "min_p": _upload(min_p, dev)}
+            pen_host = {"seeds": seeds, "min_p": min_p}
             if pw_active:
-                pen.update(pw_fp=_upload(pfp, dev), pw_pp=_upload(ppp, dev),
-                           pw_rp=_upload(prp, dev),
-                           pw_active=_upload(pact, dev),
-                           pw_prompt_ids=_upload(prompt_ids, dev),
-                           pw_prompt_valid=_upload(prompt_valid, dev))
+                pen_host.update(pw_fp=pfp, pw_pp=ppp, pw_rp=prp,
+                                pw_active=pact, pw_prompt_ids=prompt_ids,
+                                pw_prompt_valid=prompt_valid)
             if guided_specs:
                 # the distinct tables batched behind sentinel state 0 (an
                 # all-ones mask, a self-loop): unguided and wedged rows sit
@@ -980,20 +1052,25 @@ class TorchEngine(ScheduledEngineBase):
                 # pad states: unreachable, all-ones masks and self-loops
                 for s in range(S, S_pad):
                     trans[s] = s
-                pen.update(gt_trans=_upload(trans, dev),
-                           gt_masks=_upload(masks, dev))
+                pen_host.update(gt_trans=trans, gt_masks=masks)
                 gt_host = {"trans": trans,
                            "offsets": {i: offsets[i] for i in guided_specs}}
+        # ``host``: the block's host arrays, as a world's leader fans them
+        # out (the followers upload them; the leader keeps its uploads)
+        host = dict(temp=temp, top_k=top_k, top_p=top_p, stop_ids=stop_ids,
+                    **pen_host)
         out = {"temp": _upload(temp, dev), "top_k": _upload(top_k, dev),
                "top_p": _upload(top_p, dev),
-               "stop_ids": _upload(stop_ids, dev), "pen": pen,
-               "needs_pcarry": pw_active or bool(guided_specs),
+               "stop_ids": _upload(stop_ids, dev),
+               "pen": {k: _upload(v, dev) for k, v in pen_host.items()},
+               "host": host, "needs_pcarry": pw_active or bool(guided_specs),
                "gt_host": gt_host, "draw": bool(temp.max() > 0)}
         self._samp_cache = (key, out)
         return out
 
     def _fresh_pcarry(self, seqs, B: int, samp: dict) -> dict:
-        """The penalty and automaton carry of a FRESH constrained block:
+        """The penalty and automaton carry of a FRESH constrained block, as
+        host arrays:
         each penalized or biased row's window (bias ids and every distinct
         generated token, from ``_penalty_row`` as the per-step path builds
         it; the scheduler's width gate guarantees it fits W), and each
@@ -1022,9 +1099,7 @@ class TorchEngine(ScheduledEngineBase):
                 for t in seq.generated:
                     s = int(gt_host["trans"][s, int(t)])
                 gstate[i] = s
-        dev = self.device
-        return {k: _upload(v, dev) for k, v in
-                zip(PEN_CARRY, (pids, pcnt, pctx, pbias, pn, gstate))}
+        return dict(zip(PEN_CARRY, (pids, pcnt, pctx, pbias, pn, gstate)))
 
     # -- per-step dispatch ---------------------------------------------------
 
@@ -1042,7 +1117,7 @@ class TorchEngine(ScheduledEngineBase):
         mixed = isinstance(plan, MixedStepBatch)
         if not mixed and plan.ring:
             raise NotImplementedError(
-                "sequence-parallel ring prefill (ROADMAP A13)")
+                "sequence-parallel ring prefill (ROADMAP A13b)")
         chunks = list(plan.chunks)
         if mixed:
             # decode rows ARE ragged chunks of length 1
@@ -1050,27 +1125,80 @@ class TorchEngine(ScheduledEngineBase):
                                     is_last=True)
                        for s in plan.decode_seqs]
         a = self._chunk_arrays(chunks)
-        if self.mla:
-            kernel = ("mla_decode" if a["toks"].shape[1] == 1
-                      else "mla_prefill")
-        elif a["toks"].shape[1] == 1:
-            kernel = "paged_decode"
-        else:
-            kernel = "ragged_mixed" if mixed else "paged_prefill"
+        kind = "mixed" if mixed else "step"
         if mixed:
             self.decode_dispatches += 1
             self.mixed_steps += 1
         plan._step_id = self._step_counter
         a["step"] = np.array(self._step_counter, np.int64)
-        packed = self._step(a, kernel)
+        self._tap(kind, a)
+        packed = self._invoke_step(kind, a)
         self._step_counter += 1
         self.last_padded = a["toks"].shape
-        if not any(c.is_last for c in chunks):
+        if self.step_tap is None and not any(c.is_last for c in chunks):
             # no row samples this step (intermediate prompt chunks): skip
-            # the device-to-host copy; nobody reads these values
+            # the device-to-host copy; nobody reads these values. A world's
+            # leader never skips: its outcome relayed to the followers
+            # must reflect a real sync
             B = a["toks"].shape[0]
             return np.zeros(B, np.int64), np.zeros(B, np.float32), None
         return self.fetch_packed(self._stage(packed))
+
+    def _kernel(self, kind: str, S: int) -> str:
+        """The attention kernel of a step: the decode kernel at S == 1,
+        else the ragged one for a mixed step and the chunked-prefill one
+        otherwise (DeepSeek: the latent decode / prefill kernels)."""
+        if self.mla:
+            return "mla_decode" if S == 1 else "mla_prefill"
+        if S == 1:
+            return self.decode_kernel
+        return "ragged_mixed" if kind == "mixed" else "paged_prefill"
+
+    def _invoke_step(self, kind: str, a: dict,
+                     dev_arrays: Optional[dict] = None,
+                     prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Run one step of ``kind`` ("step", "mixed", "chained", "spec") on
+        its host arrays ``a`` (those in ``dev_arrays`` already on the
+        device: the leader's composition caches) and return its packed
+        device output. The ONE function leader and followers run: a
+        chained step takes its tokens from ``prev`` (the leader's previous
+        handle), else from this rank's last packed output."""
+        if kind == "spec":
+            packed = self._spec_step(a)
+        else:
+            dev_arrays = dict(dev_arrays or {})
+            if kind == "chained":
+                src = prev if prev is not None else self._last_packed
+                dev_arrays["toks"] = src[:, :1]
+            packed = self._step(a, self._kernel(kind, a["pos"].shape[1]),
+                                dev_arrays)
+        self._last_packed = packed
+        return packed
+
+    def execute_arrays(self, kind: str, a: dict, step: int):
+        """Run one fanned-out dispatch from its raw host arrays: the
+        follower entry point (``parallel/multihost.follow_steps``). Every
+        rank runs the same function on the same arrays, so the model's
+        collectives meet; the result is fetched, so a failure of this rank
+        surfaces here. Returns what the leader's fetch returns (None for
+        embeddings and scoring)."""
+        self._use_device()
+        # writable copies (arrays off the wire are read-only views)
+        a = {k: np.array(v) for k, v in a.items()}
+        a["step"] = np.array(step, np.int64)
+        if kind == "embed":
+            self._embed_raw(a["toks"], a["mask"])
+            return None
+        if kind == "score":
+            self._score_impl(a["toks"])
+            return None
+        if kind == "block":
+            out = self._invoke_block(a)
+            return self.fetch_packed_block(self._stage(out["packed"]))
+        if kind not in ("step", "mixed", "chained", "spec"):
+            raise NotImplementedError(
+                f"fanned-out {kind!r} dispatch (ROADMAP A13b)")
+        return self.fetch_packed(self._stage(self._invoke_step(kind, a)))
 
     # -- speculative verify ---------------------------------------------------
 
@@ -1082,7 +1210,8 @@ class TorchEngine(ScheduledEngineBase):
         a = self._spec_arrays(plan.seqs, plan.drafts)
         plan._step_id = self._step_counter
         a["step"] = np.array(self._step_counter, np.int64)
-        packed = self._spec_step(a)
+        self._tap("spec", a)
+        packed = self._invoke_step("spec", a)
         self._step_counter += 1
         self.decode_dispatches += 1
         self.last_padded = a["toks"].shape
@@ -1246,11 +1375,13 @@ class TorchEngine(ScheduledEngineBase):
         dev_arrays = {"table": self._table_arrays(seqs, B)[1],
                       "temp": samp["temp"], "top_k": samp["top_k"],
                       "top_p": samp["top_p"]}
-        if prev_handle is not None:
-            dev_arrays["toks"] = _device_of(prev_handle)[:, :1]
         plan._step_id = self._step_counter
         a["step"] = np.array(self._step_counter, np.int64)
-        packed = self._step(a, self.decode_kernel, dev_arrays)
+        kind = "step" if prev_handle is None else "chained"
+        self._tap(kind, a)
+        packed = self._invoke_step(
+            kind, a, dev_arrays,
+            None if prev_handle is None else _device_of(prev_handle))
         self._step_counter += 1
         self.decode_dispatches += 1
         self.last_padded = (B, 1)
@@ -1279,8 +1410,9 @@ class TorchEngine(ScheduledEngineBase):
         ``aux`` dict (dispatch drop counts), the others the plain
         ``(logits, pages)`` pair (aux ``{}``)."""
         out = self.family.forward(
-            self.params, self.model_cfg, toks, pos, self.pages, table, total,
-            new, attn_impl=self._attn[kernel], logits_window=logits_window)
+            self.params, self.fwd_cfg, toks, pos, self.pages, table, total,
+            new, attn_impl=self._attn[kernel], logits_window=logits_window,
+            mesh=self.mesh)
         return out[0], (out[2] if len(out) > 2 else {})
 
     def _queue_drops(self, drops: Optional[torch.Tensor]) -> None:
@@ -1414,9 +1546,10 @@ class TorchEngine(ScheduledEngineBase):
 
     @property
     def multistep_unsupported_reason(self) -> Optional[str]:
-        """Why fusion is off on an engine whose config asked for it: the
-        reference's reasons are speculative decoding and multi-host
-        lockstep, which the port does not serve (ROADMAP A13)."""
+        """Why fusion is off on an engine whose config asked for it:
+        speculative decoding. The reference's other reason, multi-host
+        lockstep, is not one here: a world's leader fans its blocks out
+        (``_invoke_block``), since every mesh of the port is one."""
         if self.multistep <= 1 or not self.cfg.pipeline_decode:
             return None
         if self.spec_K:
@@ -1435,14 +1568,20 @@ class TorchEngine(ScheduledEngineBase):
         B = _bucket(len(seqs), self.cfg.min_decode_bucket,
                     self.cfg.max_num_seqs)
         samp = self._device_sampling(seqs, B)
-        x = {"table": self._table_arrays(seqs, B)[1], "temp": samp["temp"],
-             "top_k": samp["top_k"], "top_p": samp["top_p"],
-             "stop_ids": samp["stop_ids"], **samp["pen"]}
+        table, table_dev = self._table_arrays(seqs, B)
+        # the block's host arrays (fanned out to a world's followers) and
+        # the leader's device copies of those it caches
+        xa = {"table": table, **samp["host"],
+              "step0": np.array(self._step_counter, np.int64),
+              "w": np.array(w, np.int32), "draw": np.array(samp["draw"]),
+              "needs_pcarry": np.array(samp["needs_pcarry"])}
+        dev = {"table": table_dev, "temp": samp["temp"],
+               "top_k": samp["top_k"], "top_p": samp["top_p"],
+               "stop_ids": samp["stop_ids"], **samp["pen"]}
+        carry = None
         if prev_handle is not None:
-            c = prev_handle.carry
-            x.update((k, c[k]) for k in CARRY)
-            if samp["needs_pcarry"]:
-                x.update((k, c[k]) for k in PEN_CARRY)
+            xa["chained"] = np.array(True)
+            carry = prev_handle.carry
         else:
             tok = np.zeros((B, 1), np.int32)
             pos = np.zeros((B, 1), np.int32)
@@ -1457,18 +1596,12 @@ class TorchEngine(ScheduledEngineBase):
                 alive[i] = True
                 budget[i] = plan.budgets[i]
                 min_gate[i] = plan.min_gates[i]
-            x.update((k, _upload(v, self.device)) for k, v in
-                     zip(CARRY, (tok, pos, total, alive, budget, min_gate)))
+            xa.update(zip(CARRY, (tok, pos, total, alive, budget, min_gate)))
             if samp["needs_pcarry"]:
-                x.update(self._fresh_pcarry(seqs, B, samp))
-        x["step0"] = _upload(np.array(self._step_counter, np.int64),
-                             self.device)
+                xa.update(self._fresh_pcarry(seqs, B, samp))
         plan._step_id = self._step_counter
-        out = self._run_block(x, w, samp["draw"])
-        if self._moe_dispatch_active:
-            # the graph's static output is overwritten by its next replay:
-            # the queue keeps a device copy (no host sync)
-            self._queue_drops(out["drops"].clone())
+        self._tap("block", xa)
+        out = self._invoke_block(xa, dev, carry)
         # one rng-fold key per fused step: the counter advances by the
         # width, so fused and per-step runs draw the same keys
         self._step_counter += w
@@ -1476,6 +1609,36 @@ class TorchEngine(ScheduledEngineBase):
         self.multistep_blocks += 1
         self.last_padded = (B, w)
         return self._stage(out["packed"], carry=out)
+
+    # the block's host flags: not tensors of the block body
+    _BLOCK_FLAGS = ("w", "draw", "needs_pcarry", "chained", "prime", "step")
+
+    def _invoke_block(self, xa: dict, dev: Optional[dict] = None,
+                      carry: Optional[dict] = None) -> dict:
+        """Run one fused block from its host arrays ``xa`` (those in
+        ``dev`` already on the device): the ONE function leader and
+        followers run. A chained block takes its carry from ``carry`` (the
+        leader's previous handle), else from this rank's last block.
+        Priming blocks (``prime``) report no capture and queue no drops."""
+        dev = dev or {}
+        x = {k: dev[k] if k in dev else _upload(v, self.device)
+             for k, v in xa.items() if k not in self._BLOCK_FLAGS}
+        # the wire carries a 0-d array as shape (1,)
+        x["step0"] = x["step0"].reshape(())
+        if "chained" in xa:
+            c = carry if carry is not None else self._last_block
+            x.update((k, c[k]) for k in CARRY)
+            if _flag(xa["needs_pcarry"]):
+                x.update((k, c[k]) for k in PEN_CARRY)
+        prime = "prime" in xa
+        out = self._run_block(x, int(_flag(xa["w"])), bool(_flag(xa["draw"])),
+                              report=not prime)
+        if self._moe_dispatch_active and not prime:
+            # the graph's static output is overwritten by its next replay:
+            # the queue keeps a device copy (no host sync)
+            self._queue_drops(out["drops"].clone())
+        self._last_block = out
+        return out
 
     def _run_block(self, x: dict, w: int, draw: bool,
                    report: bool = True) -> dict:
@@ -1589,24 +1752,27 @@ class TorchEngine(ScheduledEngineBase):
                 widths.append(w)
                 w //= 2
         self._use_device()
-        dev, P = self.device, self.table_width
+        P = self.table_width
 
-        def z(shape, dtype=torch.int32):
-            return torch.zeros(shape, dtype=dtype, device=dev)
+        def z(shape, dtype=np.int32):
+            return np.zeros(shape, dtype)
 
         out = None
         for w in widths:
-            x = {"table": z((B, P)), "temp": z(B, torch.float32),
-                 "top_k": z(B), "top_p": torch.ones(B, device=dev),
-                 "stop_ids": torch.full((B, 1), -1, dtype=torch.int32,
-                                        device=dev),
-                 "tok": z((B, 1)), "pos": z((B, 1)),
-                 "total": torch.ones(B, dtype=torch.int32, device=dev),
-                 "alive": z(B, torch.bool), "budget": z(B),
-                 "min_gate": z(B), "step0": z((), torch.int64)}
+            xa = {"table": z((B, P)), "temp": z(B, np.float32),
+                  "top_k": z(B), "top_p": np.ones(B, np.float32),
+                  "stop_ids": np.full((B, 1), -1, np.int32),
+                  "tok": z((B, 1)), "pos": z((B, 1)),
+                  "total": np.ones(B, np.int32), "alive": z(B, bool),
+                  "budget": z(B), "min_gate": z(B),
+                  "step0": np.array(0, np.int64), "w": np.array(w, np.int32),
+                  "draw": np.array(False), "needs_pcarry": np.array(False),
+                  "prime": np.array(True)}
             # priming IS the capture: serving's first block of this shape
-            # replays and reports no capture
-            out = self._run_block(x, w, False, report=False)["packed"]
+            # replays and reports no capture (a world's followers prime
+            # with the leader)
+            self._tap("block", xa)
+            out = self._invoke_block(xa)["packed"]
         return out
 
     def _mark_compile(self, kind: str, batch: int, width: int,
@@ -1668,6 +1834,13 @@ class TorchEngine(ScheduledEngineBase):
     # the same stream as the steps, so a gather reads what every step
     # before it wrote and a scatter lands before the next step reads.
 
+    def _refuse_page_io(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"KV page {what} on a sharded cache (world size "
+                f"{self.mesh.size}): the KV data plane over a sharded cache "
+                "is ROADMAP A13b")
+
     @staticmethod
     def _pad_page_ids(page_ids) -> np.ndarray:
         """Pad to the next power of two with page 0 (the garbage page), as
@@ -1687,6 +1860,7 @@ class TorchEngine(ScheduledEngineBase):
         """Gather cache pages -> ``[L, n_pad, 2, Hkv, ps, Dh]`` on the
         cache's device, not waited on. ``replicate`` is the reference's
         mesh flag; one device has nothing to replicate."""
+        self._refuse_page_io("gather")
         return self.pages.index_select(
             1, self._page_index(self._pad_page_ids(page_ids)))
 
@@ -1713,6 +1887,7 @@ class TorchEngine(ScheduledEngineBase):
     def scatter_pages_device(self, page_ids, vals_dev) -> None:
         """Write ``vals_dev`` ``[L, n, 2, Hkv, ps, Dh]`` (a tensor, on any
         device) into cache pages ``page_ids``, in place."""
+        self._refuse_page_io("scatter")
         n = len(page_ids)
         vals = vals_dev[:, :n]
         if vals.device != self.device:
@@ -1757,8 +1932,11 @@ class TorchEngine(ScheduledEngineBase):
         stream is the legacy stream, which joins every capture), and its
         one-stream order keeps a replay's writes and this work's apart. On
         the CPU it runs in a thread beside the loop, as the reference's
-        ``asyncio.to_thread``."""
-        if self.device.type == "cuda":
+        ``asyncio.to_thread``. On a rank of a world it runs on the
+        exclusive lane on either device: it fans out and issues
+        collectives, which only the step thread may, between
+        dispatches."""
+        if self.device.type == "cuda" or self.mesh is not None:
             return await self.run_exclusive(fn, *args)
         return await asyncio.to_thread(fn, *args)
 
@@ -1784,9 +1962,18 @@ class TorchEngine(ScheduledEngineBase):
         S = _bucket(max(len(t) for t in token_lists),
                     self.cfg.min_prefill_bucket, self.cfg.max_prefill_chunk)
         toks, mask = self._padded_tokens(token_lists, S)
+        # fanned out with the current counter, which it leaves as it is:
+        # a world's streams stay those of one process
+        self._tap("embed", {"toks": toks, "mask": mask})
+        return self._embed_raw(toks, mask)
+
+    @torch.no_grad()
+    def _embed_raw(self, toks: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """The encode on padded host arrays (leader and followers)."""
         self._use_device()
-        out = encode(self.params, self.model_cfg,
-                     _upload(toks, self.device), _upload(mask, self.device))
+        out = self.family.encode(
+            self.params, self.fwd_cfg, _upload(toks, self.device),
+            _upload(mask, self.device), mesh=self.mesh)
         return out.cpu().numpy()
 
     async def embed(self, token_lists) -> np.ndarray:
@@ -1827,6 +2014,7 @@ class TorchEngine(ScheduledEngineBase):
         chunk = _SCORE_CHUNK
         S = max(chunk, -(-longest // chunk) * chunk)
         toks, _ = self._padded_tokens(token_lists, S)
+        self._tap("score", {"toks": toks})
         lps, tids, tlps = self._score_impl(toks)
         return [(lps[i, :len(t)], tids[i, :len(t)], tlps[i, :len(t)])
                 for i, t in enumerate(token_lists)]
@@ -1837,8 +2025,9 @@ class TorchEngine(ScheduledEngineBase):
         chunks written out. Every chunk is full (S is a multiple of the
         chunk), so ``new_lens`` is uniform and the window is the whole
         chunk; pad positions write KV into the row's own scratch pages past
-        its real length, where no real position attends."""
-        cfg = self.model_cfg
+        its real length, where no real position attends. A rank of a world
+        scores over its local heads (scratch pages of its local shape)."""
+        cfg = self.fwd_cfg
         dev = self.device
         self._use_device()
         B, S = tokens_np.shape
@@ -1864,7 +2053,7 @@ class TorchEngine(ScheduledEngineBase):
             logits = self.family.forward(
                 self.params, cfg, tokens[:, sl].contiguous(),
                 pos.contiguous(), pages, table, total, new, attn_impl=attn,
-                logits_window=chunk)[0]
+                logits_window=chunk, mesh=self.mesh)[0]
             lsm = torch.log_softmax(logits.float(), dim=-1)  # [B, c, V]
             t_lp.append(torch.gather(lsm, -1, tgt[:, sl, None])[..., 0])
             vals, ids = top_k_stable(lsm.reshape(B * chunk, -1), top_n)
@@ -1902,6 +2091,11 @@ class TorchEngine(ScheduledEngineBase):
         params = get_family(model_cfg).init_params(model_cfg, gen,
                                                    device=dev)
         return cls(model_cfg, params, config, device=dev)
+
+
+def _flag(v):
+    """A host scalar of a fanned-out dispatch (0-d, or (1,) off the wire)."""
+    return np.asarray(v).reshape(-1)[0]
 
 
 def _device_of(handle) -> torch.Tensor:

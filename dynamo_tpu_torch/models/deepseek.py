@@ -27,8 +27,9 @@ Routed experts run on either of ``models/moe.py``'s backends, as the
 reference's ``deepseek.py:441-460`` chooses: dense (every expert on every
 token) or the capacity dispatch, whose dropped assignments ``forward``
 returns as the reference's ``aux``. Plain matrix products stay
-``torch.matmul``/``bmm`` (the reference leaves them to XLA). Not ported
-here: the expert mesh (ROADMAP A13) and ``forward_unrolled`` (one forward
+``torch.matmul``/``bmm`` (the reference leaves them to XLA). Under a mesh
+(``mesh``) the query heads split over ``tp`` and the routed experts over
+``ep`` (``_moe_mlp``). Not ported here: ``forward_unrolled`` (one forward
 over the stacked cache serves). ``load_params`` reads an HF checkpoint
 into the two stacks.
 """
@@ -46,8 +47,10 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import _logits, _rms_norm, torch_dtype
-from dynamo_tpu_torch.models.moe import (dense_experts, expert_dispatch,
+from dynamo_tpu_torch.models.moe import (combine, dense_experts,
+                                         expert_dispatch, expert_range,
                                          sum_drops)
+from dynamo_tpu_torch.ops import quant
 from dynamo_tpu_torch.ops.attention import NEG_INF, _pad_table, write_kv
 from dynamo_tpu_torch.ops.sampling import top_k_stable
 
@@ -332,20 +335,20 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 
 def _expand_and_project(cfg: ModelConfig, lp, h: torch.Tensor,
-                        lat: torch.Tensor, w_uv: torch.Tensor
-                        ) -> torch.Tensor:
+                        lat: torch.Tensor, w_uv: torch.Tensor,
+                        mesh=None) -> torch.Tensor:
     """lat [B,S,nh,dkv] latent attention output -> W_UV expand -> wo
-    residual."""
+    residual (under tp: the rank's heads, then the row-parallel sum)."""
     B, S, _H = h.shape
     out = torch.einsum("bsnk,nkd->bsnd", lat, w_uv.float())
     out = out.reshape(B, S, cfg.num_heads * cfg.v_head_dim).to(h.dtype)
-    return h + out @ lp["wo"]
+    return h + quant.row_mm(lp, "wo", out, mesh)
 
 
 def _mla_attend(cfg: ModelConfig, lp, h, q_lat, q_pe, w_uv,
                 ckv_ctx: torch.Tensor, kpe_ctx: torch.Tensor,
-                positions: torch.Tensor, total_lens: torch.Tensor
-                ) -> torch.Tensor:
+                positions: torch.Tensor, total_lens: torch.Tensor,
+                mesh=None) -> torch.Tensor:
     """The oracle's direct path: latent attention over the gathered context
     ``ckv_ctx`` [B, T, dkv] / ``kpe_ctx`` [B, T, dr] in float32 (unrounded
     query, f32 weights), then the output projection residual."""
@@ -361,13 +364,13 @@ def _mla_attend(cfg: ModelConfig, lp, h, q_lat, q_pe, w_uv,
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)                  # [B,nh,S,T]
     lat = torch.einsum("bnst,btk->bsnk", probs, ckv32)     # [B,S,nh,dkv]
-    return _expand_and_project(cfg, lp, h, lat, w_uv)
+    return _expand_and_project(cfg, lp, h, lat, w_uv, mesh)
 
 
 def _mla_attend_blockwise(cfg: ModelConfig, lp, h, q_lat, q_pe, w_uv,
                           gather_chunk, num_table_pages: int, ps: int,
-                          positions: torch.Tensor, total_lens: torch.Tensor
-                          ) -> torch.Tensor:
+                          positions: torch.Tensor, total_lens: torch.Tensor,
+                          mesh=None) -> torch.Tensor:
     """The oracle's chunked path for prefill: the context streams in page
     chunks with an online softmax, so the peak intermediate is
     ``[B, nh, S, span]`` scores plus a ``[B, nh, S, dkv]`` accumulator."""
@@ -402,7 +405,7 @@ def _mla_attend_blockwise(cfg: ModelConfig, lp, h, q_lat, q_pe, w_uv,
         den = den * scale + p.sum(dim=-1)
         mx = mx_new
     lat = (num / torch.clamp(den, min=1e-20)[..., None]).permute(0, 2, 1, 3)
-    return _expand_and_project(cfg, lp, h, lat, w_uv)
+    return _expand_and_project(cfg, lp, h, lat, w_uv, mesh)
 
 
 def _gather_ctx(cfg: ModelConfig, gathered: torch.Tensor):
@@ -477,17 +480,37 @@ def _gate_noaux(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
 
 
 def _moe_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-             x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+             x: torch.Tensor, mesh=None
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Routed experts plus the shared experts. ``cfg.moe_backend`` picks the
     routed compute: ``"dense"`` (every expert on every token, weighted by
     the gate; zero weight off the top-k: ``moe.dense_experts``) or
     ``"dispatch"`` (the capacity dispatch, ``moe.expert_dispatch``, with
     this family's gate). Returns ``(out, dropped assignments)``, dropped
-    None on the dense backend."""
+    None on the dense backend.
+
+    Under a mesh the routed experts run as in ``models/moe.py`` (local
+    experts, the global drop count) and the shared experts over the rank's
+    ``tp`` columns; the ``ep`` coordinate 0 ranks add the shared partial to
+    the routed one, and ONE sum over ``tp`` and ``ep`` combines both."""
     B, S, H = x.shape
     xt = x.reshape(B * S, H)
     top_w, top_i = _gate(cfg, lp, xt)                      # [T, k]
     dropped = None
+    if mesh is not None and mesh.size > 1:
+        lo, _n = expert_range(cfg, mesh)
+        if cfg.moe_backend == "dispatch":
+            part, dropped = expert_dispatch(
+                xt, top_w, top_i, lp["w_gate"], lp["w_up"], lp["w_down"],
+                cfg.num_experts, cfg.moe_capacity_factor, expert_lo=lo)
+        else:
+            part = dense_experts(xt, top_w, top_i, lp["w_gate"],
+                                 lp["w_up"], lp["w_down"], expert_lo=lo,
+                                 num_experts=cfg.num_experts, f32_out=True)
+        part = part.reshape(B, S, H)
+        if cfg.n_shared_experts and mesh.coords["ep"] == 0:
+            part = part + _dense_mlp(lp, x, "ws_", f32=True)
+        return combine(mesh, part, x.dtype), dropped
     if cfg.moe_backend == "dispatch":
         routed, dropped = expert_dispatch(
             xt, top_w, top_i, lp["w_gate"], lp["w_up"], lp["w_down"],
@@ -503,16 +526,20 @@ def _moe_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
 
 
 def _dense_mlp(lp: Dict[str, torch.Tensor], x: torch.Tensor,
-               prefix: str = "w_") -> torch.Tensor:
-    return (F.silu(x @ lp[prefix + "gate"])
-            * (x @ lp[prefix + "up"])) @ lp[prefix + "down"]
+               prefix: str = "w_", f32: bool = False) -> torch.Tensor:
+    """The gated MLP; ``f32`` returns the down projection's float32
+    partial (a tp rank's, before the sum)."""
+    act = F.silu(x @ lp[prefix + "gate"]) * (x @ lp[prefix + "up"])
+    if f32:
+        return quant.mm_f32(act, lp[prefix + "down"])
+    return act @ lp[prefix + "down"]
 
 
 # ----------------------------------------------------------------- forward
 
 def _layer_step(cfg: ModelConfig, lp, h, positions, total_lens, new_lens,
                 page_table, pages, lidx: int, moe: bool,
-                attn_impl: Optional[Callable]
+                attn_impl: Optional[Callable], mesh=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer against the stacked latent cache (written in
     place). Returns (h, the MoE dispatch's dropped assignments or None)."""
@@ -526,7 +553,7 @@ def _layer_step(cfg: ModelConfig, lp, h, positions, total_lens, new_lens,
     if attn_impl is not None:
         lat = attn_impl(q_lat, q_pe, pages, lidx, page_table, positions,
                         total_lens, _mla_scale(cfg))
-        h = _expand_and_project(cfg, lp, h, lat, w_uv)
+        h = _expand_and_project(cfg, lp, h, lat, w_uv, mesh)
     elif S > 1 and P > PAGES_PER_CHUNK:
         table = _pad_table(page_table.long(), PAGES_PER_CHUNK)
 
@@ -536,15 +563,16 @@ def _layer_step(cfg: ModelConfig, lp, h, positions, total_lens, new_lens,
 
         h = _mla_attend_blockwise(cfg, lp, h, q_lat, q_pe, w_uv,
                                   gather_chunk, P, ps, positions,
-                                  total_lens)
+                                  total_lens, mesh)
     else:
         ckv_ctx, kpe_ctx = _gather_ctx(cfg, layer[page_table.long()])
         h = _mla_attend(cfg, lp, h, q_lat, q_pe, w_uv, ckv_ctx, kpe_ctx,
-                        positions, total_lens)
+                        positions, total_lens, mesh)
     x = _rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     if not moe:
-        return h + _dense_mlp(lp, x), None
-    mlp, dropped = _moe_mlp(cfg, lp, x)
+        act = F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
+        return h + quant.row_mm(lp, "w_down", act, mesh), None
+    mlp, dropped = _moe_mlp(cfg, lp, x, mesh)
     return h + mlp, dropped
 
 
@@ -552,7 +580,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, pages: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
             new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
-            logits_window: int = 1
+            logits_window: int = 1, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Forward over the stacked latent cache: the dense stack, then the MoE
     stack, one shared cache.
@@ -564,7 +592,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     oracle. Returns (logits float32 at each row's last ``logits_window``
     real new tokens, ``[B, V]`` or ``[B, W, V]``, pages, and the
     reference's ``aux``: ``{"moe_dropped_assignments": int32 scalar}``
-    summed over the MoE layers, 0 on the dense backend)."""
+    summed over the MoE layers, 0 on the dense backend). Under tensor and
+    expert parallelism (``mesh``, ``cfg`` the rank's local config) the
+    query heads split over ``tp``, the latent path and cache replicate, and
+    the sums are one after ``wo`` and one per MLP (``_moe_mlp``)."""
     K = cfg.first_k_dense_replace
     h = params["embed"][tokens.long()]
     stacks = []
@@ -579,12 +610,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             lp = {k: v[i] for k, v in layers.items()}
             h, dropped = _layer_step(cfg, lp, h, positions, total_lens,
                                      new_lens, page_table, pages, first + i,
-                                     moe, attn_impl)
+                                     moe, attn_impl, mesh)
             if dropped is not None:
                 drops.append(dropped)
     aux = {"moe_dropped_assignments": sum_drops(drops, h.device)}
-    return (_logits(cfg, params, h, new_lens, window=logits_window), pages,
-            aux)
+    return (_logits(cfg, params, h, new_lens, window=logits_window,
+                    mesh=mesh), pages, aux)
 
 
 # ------------------------------------------------------------------ loader

@@ -125,27 +125,32 @@ def _project_qkv(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
 
 
 def _finish_layer(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-                  h: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+                  h: torch.Tensor, attn: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
     """The post-attention norm on the attention residual, then the
-    pre-norm, GeGLU MLP and post-norm on the MLP residual."""
+    pre-norm, GeGLU MLP and post-norm on the MLP residual (the norms act
+    on full rows: under tp, after the row-parallel sums)."""
     B, S, _ = h.shape
     eps = cfg.rms_norm_eps
-    attn_out = quant.mm(lp, "wo", attn.reshape(B, S, cfg.q_size))
+    attn_out = quant.row_mm(lp, "wo", attn.reshape(B, S, cfg.q_size), mesh)
     h = h + _rms_norm(attn_out, lp["post_attn_norm"], eps)
     x = _rms_norm(h, lp["pre_ffw_norm"], eps)
     act = (F.gelu(quant.mm(lp, "w_gate", x), approximate="tanh")
            * quant.mm(lp, "w_up", x))
-    mlp = quant.mm(lp, "w_down", act)
+    mlp = quant.row_mm(lp, "w_down", act, mesh)
     return h + _rms_norm(mlp, lp["post_ffw_norm"], eps)
 
 
 def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor,
-            new_lens: torch.Tensor, window: int = 1) -> torch.Tensor:
+            new_lens: torch.Tensor, window: int = 1,
+            mesh=None) -> torch.Tensor:
     """float32 logits at each row's last ``window`` real new positions
     (``[B, V]``, or ``[B, W, V]`` for the speculative verify step and
-    prompt scoring), soft-capped when the config caps them."""
+    prompt scoring), soft-capped when the config caps them (on the full
+    logits: a vocab-split head gathers first)."""
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    logits = head_logits(params, select_rows(h, new_lens, window))
+    logits = head_logits(params, select_rows(h, new_lens, window), mesh,
+                         cfg.vocab_size)
     cap = cfg.final_logit_softcap
     if cap:
         logits = torch.tanh(logits / cap) * cap
@@ -166,12 +171,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, pages: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
             new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
-            logits_window: int = 1
+            logits_window: int = 1, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward over the stacked paged cache, with ``models/llama.py``'s
-    signature and returns; ``attn_impl`` takes ``paged_attention``'s
-    signature with its ``window`` and ``softcap`` keywords, which every
-    layer passes (window 0 on the global layers)."""
+    signature and returns (``mesh`` included); ``attn_impl`` takes
+    ``paged_attention``'s signature with its ``window`` and ``softcap``
+    keywords, which every layer passes (window 0 on the global layers;
+    the attention softcap acts per head, on the rank's own heads)."""
     attn_impl = attn_impl or paged_attention
     sm_scale = _sm_scale(cfg)
     softcap = cfg.attn_logit_softcap or None
@@ -183,8 +189,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         write_kv(pages, l, k, v, page_table, positions, new_lens)
         attn = attn_impl(q, pages, l, page_table, positions, total_lens,
                          sm_scale, window=win, softcap=softcap)
-        h = _finish_layer(cfg, lp, h, attn)
-    return _logits(cfg, params, h, new_lens, window=logits_window), pages
+        h = _finish_layer(cfg, lp, h, attn, mesh)
+    return (_logits(cfg, params, h, new_lens, window=logits_window,
+                    mesh=mesh), pages)
 
 
 __all__ = ["init_params", "params_from_jax", "forward", "make_pages",

@@ -149,22 +149,15 @@ def _project_qkv(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
 
 
 def _finish_layer(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-                  h: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-    """Out-projection residual + gated MLP residual."""
+                  h: torch.Tensor, attn: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
+    """Out-projection residual + gated MLP residual (under tp, ``wo`` and
+    ``w_down`` are the row-parallel products, each summed over ``tp``)."""
     B, S, _ = h.shape
-    h = h + quant.mm(lp, "wo", attn.reshape(B, S, cfg.q_size))
+    h = h + quant.row_mm(lp, "wo", attn.reshape(B, S, cfg.q_size), mesh)
     x = _rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     act = F.silu(quant.mm(lp, "w_gate", x)) * quant.mm(lp, "w_up", x)
-    return h + quant.mm(lp, "w_down", act)
-
-
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with model-dtype operands and a float32 result (the
-    reference's ``preferred_element_type=f32``). On the card cuBLAS
-    accumulates in f32 and writes f32; on the CPU the operands are upcast."""
-    if a.is_cuda and a.dtype != torch.float32:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
+    return h + quant.row_mm(lp, "w_down", act, mesh)
 
 
 def select_rows(h: torch.Tensor, new_lens: torch.Tensor,
@@ -182,36 +175,43 @@ def select_rows(h: torch.Tensor, new_lens: torch.Tensor,
     return h[rows[:, None], idx]
 
 
-def head_logits(params: Params, h_sel: torch.Tensor) -> torch.Tensor:
+def head_logits(params: Params, h_sel: torch.Tensor, mesh=None,
+                vocab: int = 0) -> torch.Tensor:
     """float32 logits of ``h_sel [..., H]``: the int8 head when the tree
-    was quantized, else model-dtype operands with a float32 result."""
+    was quantized, else model-dtype operands with a float32 result. A
+    vocab-split head (an untied ``lm_head`` narrower than ``vocab``)
+    gathers every rank's columns, so each rank holds the full logits."""
     lm8 = params.get("lm_head_q")
     if lm8 is not None:
-        return quant.qdot(h_sel, lm8, params["lm_head_scale"],
-                          out_dtype=torch.float32)
-    lm_head = params.get("lm_head")
-    if lm_head is None:
-        lm_head = params["embed"].t()
-    lead = h_sel.shape[:-1]
-    return _mm_f32(h_sel.reshape(-1, h_sel.shape[-1]),
-                   lm_head).reshape(*lead, -1)
+        out = quant.qdot(h_sel, lm8, params["lm_head_scale"],
+                         out_dtype=torch.float32)
+    else:
+        lm_head = params.get("lm_head")
+        if lm_head is None:
+            lm_head = params["embed"].t()
+        out = quant.mm_f32(h_sel, lm_head)
+    if mesh is not None and vocab and out.shape[-1] != vocab:
+        out = mesh.all_gather(out, "tp", dim=-1)
+    return out
 
 
 def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor,
-            new_lens: torch.Tensor, window: int = 1) -> torch.Tensor:
+            new_lens: torch.Tensor, window: int = 1,
+            mesh=None) -> torch.Tensor:
     """float32 logits at each row's last ``window`` real new positions:
     ``[B, V]`` for ``window == 1`` (every serving step), ``[B, W, V]``
     for ``window = W > 1`` (prompt scoring and the speculative verify
     step)."""
     h = _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    return head_logits(params, select_rows(h, new_lens, window))
+    return head_logits(params, select_rows(h, new_lens, window), mesh,
+                       cfg.vocab_size)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, pages: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
             new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
-            logits_window: int = 1
+            logits_window: int = 1, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward over the stacked paged cache.
 
@@ -221,6 +221,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     takes ``paged_attention``'s signature. Returns (logits float32 at each
     row's last ``logits_window`` real new tokens — ``[B, V]`` for a window
     of 1, else ``[B, W, V]`` — and pages).
+
+    Under tensor parallelism ``mesh`` is the rank's mesh, ``cfg`` the
+    rank's local config (``parallel/sharding.local_config``: its heads and
+    FFN width) and ``params`` / ``pages`` its shards; the collectives are
+    one sum after ``wo`` and one after ``w_down`` per layer, and the
+    gather of vocab-split logits. None issues none.
     """
     sm_scale = cfg.head_dim ** -0.5
     attn_impl = attn_impl or paged_attention
@@ -232,12 +238,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         write_kv(pages, l, k, v, page_table, positions, new_lens)
         attn = attn_impl(q, pages, l, page_table, positions, total_lens,
                          sm_scale)
-        h = _finish_layer(cfg, lp, h, attn)
-    return _logits(cfg, params, h, new_lens, window=logits_window), pages
+        h = _finish_layer(cfg, lp, h, attn, mesh)
+    return (_logits(cfg, params, h, new_lens, window=logits_window,
+                    mesh=mesh), pages)
 
 
 def _dense_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """Causal dense (non-paged) forward of the one-shot embeddings
     surface: attention over the prompt itself in plain PyTorch, float32
     scores ``[B, H, S, S]`` per layer (the reference computes it outside
@@ -265,15 +272,16 @@ def _dense_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                              torch.tensor(-1e30, device=dev))
         probs = torch.softmax(scores, dim=-1)
         attn = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
-        h = _finish_layer(cfg, lp, h, attn.to(h.dtype))
+        h = _finish_layer(cfg, lp, h, attn.to(h.dtype), mesh)
     return _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
 
 
 def encode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-           mask: torch.Tensor) -> torch.Tensor:
+           mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """Embeddings: the mean-pooled final hidden state over each row's real
-    tokens, float32 ``[B, H]`` (tokens / mask ``[B, S]``)."""
-    h = _dense_hidden(params, cfg, tokens, mask)
+    tokens, float32 ``[B, H]`` (tokens / mask ``[B, S]``; ``mesh`` as in
+    ``forward``)."""
+    h = _dense_hidden(params, cfg, tokens, mask, mesh)
     m = mask.float()[..., None]
     return (h.float() * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
 

@@ -20,9 +20,16 @@ int32 scalar}`` summed over layers (0 on the dense backend), which the
 engine adds up for its stats without a host sync. The expert products stay
 ``torch.bmm``: the reference computes them as XLA einsums outside any
 Pallas kernel. Every shape depends on the step's padded token count only,
-so a fused decode block captures as a CUDA graph. The expert mesh of the
-reference (``ep_mesh``) is ROADMAP A13, and ``forward_unrolled`` has no
-counterpart (one forward over the stacked cache serves).
+so a fused decode block captures as a CUDA graph. ``forward_unrolled``
+has no counterpart (one forward over the stacked cache serves).
+
+Under a mesh (``mesh``, the reference's ``ep_mesh``) each rank holds the
+experts of its ``ep`` coordinate, each expert's FFN width split over
+``tp``: every rank routes EVERY token over all experts (the router is
+replicated), runs its local experts on the tokens routed there with either
+backend, and one sum over ``tp`` and ``ep`` combines the float32 partials.
+The dispatch's capacity and drop rule are the global ones, so every rank
+counts the same global drops (the reference's count) with no collective.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import (_logits, _project_qkv, _rms_norm,
                                            make_pages, params_from_jax,
                                            torch_dtype)
+from dynamo_tpu_torch.ops import quant
 from dynamo_tpu_torch.ops.attention import paged_attention, write_kv
 from dynamo_tpu_torch.ops.sampling import top_k_stable
 
@@ -67,8 +75,23 @@ def _router_topk(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
     return top_w, top_i
 
 
+def expert_range(cfg: ModelConfig, mesh) -> Tuple[int, int]:
+    """(first expert, expert count) of this rank's ``ep`` coordinate."""
+    ep = 1 if mesh is None else mesh.axis_size("ep")
+    n = cfg.num_experts // ep
+    return (0 if mesh is None else mesh.coords["ep"] * n), n
+
+
+def combine(mesh, part: torch.Tensor, dtype) -> torch.Tensor:
+    """The MoE combine: this rank's float32 partial summed over ``tp`` and
+    ``ep``, in ``dtype``."""
+    return mesh.all_reduce(part.float(), "tp", "ep").to(dtype)
+
+
 def dense_experts(xt: torch.Tensor, top_w: torch.Tensor,
-                  top_i: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+                  top_i: torch.Tensor, w_gate, w_up, w_down,
+                  expert_lo: int = 0, num_experts: int = 0,
+                  f32_out: bool = False) -> torch.Tensor:
     """Every expert on every token, weighted by the router: ``xt [T, H]``,
     ``top_w`` / ``top_i [T, k]`` (a float32 weight per expert, zero off the
     top-k), expert weights ``[E, H, I]`` / ``[E, I, H]``. The tokens
@@ -76,11 +99,16 @@ def dense_experts(xt: torch.Tensor, top_w: torch.Tensor,
     (the weights are read as they lie), ``_DENSE_CHUNK_BYTES`` of expert
     outputs at a time; the weighted sum over experts is a batched product
     in the model dtype, as the reference's ``bse,bseh->bsh`` einsum.
-    Returns ``[T, H]`` in x's dtype."""
+    Returns ``[T, H]`` in x's dtype.
+
+    Under ep the stacks hold ``E`` local experts, the ``num_experts``
+    global ones' from ``expert_lo``; ``f32_out`` returns the float32
+    partial (sum before rounding) for the combine."""
     T, H = xt.shape
     E = w_gate.shape[0]
-    weights = (F.one_hot(top_i, E).float()
+    weights = (F.one_hot(top_i, num_experts or E).float()
                * top_w[..., None]).sum(dim=-2)             # [T, E]
+    weights = weights[:, expert_lo:expert_lo + E]
     step = max(1, _DENSE_CHUNK_BYTES // (E * max(H, w_gate.shape[-1])
                                          * xt.element_size()))
     outs = []
@@ -90,18 +118,29 @@ def dense_experts(xt: torch.Tensor, top_w: torch.Tensor,
         xe = x.unsqueeze(0).expand(E, n, H)
         act = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
         per_expert = torch.bmm(act, w_down)                # [E, n, H]
-        w = weights[t0:t0 + n].reshape(n, 1, E).to(xt.dtype)
-        outs.append(torch.bmm(w, per_expert.transpose(0, 1)).reshape(n, H))
+        w = weights[t0:t0 + n].reshape(n, 1, E)
+        if f32_out:
+            out = torch.bmm(w, per_expert.transpose(0, 1).float())
+        else:
+            out = torch.bmm(w.to(xt.dtype), per_expert.transpose(0, 1))
+        outs.append(out.reshape(n, H))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def moe_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-            x: torch.Tensor) -> torch.Tensor:
+            x: torch.Tensor, mesh=None) -> torch.Tensor:
     """The dense backend. x: [B, S, H] (already normed) -> [B, S, H]."""
     B, S, H = x.shape
     top_w, top_i = _router_topk(cfg, lp, x.reshape(B * S, H))  # [T, k]
-    return dense_experts(x.reshape(B * S, H), top_w, top_i, lp["w_gate"],
-                         lp["w_up"], lp["w_down"]).reshape(B, S, H)
+    if mesh is None or mesh.size == 1:
+        return dense_experts(x.reshape(B * S, H), top_w, top_i,
+                             lp["w_gate"], lp["w_up"],
+                             lp["w_down"]).reshape(B, S, H)
+    lo, _n = expert_range(cfg, mesh)
+    part = dense_experts(x.reshape(B * S, H), top_w, top_i, lp["w_gate"],
+                         lp["w_up"], lp["w_down"], expert_lo=lo,
+                         num_experts=cfg.num_experts, f32_out=True)
+    return combine(mesh, part, x.dtype).reshape(B, S, H)
 
 
 def capacity(T: int, k: int, num_experts: int,
@@ -116,22 +155,27 @@ def capacity(T: int, k: int, num_experts: int,
 
 
 def moe_mlp_dispatch(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-                     x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                     x: torch.Tensor, mesh=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The capacity dispatch backend: each expert computes only a buffer of
     its routed tokens (``expert_dispatch``). Returns ``(out [B, S, H],
     dropped assignments int32 scalar)``."""
     B, S, H = x.shape
     xt = x.reshape(B * S, H)
     top_w, top_i = _router_topk(cfg, lp, xt)              # [T, k]
+    lo, _n = expert_range(cfg, mesh)
     out, dropped = expert_dispatch(
         xt, top_w, top_i, lp["w_gate"], lp["w_up"], lp["w_down"],
-        cfg.num_experts, cfg.moe_capacity_factor)
+        cfg.num_experts, cfg.moe_capacity_factor, expert_lo=lo)
+    if mesh is not None and mesh.size > 1:
+        return combine(mesh, out, x.dtype).reshape(B, S, H), dropped
     return out.reshape(B, S, H).to(x.dtype), dropped
 
 
 def expert_dispatch(xt: torch.Tensor, top_w: torch.Tensor,
                     top_i: torch.Tensor, w_gate, w_up, w_down,
-                    num_experts: int, capacity_factor: float
+                    num_experts: int, capacity_factor: float,
+                    expert_lo: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based capacity dispatch (routing-agnostic: DeepSeek reuses it
     with its own gate). The ``T * k`` assignments group by expert through a
@@ -146,9 +190,15 @@ def expert_dispatch(xt: torch.Tensor, top_w: torch.Tensor,
     tokens, which on CUDA would be atomics in a varying order).
 
     xt [T, H]; top_w / top_i [T, k]; expert weights [E, H, I] / [E, I, H].
-    Returns ``(out [T, H] float32, dropped assignments int32 scalar)``."""
+    Returns ``(out [T, H] float32, dropped assignments int32 scalar)``.
+
+    Under ep the weights are the ``E_local`` experts from ``expert_lo``:
+    capacity, slots and drops are the global ones (all ``num_experts``),
+    assignments to another rank's experts go to the trash row, and ``out``
+    is this rank's partial."""
     T, H = xt.shape
     E = num_experts
+    E_loc = w_gate.shape[0]
     k = top_i.shape[1]
     C = capacity(T, k, E, capacity_factor)
     A = T * k
@@ -162,13 +212,17 @@ def expert_dispatch(xt: torch.Tensor, top_w: torch.Tensor,
     rank[order] = torch.arange(A, device=dev) - starts[flat_e[order]]
     keep = rank < C
     dropped = (~keep).sum().to(torch.int32)
-    dest = torch.where(keep, flat_e * C + rank, E * C)    # token-major
-    xe = torch.zeros((E * C + 1, H), dtype=xt.dtype, device=dev)
+    if E_loc != E:
+        local = (flat_e >= expert_lo) & (flat_e < expert_lo + E_loc)
+        keep = keep & local
+    dest = torch.where(keep, (flat_e - expert_lo) * C + rank,
+                       E_loc * C)                         # token-major
+    xe = torch.zeros((E_loc * C + 1, H), dtype=xt.dtype, device=dev)
     xe.index_copy_(0, dest, xt.repeat_interleave(k, dim=0))
-    xe = xe[:E * C].view(E, C, H)
+    xe = xe[:E_loc * C].view(E_loc, C, H)
     act = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
-    ye = torch.bmm(act, w_down)                           # [E, C, H]
-    ye_flat = torch.cat([ye.reshape(E * C, H).float(),
+    ye = torch.bmm(act, w_down)                           # [E_loc, C, H]
+    ye_flat = torch.cat([ye.reshape(E_loc * C, H).float(),
                          torch.zeros((1, H), dtype=torch.float32,
                                      device=dev)])        # trash row = 0
     contrib = ye_flat[dest] * top_w.reshape(A, 1).float()  # [A, H]
@@ -176,18 +230,18 @@ def expert_dispatch(xt: torch.Tensor, top_w: torch.Tensor,
 
 
 def _moe_layer_tail(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-                    h: torch.Tensor, attn: torch.Tensor
+                    h: torch.Tensor, attn: torch.Tensor, mesh=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Out-projection residual, then the routed MLP residual. Returns (h,
     dropped assignments), dropped None on the dense backend (it computes
     every expert: nothing drops)."""
     B, S, _ = h.shape
-    h = h + attn.reshape(B, S, cfg.q_size) @ lp["wo"]
+    h = h + quant.row_mm(lp, "wo", attn.reshape(B, S, cfg.q_size), mesh)
     x = _rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     if cfg.moe_backend == "dispatch":
-        mlp, dropped = moe_mlp_dispatch(cfg, lp, x)
+        mlp, dropped = moe_mlp_dispatch(cfg, lp, x, mesh)
         return h + mlp, dropped
-    return h + moe_mlp(cfg, lp, x), None
+    return h + moe_mlp(cfg, lp, x, mesh), None
 
 
 def sum_drops(drops, device) -> torch.Tensor:
@@ -253,11 +307,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, pages: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
             new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
-            logits_window: int = 1
+            logits_window: int = 1, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Forward over the stacked paged cache: ``models/llama.py``'s
-    signature and returns plus a third, ``{"moe_dropped_assignments":
-    int32 scalar}`` summed over layers (the engine's drop count)."""
+    signature and returns (``mesh`` included) plus a third,
+    ``{"moe_dropped_assignments": int32 scalar}`` summed over layers (the
+    engine's drop count)."""
     sm_scale = cfg.head_dim ** -0.5
     attn_impl = attn_impl or paged_attention
     h = params["embed"][tokens.long()]
@@ -269,12 +324,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         write_kv(pages, l, k, v, page_table, positions, new_lens)
         attn = attn_impl(q, pages, l, page_table, positions, total_lens,
                          sm_scale)
-        h, dropped = _moe_layer_tail(cfg, lp, h, attn)
+        h, dropped = _moe_layer_tail(cfg, lp, h, attn, mesh)
         if dropped is not None:
             drops.append(dropped)
     aux = {"moe_dropped_assignments": sum_drops(drops, h.device)}
-    return (_logits(cfg, params, h, new_lens, window=logits_window), pages,
-            aux)
+    return (_logits(cfg, params, h, new_lens, window=logits_window,
+                    mesh=mesh), pages, aux)
 
 
 __all__ = ["init_params", "params_from_jax", "forward", "make_pages",

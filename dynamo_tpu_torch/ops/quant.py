@@ -127,5 +127,47 @@ def mm(lp: Dict[str, torch.Tensor], name: str,
     return x @ lp[name]
 
 
-__all__ = ["LAYER_WEIGHTS", "mm", "qdot", "quantize_params",
-           "quantize_weight"]
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [..., K] @ b [K, N]`` with model-dtype operands and a float32
+    result (the reference's ``preferred_element_type=f32``). On the card
+    cuBLAS accumulates in f32 and writes f32; on the CPU the operands are
+    upcast."""
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1])
+    if a2.is_cuda and a2.dtype != torch.float32:
+        out = torch.mm(a2, b, out_dtype=torch.float32)
+    else:
+        out = a2.float() @ b.float()
+    return out.reshape(*lead, b.shape[-1])
+
+
+def row_mm(lp: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
+           mesh=None) -> torch.Tensor:
+    """``x @ lp[name]`` where the contraction dim is split over ``tp``
+    (``wo``, ``w_down``: x holds this rank's heads or FFN columns, the
+    weight the matching rows): each rank's float32 partial product, summed
+    over ``tp``, then cast to x's dtype — the row-parallel sum GSPMD
+    inserts. An int8 pair quantizes x with the absmax of the WHOLE row (a
+    max over ``tp`` first, as the reference's qdot sees the unsplit row),
+    and each rank's int32 partial is rescaled, then summed: the scales
+    distribute over the sum. At one rank it is ``mm``."""
+    if mesh is None or mesh.axis_size("tp") == 1:
+        return mm(lp, name, x)
+    import torch.distributed as dist
+    w8 = lp.get(name + "_q")
+    if w8 is not None:
+        xf = x.float()
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        mesh.all_reduce(amax, "tp", op=dist.ReduceOp.MAX)
+        s_x = _absmax_scale(amax)
+        x8 = torch.round(xf / s_x).clamp(-127, 127).to(torch.int8)
+        K, N = w8.shape
+        y = _int_mm(x8.reshape(-1, K), w8).reshape(*x.shape[:-1], N)
+        part = (y.float() * s_x) * lp[name + "_scale"]
+    else:
+        part = mm_f32(x, lp[name])
+    return mesh.all_reduce(part, "tp").to(x.dtype)
+
+
+__all__ = ["LAYER_WEIGHTS", "mm", "mm_f32", "qdot", "quantize_params",
+           "quantize_weight", "row_mm"]

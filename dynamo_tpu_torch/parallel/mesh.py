@@ -1,0 +1,202 @@
+"""Named rank meshes over ``torch.distributed``.
+
+The port of ``dynamo_tpu/parallel/mesh.py``. The axis convention and order
+are the reference's (any subset may be 1):
+
+- ``dp``  — data parallel: independent model replicas (batch-sharded);
+- ``pp``  — pipeline parallel: layer stages;
+- ``tp``  — tensor parallel: attention heads / MLP columns over ranks;
+- ``sp``  — sequence/context parallel: ring attention over the sequence;
+- ``ep``  — expert parallel: MoE experts over ranks.
+
+The reference's mesh is an array of devices driven by one controller, and
+GSPMD lays its collectives onto the axes. PyTorch has no single controller:
+every device is a process, so a mesh here is a RANK's view of the world —
+its coordinates on each axis, and one process group per set of axes its
+model's collectives run over (``group``). The rank order is the
+reference's device order: ``rank = ((((dp * PP + pp) * TP + tp) * SP + sp)
+* EP + ep)``, the innermost axes varying fastest.
+
+A mesh made without a process group (``RankMesh(spec, rank)``) carries the
+coordinates only: ``parallel/sharding.py`` slices parameters with it, and
+the tests hold those slices against the reference's shards with no process
+started. ``make_mesh`` makes the groups once the world is up.
+"""
+
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
+
+AXES = ("dp", "pp", "tp", "sp", "ep")
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """Logical mesh shape; unspecified axes default to 1."""
+
+    dp: int = 1
+    pp: int = 1
+    tp: int = 1
+    sp: int = 1
+    ep: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.pp * self.tp * self.sp * self.ep
+
+    def shape(self) -> Dict[str, int]:
+        return {"dp": self.dp, "pp": self.pp, "tp": self.tp, "sp": self.sp,
+                "ep": self.ep}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, int]) -> "MeshSpec":
+        unknown = set(d) - set(AXES)
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)}")
+        return cls(**{k: int(v) for k, v in d.items()})
+
+
+def rank_coords(spec: MeshSpec, rank: int) -> Dict[str, int]:
+    """A rank's coordinate on every axis (the innermost axis fastest)."""
+    out = {}
+    for axis in reversed(AXES):
+        n = getattr(spec, axis)
+        out[axis] = rank % n
+        rank //= n
+    return {a: out[a] for a in AXES}
+
+
+def coords_rank(spec: MeshSpec, coords: Dict[str, int]) -> int:
+    rank = 0
+    for axis in AXES:
+        rank = rank * getattr(spec, axis) + coords.get(axis, 0)
+    return rank
+
+
+class RankMesh:
+    """One rank's view of a mesh: ``shape`` (the reference's ``mesh.shape``
+    dict), this rank's ``coords``, and the process groups its collectives
+    use, keyed by the axes they span (``group("tp")``, ``group("tp",
+    "ep")``). A group over axes whose sizes multiply to 1 is None: no
+    collective is issued there."""
+
+    def __init__(self, spec: MeshSpec, rank: int = 0,
+                 groups: Optional[Dict[Tuple[str, ...], object]] = None,
+                 backend: Optional[str] = None):
+        if not 0 <= rank < spec.size:
+            raise ValueError(f"rank {rank} is outside mesh {spec.shape()}")
+        self.spec = spec
+        self.rank = rank
+        self.shape = spec.shape()
+        self.coords = rank_coords(spec, rank)
+        self.backend = backend
+        self._groups = dict(groups or {})
+
+    @property
+    def size(self) -> int:
+        return self.spec.size
+
+    def axis_size(self, *axes: str) -> int:
+        n = 1
+        for a in axes:
+            n *= self.shape[a]
+        return n
+
+    def group(self, *axes: str):
+        """The process group over ``axes`` containing this rank; None when
+        those axes have one rank in all."""
+        key = tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+        if not key:
+            return None
+        try:
+            return self._groups[key]
+        except KeyError:
+            raise RuntimeError(
+                f"mesh {self.shape} has no process group over {key}: "
+                "make it with make_mesh once the world is up") from None
+
+    def all_reduce(self, x: torch.Tensor, *axes: str, op=None) -> torch.Tensor:
+        """Sum (or ``op``) ``x`` in place over the ranks of ``axes``; at one
+        rank nothing is issued."""
+        g = self.group(*axes)
+        if g is None:
+            return x
+        import torch.distributed as dist
+        dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=g)
+        return x
+
+    def all_gather(self, x: torch.Tensor, axis: str,
+                   dim: int = -1) -> torch.Tensor:
+        """``x`` of every rank along ``axis``, concatenated on ``dim`` in
+        coordinate order; at one rank ``x`` itself."""
+        g = self.group(axis)
+        if g is None:
+            return x
+        import torch.distributed as dist
+        n = self.shape[axis]
+        if x.is_cuda and self.backend == "gloo":
+            # gloo gathers no CUDA tensor; it sums them: each rank's block
+            # in place, zeros elsewhere, summed (exact: x + 0 == x)
+            dim = dim % x.dim()
+            shape = list(x.shape)
+            shape[dim] *= n
+            full = torch.zeros(shape, dtype=x.dtype, device=x.device)
+            full.narrow(dim, self.coords[axis] * x.shape[dim],
+                        x.shape[dim]).copy_(x)
+            dist.all_reduce(full, group=g)
+            return full
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=g)
+        return torch.cat(parts, dim=dim)
+
+    def __repr__(self) -> str:
+        return f"RankMesh({self.shape}, rank={self.rank})"
+
+
+def _axis_sets(spec: MeshSpec) -> Iterable[Tuple[str, ...]]:
+    """Every non-empty set of axes of size > 1, in one fixed order (every
+    rank must create the same groups in the same order)."""
+    live = [a for a in AXES if getattr(spec, a) > 1]
+    for n in range(1, len(live) + 1):
+        yield from itertools.combinations(live, n)
+
+
+def make_mesh(spec: Optional[MeshSpec] = None) -> RankMesh:
+    """This rank's mesh over the running ``torch.distributed`` world (a
+    world of one when none is running), with the reference's axis order
+    and size check: the mesh spans the whole world. Every rank calls this
+    at the same point of its set-up, since making a group is a collective
+    of the whole world."""
+    import torch.distributed as dist
+    up = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if up else 1
+    spec = spec or MeshSpec(tp=world)
+    if spec.size != world:
+        raise ValueError(
+            f"mesh spec {spec.shape()} needs {spec.size} devices, "
+            f"have {world}")
+    rank = dist.get_rank() if up else 0
+    groups: Dict[Tuple[str, ...], object] = {}
+    for axes in _axis_sets(spec):
+        fixed = [a for a in AXES if a not in axes]
+        for base in itertools.product(
+                *(range(getattr(spec, a)) for a in fixed)):
+            ranks = []
+            for free in itertools.product(
+                    *(range(getattr(spec, a)) for a in axes)):
+                c = dict(zip(fixed, base))
+                c.update(zip(axes, free))
+                ranks.append(coords_rank(spec, c))
+            g = dist.new_group(sorted(ranks))
+            if rank in ranks:
+                groups[axes] = g
+    return RankMesh(spec, rank, groups,
+                    dist.get_backend() if up else None)
+
+
+__all__ = ["MeshSpec", "RankMesh", "make_mesh", "rank_coords", "AXES"]

@@ -219,24 +219,29 @@ async def profile_parallelism_sweep(args) -> Dict:
     ``profile_sla.py`` behavior of sweeping TP sizes for prefill/decode so
     the planner can pick a CONFIG, not just a count.
 
-    (tp=1, sp=1) runs on one device of ``--device`` (None: the GPU). A
-    config that needs more devices than there are is skipped; one that
-    needs several that exist raises, since the port has no mesh yet
-    (ROADMAP A13). Output schema:
+    A (tp, 1) config runs on a rank group of tp processes over ``--device``
+    (None: the GPU; a rank per card, as the worker places them): this
+    process is rank 0 and profiles the engine, the other ranks follow its
+    steps (``parallel/multihost.py``). A config that needs more devices
+    than there are is skipped; sp > 1 is refused (ROADMAP A13b). Output
+    schema:
 
       {"configs": [{"tp": T, "sp": S, "chips": T*S,
                     "prefill": [...], "decode": [...]}, ...],
        "meta": {...}}
     """
+    import os
+
     import torch
 
-    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
-                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.engine.torch_engine import TorchEngineConfig
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
-    have = torch.cuda.device_count() if dev.type == "cuda" else 1
+    # CPU ranks are processes: as many as there are cores
+    have = (torch.cuda.device_count() if dev.type == "cuda"
+            else os.cpu_count() or 1)
     if args.model_path:
         from dynamo_tpu_torch.models.hub import resolve_model_path
         args.model_path = resolve_model_path(args.model_path)
@@ -250,24 +255,24 @@ async def profile_parallelism_sweep(args) -> Dict:
             print(f"profile: skipping tp={tp} sp={sp} "
                   f"(needs {n} devices, have {have})")
             continue
-        if n > 1:
+        if sp > 1:
             raise SystemExit(
-                f"profile: tp={tp} sp={sp} needs a mesh over {n} devices; "
-                "multi-GPU parallelism is not ported yet (ROADMAP A13)")
+                f"profile: tp={tp} sp={sp}: sequence parallelism is not "
+                "ported yet (ROADMAP A13b)")
         ecfg = TorchEngineConfig(
             num_pages=args.num_pages, page_size=args.page_size,
             max_num_seqs=max(args.concurrency),
             max_prefill_chunk=args.max_prefill_chunk,
             max_context=min(max(2 * max(args.isl), 4096),
                             cfg.max_position_embeddings))
-        engine = TorchEngine.random_init(cfg, ecfg, device=dev)
+        group = _RankGroup(cfg, ecfg, tp, dev)
         try:
             prof = await profile_engine(
-                engine, isls=args.isl, concurrencies=args.concurrency,
+                group.engine, isls=args.isl, concurrencies=args.concurrency,
                 osl=args.osl, vocab=cfg.vocab_size,
                 meta={"tp": tp, "sp": sp})
         finally:
-            await engine.stop()
+            await group.close()
         configs.append({"tp": tp, "sp": sp, "chips": n,
                         "prefill": prof["prefill"],
                         "decode": prof["decode"]})
@@ -282,6 +287,50 @@ async def profile_parallelism_sweep(args) -> Dict:
             "meta": {"engine": "torch", "model": args.model_path,
                      "osl": args.osl}}
 
+
+class _RankGroup:
+    """A tp-way engine for the sweep: at tp 1 one engine in this process;
+    above, this process as rank 0 of a world of tp ranks, whose followers
+    are bare engine processes built from the same spec and seed."""
+
+    def __init__(self, cfg, ecfg, tp: int, dev):
+        import os
+        import sys
+        import tempfile
+
+        from dynamo_tpu_torch.engine.torch_engine import TorchEngine
+        from dynamo_tpu_torch.parallel import multihost as mh
+        self.world, self.procs, self.fanout = None, [], None
+        self.spec_path = None
+        if tp == 1:
+            self.engine = TorchEngine.random_init(cfg, ecfg, device=dev)
+            return
+        address = mh.free_address()
+        fd, self.spec_path = tempfile.mkstemp(suffix=".json")
+        with os.fdopen(fd, "w") as f:
+            json.dump(mh.engine_spec(cfg, ecfg, address, tp, None,
+                                     dev.type), f)
+        self.procs = mh.start_local_ranks(
+            [sys.executable, "-m", "dynamo_tpu_torch.parallel.multihost",
+             "--engine-spec", self.spec_path], tp)
+        self.world = mh.initialize_distributed(address, 1, 0, tp,
+                                               device=dev.type)
+        self.engine = mh.build_rank_engine(cfg, ecfg, self.world)
+        self.fanout = mh.StepFanout(self.world.fanout)
+        self.fanout.install(self.engine)
+
+    async def close(self) -> None:
+        import os
+
+        from dynamo_tpu_torch.parallel import multihost as mh
+        await self.engine.stop()
+        if self.fanout is not None:
+            await self.engine.run_on_step_thread(self.fanout.close)
+        if self.world is not None:
+            mh.stop_local_ranks(self.procs)
+            mh.shutdown_distributed()
+        if self.spec_path is not None:
+            os.unlink(self.spec_path)
 
 def _parse_sweep(s: str) -> List:
     """'1,1;2,1;4,1' -> [(1,1), (2,1), (4,1)] as (tp, sp)."""

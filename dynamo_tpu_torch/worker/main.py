@@ -28,8 +28,24 @@ backend, as the reference's worker does. A ``--model-path`` ending in
 ``.gguf`` loads a GGUF file (``models/gguf.py``), as the reference's
 worker does.
 
+Tensor parallelism over ranks (``parallel/``): ``--tensor-parallel-size
+T`` runs a world of T ranks, one process per device. ``--num-nodes N
+--node-rank r`` keeps the reference's meaning, ``--local-devices`` is the
+number of ranks this node runs (default T / N), ``--jax-coordinator`` keeps
+its name as the ``torch.distributed`` rendezvous address (``host:port``;
+on one node the worker picks a free local port), and ``--dist-backend``
+names the model's collective backend (default ``nccl`` on the GPU,
+``gloo`` on the CPU). A node's local rank 0 starts its other local ranks
+itself, the same command with ``--local-rank``. World rank 0 is the worker
+the runtime sees; every other rank is a follower that replays rank 0's
+steps (``_follower_main``). ``--random-weights`` makes the whole tree from
+seed 0 on every rank and slices it, so every world size serves the same
+model.
+
 Flags whose paths are not ported exit non-zero naming their ROADMAP item:
-parallelism over several devices or nodes (A13).
+data, pipeline and sequence parallelism, and at world size > 1 the
+disaggregated roles and the KVBM tiers (the KV data plane over a sharded
+cache), all ROADMAP A13b.
 """
 
 from __future__ import annotations
@@ -40,6 +56,8 @@ import dataclasses
 import functools
 import logging
 import os
+import signal
+import sys
 import tempfile
 
 import torch
@@ -83,17 +101,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-prefill-chunk", type=int, default=1024)
     p.add_argument("--max-context", type=int, default=8192)
     p.add_argument("--tensor-parallel-size", type=int, default=1,
-                   help="shard the model over this many local devices "
-                        "(not ported: ROADMAP A13)")
+                   help="shard the model over this many ranks, one process "
+                        "per device")
     p.add_argument("--data-parallel-size", type=int, default=1,
                    help="shard the batch over this many devices (not "
-                        "ported: ROADMAP A13)")
+                        "ported: ROADMAP A13b)")
     p.add_argument("--pipeline-parallel-size", type=int, default=1,
                    help="stage the layers over this many devices (not "
-                        "ported: ROADMAP A13)")
+                        "ported: ROADMAP A13b)")
     p.add_argument("--sequence-parallel-size", type=int, default=1,
                    help="ring-attention sequence parallelism (not ported: "
-                        "ROADMAP A13)")
+                        "ROADMAP A13b)")
     p.add_argument("--attn-impl", default="auto",
                    choices=["auto", "pallas", "pallas_unrolled", "scan",
                             "unrolled"],
@@ -150,15 +168,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "guided_table)")
     p.add_argument("--no-kv-events", action="store_true")
     p.add_argument("--num-nodes", type=int, default=1,
-                   help="multi-host: total processes (not ported: ROADMAP "
-                        "A13)")
+                   help="multi-host: total nodes of the world")
     p.add_argument("--node-rank", type=int, default=0,
-                   help="multi-host: this process's rank")
+                   help="multi-host: this node's rank")
     p.add_argument("--jax-coordinator", default=None,
-                   help="multi-host: the reference's jax.distributed "
-                        "coordinator address (unused by the port)")
+                   help="the torch.distributed rendezvous address "
+                        "(host:port; the name is the reference's). "
+                        "Required with --num-nodes > 1; on one node the "
+                        "worker picks a free local port")
     p.add_argument("--local-devices", type=int, default=None,
-                   help="multi-host: local device count override")
+                   help="ranks (devices) this node runs (default: "
+                        "--tensor-parallel-size / --num-nodes)")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="backend of the model's collectives at world size "
+                        "> 1 (default: nccl on the GPU, gloo on the CPU; "
+                        "gloo on the GPU runs fused blocks uncaptured)")
+    p.add_argument("--local-rank", type=int, default=0,
+                   help=argparse.SUPPRESS)
     p.add_argument("--disagg", choices=["none", "prefill", "decode"],
                    default="none",
                    help="disaggregated role: prefill workers serve KV "
@@ -181,20 +207,46 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def local_ranks(args: argparse.Namespace) -> int:
+    """Ranks this node runs: ``--local-devices``, else the world over the
+    nodes."""
+    if args.local_devices is not None:
+        return int(args.local_devices)
+    return max(1, args.tensor_parallel_size // max(1, args.num_nodes))
+
+
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit naming the ROADMAP item of any flag whose path the port does
     not serve yet (the reference refuses its own unsupported
     combinations the same way: ``SystemExit`` before any engine work)."""
-    for flag, val in (("--tensor-parallel-size", args.tensor_parallel_size),
-                      ("--data-parallel-size", args.data_parallel_size),
-                      ("--pipeline-parallel-size",
-                       args.pipeline_parallel_size),
-                      ("--sequence-parallel-size",
-                       args.sequence_parallel_size),
-                      ("--num-nodes", args.num_nodes)):
+    for flag, val, what in (
+            ("--data-parallel-size", args.data_parallel_size,
+             "data parallelism"),
+            ("--pipeline-parallel-size", args.pipeline_parallel_size,
+             "pipeline parallelism"),
+            ("--sequence-parallel-size", args.sequence_parallel_size,
+             "sequence parallelism")):
         if val > 1:
-            raise SystemExit(f"{flag} {val}: multi-GPU parallelism is not "
-                             "ported yet (ROADMAP A13)")
+            raise SystemExit(f"{flag} {val}: {what} is not ported yet "
+                             "(ROADMAP A13b)")
+    tp, nodes = args.tensor_parallel_size, args.num_nodes
+    if tp > 1 or nodes > 1:
+        if nodes * local_ranks(args) != tp:
+            raise SystemExit(
+                f"--tensor-parallel-size {tp} must equal --num-nodes "
+                f"{nodes} x --local-devices {local_ranks(args)}: the world "
+                "is one tensor-parallel group")
+        if nodes > 1 and not args.jax_coordinator:
+            raise SystemExit("--jax-coordinator required with --num-nodes>1")
+        if args.disagg != "none":
+            raise SystemExit(
+                f"--disagg {args.disagg} at world size {tp}: the KV data "
+                "plane over a sharded cache is not ported yet (ROADMAP "
+                "A13b)")
+        if args.host_cache_bytes > 0 or args.disk_cache_bytes > 0:
+            raise SystemExit(
+                f"KVBM tiers at world size {tp}: the KV data plane over a "
+                "sharded cache is not ported yet (ROADMAP A13b)")
     if (args.host_cache_bytes > 0 or args.disk_cache_bytes > 0) \
             and args.disagg == "decode":
         raise SystemExit(
@@ -221,9 +273,13 @@ def arm_guided(engine, card) -> None:
             "guided decoding disabled: token_bytes extraction failed")
 
 
-def build_engine(args: argparse.Namespace) -> TorchEngine:
+def build_engine(args: argparse.Namespace, world=None) -> TorchEngine:
+    """The engine of this process: of the whole model, or at world size
+    > 1 of this rank's shards (the reference shards through
+    ``ModelSharding`` the same way)."""
     refuse_unported(args)
-    device = resolve_device(args.device)
+    device = world.device if world is not None else resolve_device(
+        args.device)
     is_gguf = args.model_path.endswith(".gguf")
     if is_gguf:
         from dynamo_tpu_torch.models.gguf import GgufFile
@@ -256,6 +312,12 @@ def build_engine(args: argparse.Namespace) -> TorchEngine:
         params = load_gguf_params(cfg, args.model_path, device=device)
     else:
         params = load_hf_params(cfg, args.model_path, device=device)
+    if world is not None and world.world > 1:
+        from dynamo_tpu_torch.parallel.mesh import MeshSpec
+        from dynamo_tpu_torch.parallel.multihost import build_rank_engine
+        return build_rank_engine(
+            cfg, engine_cfg, world,
+            MeshSpec(tp=args.tensor_parallel_size), params=params)
     return TorchEngine(cfg, params, engine_cfg, device=device)
 
 
@@ -296,11 +358,85 @@ class KernelLaunchCollector:
         return [launches, calls]
 
 
+def join_world(args: argparse.Namespace):
+    """At world size > 1: start this node's other local ranks (from local
+    rank 0), then join the world. Returns (world, started processes), or
+    (None, []) for a single-process worker."""
+    if args.tensor_parallel_size == 1 and args.num_nodes == 1:
+        return None, []
+    from dynamo_tpu_torch.parallel.multihost import (
+        free_address, initialize_distributed, start_local_ranks)
+    local = local_ranks(args)
+    if not args.jax_coordinator:
+        args.jax_coordinator = free_address()
+    children = []
+    if args.local_rank == 0 and local > 1:
+        argv = list(getattr(args, "argv", None) or sys.argv[1:])
+        children = start_local_ranks(
+            [sys.executable, "-m", "dynamo_tpu_torch.worker.main", *argv,
+             "--jax-coordinator", args.jax_coordinator], local)
+    world = initialize_distributed(
+        args.jax_coordinator, args.num_nodes, args.node_rank, local,
+        local_rank=args.local_rank, device=args.device,
+        backend=args.dist_backend)
+    return world, children
+
+
 async def amain(args: argparse.Namespace) -> None:
     from dynamo_tpu_torch.models.hub import resolve_model_path
     args.model_path = resolve_model_path(args.model_path)
     refuse_unported(args)
+    world, children = join_world(args)
+    try:
+        if world is not None and world.rank != 0:
+            await _follower_main(args, world)
+        else:
+            await _serve(args, world)
+    finally:
+        if world is not None:
+            from dynamo_tpu_torch.parallel.multihost import (
+                shutdown_distributed, stop_local_ranks)
+            stop_local_ranks(children)
+            shutdown_distributed()
 
+
+def _launch_line(engine) -> str:
+    """A rank's kernel launches and attention calls, as printed when it
+    stops (a follower serves no metrics)."""
+    import json
+    return (f"kernel launches {json.dumps(dict(sorted(LAUNCHES.items())))}"
+            f" attention calls {json.dumps(engine.kernel_launches)}")
+
+
+async def _follower_main(args: argparse.Namespace, world) -> None:
+    """Rank > 0: a pure step executor — no endpoint, no registration. A
+    node's local rank 0 checks in at the bring-up barrier (the reference's
+    follower does); the step loop runs in one thread until the leader
+    releases it."""
+    from dynamo_tpu_torch.parallel.multihost import (barrier_id,
+                                                     follow_steps)
+    engine = build_engine(args, world)
+    drt = None
+    try:
+        if args.num_nodes > 1 and args.local_rank == 0:
+            from dynamo_tpu_torch.runtime.barrier import worker_barrier
+            drt = await DistributedRuntime.create(
+                coordinator=args.coordinator)
+            await worker_barrier(
+                drt, barrier_id(args.namespace, args.component),
+                f"rank{world.rank}", timeout=120.0)
+        print(f"torch follower rank {world.rank}/{world.world} in lockstep "
+              f"on {engine.device} (backend {world.backend}, fused blocks "
+              f"{engine.block_mode})", flush=True)
+        await asyncio.to_thread(follow_steps, world.fanout, engine)
+        print(f"torch follower rank {world.rank} released: "
+              f"{_launch_line(engine)}", flush=True)
+    finally:
+        if drt is not None:
+            await drt.close()
+
+
+async def _serve(args: argparse.Namespace, world) -> None:
     drt = await DistributedRuntime.create(coordinator=args.coordinator)
     card = ModelDeploymentCard.from_local_path(args.model_path,
                                                name=args.model_name)
@@ -308,7 +444,22 @@ async def amain(args: argparse.Namespace) -> None:
     card.num_top_logprobs = args.num_top_logprobs
     endpoint = (drt.namespace(args.namespace).component(args.component)
                 .endpoint(args.endpoint))
-    engine = build_engine(args)
+    engine = build_engine(args, world)
+    fanout = None
+    if world is not None:
+        # every follower is already blocked in the fanout's broadcast; the
+        # multi-node bring-up still rendezvouses as the reference's does
+        from dynamo_tpu_torch.parallel.multihost import (StepFanout,
+                                                         barrier_id)
+        if args.num_nodes > 1:
+            from dynamo_tpu_torch.runtime.barrier import leader_barrier
+            await leader_barrier(
+                drt, barrier_id(args.namespace, args.component),
+                {"model": args.model_name or args.model_path},
+                num_workers=args.num_nodes - 1, timeout=120.0)
+        fanout = StepFanout(world.fanout)
+        fanout.install(engine)
+        logger.info("leader: %d followers in lockstep", world.world - 1)
     # advertise the engine's sparse penalty/logit_bias window so the
     # frontend preprocessor rejects requests the device would truncate
     card.penalty_window = engine.cfg.penalty_window
@@ -393,7 +544,7 @@ async def amain(args: argparse.Namespace) -> None:
     resume_admission = None
     served_main = None
     comp = drt.namespace(args.namespace).component(args.component)
-    if args.disagg != "prefill":
+    if args.disagg != "prefill" and world is None:
         from dynamo_tpu_torch.engine.transfer import serve_kv_export
         from dynamo_tpu_torch.worker.disagg import KV_EXPORT_ENDPOINT
         from dynamo_tpu_torch.worker.drain import ResumeAdmission
@@ -539,14 +690,23 @@ async def amain(args: argparse.Namespace) -> None:
     resume_extras = {"instance_id": drain_lease.lease_id}
     if bulk_server is not None:
         resume_extras["bulk_address"] = bulk_server.address
-    drain = DrainController(
-        engine, served=[se for se in (served_main,) if se is not None],
-        resume_extras=resume_extras, on_drained=drt.runtime.shutdown)
-    install_signal_drain(drain)
-    if system is not None:
-        system.register_drain(drain)
+    if world is None:
+        drain = DrainController(
+            engine, served=[se for se in (served_main,) if se is not None],
+            resume_extras=resume_extras, on_drained=drt.runtime.shutdown)
+        install_signal_drain(drain)
+        if system is not None:
+            system.register_drain(drain)
+    else:
+        # drain migration pulls KV pages, which a sharded cache does not
+        # serve yet (ROADMAP A13b): SIGTERM shuts the world down
+        asyncio.get_running_loop().add_signal_handler(
+            signal.SIGTERM, drt.runtime.shutdown)
+    par = ("" if world is None else
+           f", world {world.world}, backend {world.backend}, fused blocks "
+           f"{engine.block_mode}")
     print(f"torch worker serving model {card.name} on {engine.device} "
-          f"(disagg={args.disagg})", flush=True)
+          f"(disagg={args.disagg}{par})", flush=True)
     try:
         await drt.runtime.wait_shutdown()
     finally:
@@ -565,6 +725,11 @@ async def amain(args: argparse.Namespace) -> None:
         if prefix_reader is not None:
             await prefix_reader.close()
         await engine.stop()
+        if fanout is not None:
+            # release the followers from the thread that issued the steps
+            await engine.run_on_step_thread(fanout.close)
+            print(f"torch worker rank 0 stopped: {_launch_line(engine)}",
+                  flush=True)
         await drt.close()
 
 
@@ -579,6 +744,7 @@ def main() -> None:
     if extra:
         argv += extra
     args = build_parser().parse_args(argv)
+    args.argv = argv
     configure_logging()
     try:
         asyncio.run(amain(args))

@@ -1,0 +1,218 @@
+"""The port's worker and profiler at world size 2, on the CPU.
+
+- ``--tensor-parallel-size 2``: one worker process starts its own follower
+  rank (the same command with ``--local-rank 1``), joins a gloo world with
+  it and serves chat (twice, the same text), ``/v1/embeddings`` and echo
+  scoring through the frontend.
+- ``--num-nodes 2``: two workers, one per node rank, rendezvous at
+  ``--jax-coordinator`` and through the bring-up barrier, and serve the
+  same.
+- The flags the port does not serve at world size > 1 exit naming ROADMAP
+  A13b: data, pipeline and sequence parallelism, the disaggregated roles,
+  the KVBM tiers.
+- The profiler's tp=2 sweep config runs over a rank group and writes the
+  reference's schema.
+
+Every process here is a subprocess: this process starts no process group.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+import pytest
+
+from dynamo_tpu_torch.planner.perf_interpolation import MultiPerfInterpolator
+from dynamo_tpu_torch.worker.main import build_parser, refuse_unported
+from tests.procutils import free_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENGINE_FLAGS = ["--page-size", "4", "--num-pages", "64", "--max-num-seqs",
+                "2", "--max-prefill-chunk", "16", "--max-context", "128",
+                "--no-kv-events", "--dtype", "float32"]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONUNBUFFERED"] = "1"
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def _post(url, body):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"content-type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read().decode())
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return json.loads(resp.read().decode())
+
+
+@pytest.fixture(scope="module")
+def model_dir(tmp_path_factory):
+    from dynamo_tpu_torch.utils.testing import make_test_model_dir
+    path = str(tmp_path_factory.mktemp("model") / "tp-model")
+    make_test_model_dir(path)
+    return path
+
+
+def _serve_and_check(tmp_path, model_dir, worker_argvs, follower_line):
+    import chip_smoke as cs
+    coord_port, http_port = free_port(), free_port()
+    coord = f"127.0.0.1:{coord_port}"
+    env = _env()
+    procs = []
+    try:
+        procs.append(cs.Child("coordinator",
+                              "dynamo_tpu_torch.runtime.coordinator",
+                              ["--host", "127.0.0.1", "--port",
+                               str(coord_port)], str(tmp_path), env))
+        procs[-1].wait_for("coordinator listening", timeout=60)
+        workers = []
+        for i, argv in enumerate(worker_argvs):
+            workers.append(cs.Child(
+                f"worker{i}", "dynamo_tpu_torch.worker.main",
+                ["--coordinator", coord, "--model-path", model_dir,
+                 "--model-name", "tp", "--random-weights", "--device",
+                 "cpu"] + ENGINE_FLAGS + argv, str(tmp_path), env))
+        procs += workers
+        procs.append(cs.Child("frontend", "dynamo_tpu_torch.frontend.main",
+                              ["--coordinator", coord, "--http-host",
+                               "127.0.0.1", "--http-port", str(http_port)],
+                              str(tmp_path), env))
+        workers[0].wait_for("torch worker serving model", timeout=120)
+        assert "world 2, backend gloo, fused blocks eager" in \
+            workers[0].text()
+        follower = workers[-1]
+        follower.wait_for(follower_line, timeout=60)
+        procs[-1].wait_for("frontend listening", timeout=60)
+        base = f"http://127.0.0.1:{http_port}"
+        deadline = time.monotonic() + 60
+        while not _get(f"{base}/v1/models")["data"]:
+            assert time.monotonic() < deadline, "model never registered"
+            time.sleep(0.2)
+        chat = {"model": "tp", "max_tokens": 6, "temperature": 0,
+                "messages": [{"role": "user", "content": "tensor hi"}]}
+        r1 = _post(f"{base}/v1/chat/completions", chat)
+        assert r1["choices"][0]["finish_reason"] == "length"
+        assert r1["usage"]["completion_tokens"] == 6
+        r2 = _post(f"{base}/v1/chat/completions", chat)
+        assert r2["choices"][0]["message"]["content"] == \
+            r1["choices"][0]["message"]["content"]
+        emb = _post(f"{base}/v1/embeddings",
+                    {"model": "tp", "input": ["hello", "fox"]})
+        assert [len(d["embedding"]) for d in emb["data"]] == [64, 64]
+        echo = _post(f"{base}/v1/completions",
+                     {"model": "tp", "prompt": "hello world", "echo": True,
+                      "max_tokens": 0, "logprobs": 0})
+        assert echo["choices"][0]["text"] == "hello world"
+        assert echo["choices"][0]["logprobs"]["token_logprobs"][0] is None
+        assert all(p.proc.poll() is None for p in procs)
+        return r1["choices"][0]["message"]["content"]
+    except BaseException:
+        for proc in procs:
+            print(f"--- {proc.name}\n{proc.tail()}")
+        raise
+    finally:
+        for proc in reversed(procs):
+            proc.stop()
+
+
+@pytest.fixture(scope="module")
+def stacks(tmp_path_factory, model_dir):
+    """Both serving stacks, side by side: one tp=2 worker that starts its
+    own follower, and two ``--num-nodes 2`` workers. Each entry is the
+    stack's chat text, or the exception it raised."""
+    addr = f"127.0.0.1:{free_port()}"
+    common = ["--tensor-parallel-size", "2", "--num-nodes", "2",
+              "--jax-coordinator", addr]
+    runs = {"tp": [["--tensor-parallel-size", "2"]],
+            "nodes": [common + ["--node-rank", "0"],
+                      common + ["--node-rank", "1"]]}
+
+    def run(name):
+        try:
+            return _serve_and_check(tmp_path_factory.mktemp(name), model_dir,
+                                    runs[name], "torch follower rank 1/2 "
+                                    "in lockstep on cpu")
+        except Exception as e:  # noqa: BLE001 — raised by its test
+            return e
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {name: pool.submit(run, name) for name in runs}
+        return {name: job.result() for name, job in jobs.items()}
+
+
+def test_tensor_parallel_worker_starts_its_follower(stacks):
+    if isinstance(stacks["tp"], Exception):
+        raise stacks["tp"]
+    assert stacks["tp"]
+
+
+def test_two_node_workers_serve_one_endpoint(stacks):
+    if isinstance(stacks["nodes"], Exception):
+        raise stacks["nodes"]
+    assert stacks["nodes"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--data-parallel-size", "2"],
+    ["--pipeline-parallel-size", "2"],
+    ["--sequence-parallel-size", "2"],
+    ["--tensor-parallel-size", "2", "--disagg", "prefill"],
+    ["--tensor-parallel-size", "2", "--disagg", "decode"],
+    ["--tensor-parallel-size", "2", "--host-cache-bytes", "4096"],
+])
+def test_world_refusals_name_a13b(flags):
+    args = build_parser().parse_args(["--model-path", "m"] + flags)
+    with pytest.raises(SystemExit, match="ROADMAP A13b"):
+        refuse_unported(args)
+
+
+def test_tensor_parallel_world_must_span_the_nodes():
+    args = build_parser().parse_args(
+        ["--model-path", "m", "--tensor-parallel-size", "4",
+         "--num-nodes", "2", "--local-devices", "1",
+         "--jax-coordinator", "127.0.0.1:1"])
+    with pytest.raises(SystemExit, match="must equal --num-nodes 2 x "
+                                         "--local-devices 1"):
+        refuse_unported(args)
+    args = build_parser().parse_args(
+        ["--model-path", "m", "--tensor-parallel-size", "2",
+         "--num-nodes", "2"])
+    with pytest.raises(SystemExit, match="--jax-coordinator required"):
+        refuse_unported(args)
+
+
+def test_profile_sweep_runs_tp2_over_a_rank_group(tmp_path):
+    out = tmp_path / "sweep.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu_torch.planner.profile",
+         "--sweep", "2,1", "--device", "cpu", "--dtype", "float32",
+         "--isl", "8,16", "--concurrency", "1,2", "--osl", "4",
+         "--num-pages", "64", "--page-size", "4", "--max-prefill-chunk",
+         "16", "--output", str(out)],
+        capture_output=True, text=True, timeout=180, env=_env(), cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "profile: tp=2 sp=1 done (2+2 rows)" in proc.stdout
+    profile = json.loads(out.read_text())
+    assert profile["meta"] == {"engine": "torch", "model": None, "osl": 4}
+    (cfg,) = profile["configs"]
+    assert (cfg["tp"], cfg["sp"], cfg["chips"]) == (2, 1, 2)
+    assert [r["isl"] for r in cfg["prefill"]] == [8, 16]
+    assert [r["concurrency"] for r in cfg["decode"]] == [1, 2]
+    for row in cfg["prefill"]:
+        assert set(row) == {"isl", "ttft_s", "tokens_per_s"}
+        assert row["ttft_s"] > 0
+    for row in cfg["decode"]:
+        assert set(row) == {"concurrency", "itl_s", "tokens_per_s"}
+        assert row["tokens_per_s"] > 0
+    multi = MultiPerfInterpolator.from_file(str(out))
+    assert multi.options[0]["chips"] == 2

@@ -13,9 +13,10 @@ reference's, on the CPU.
   arithmetic (``_build_jax``'s) from a transformers-written checkpoint, on
   the GPU unless ``--device cpu`` is given (it raises here without one);
   the CLI writes JSON that the port's ``MultiPerfInterpolator`` loads.
-- ``--sweep``: (1, 1) runs, (2, 1) is skipped with the reference's message
-  where one device exists, and a config over several devices that exist
-  raises naming ROADMAP A13.
+- ``--sweep``: (1, 1) runs, a config past the CPU's cores (its ranks'
+  devices) is skipped with the reference's message, and sp > 1 raises
+  naming ROADMAP A13b (tp = 2 runs in
+  ``tests/test_torch_parallel_worker.py``).
 - ``--engine mocker`` writes what the reference's mocker profile writes:
   the same rows (keys and x values) and the same meta.
 """
@@ -227,28 +228,29 @@ def test_cli_profiles_torch_engine(model_dir, tmp_path):
 
 def test_sweep_skips_configs_past_the_devices(tmp_path, capsys,
                                               monkeypatch):
+    # the CPU's devices are its cores (a rank per process): a config past
+    # them is skipped (tests/test_torch_parallel_worker.py runs tp=2)
+    have = os.cpu_count()
     out = tmp_path / "sweep.json"
     args = tprofile.build_parser().parse_args(
-        ["--sweep", "1,1;2,1", "--device", "cpu", "--dtype", "float32",
-         "--output", str(out)] + SMALL)
+        ["--sweep", f"1,1;{2 * have},1", "--device", "cpu", "--dtype",
+         "float32", "--output", str(out)] + SMALL)
     profile = asyncio.run(tprofile.amain(args))
     text = capsys.readouterr().out
-    assert "profile: skipping tp=2 sp=1 (needs 2 devices, have 1)" in text
+    assert (f"profile: skipping tp={2 * have} sp=1 (needs {2 * have} "
+            f"devices, have {have})") in text
     assert "profile: tp=1 sp=1 done (2+2 rows)" in text
     assert [(c["tp"], c["sp"], c["chips"]) for c in profile["configs"]] == \
         [(1, 1, 1)]
     assert profile["meta"] == {"engine": "torch", "model": None, "osl": 4}
     assert MultiPerfInterpolator.from_file(str(out)).options[0]["chips"] == 1
     # every config skipped: the reference's refusal
-    args.sweep = [(2, 1)]
+    args.sweep = [(2 * have, 1)]
     with pytest.raises(SystemExit, match="produced NO configs"):
         asyncio.run(tprofile.amain(args))
-    # two devices that exist: no mesh in the port yet
-    from dynamo_tpu_torch.utils import device as devmod
-    monkeypatch.setattr(devmod, "resolve_device",
-                        lambda d=None: torch.device("cuda"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="ROADMAP A13"):
+    # sequence parallelism over devices that exist: not ported yet
+    args.sweep = [(1, 2)]
+    with pytest.raises(SystemExit, match="ROADMAP A13b"):
         asyncio.run(tprofile.amain(args))
 
 

@@ -100,6 +100,8 @@ COPIES = [
     "frontend/coordinator.py", "frontend/echo_worker.py",
     "components/__init__.py", "components/metrics.py",
     "components/router.py",
+    # the multi-node bring-up rendezvous of the rank worlds
+    "runtime/barrier.py",
 ]
 
 # module -> [(text before the hunk, text after it, ROADMAP item, why)]: the
@@ -234,10 +236,12 @@ NAMED["planner/profile.py"] = [
      "the same sizes and weights, on the device"),
     (("async def profile_parallelism_sweep(args) -> Dict:\n",
       "\n\ndef _parse_sweep("), None,
-     "the sweep runs (tp=1, sp=1) on TorchEngine, skips a config that needs "
-     "more devices than there are with the reference's message, and refuses "
-     "one that needs several that exist (ROADMAP A13: the port has no mesh "
-     "yet); meta.engine is 'torch' (tests/test_torch_profile.py)"),
+     "the sweep runs a (tp, 1) config on TorchEngine over a rank group of "
+     "tp processes (this one rank 0, bare engine followers the others: "
+     "_RankGroup), skips a config that needs more devices than there are "
+     "with the reference's message (CPU ranks: one per core) and refuses "
+     "sp > 1 (ROADMAP A13b); meta.engine is 'torch' "
+     "(tests/test_torch_profile.py, tests/test_torch_parallel_worker.py)"),
     ('p.add_argument("--engine", choices=["mocker", "jax"], default="mocker")',
      'p.add_argument("--engine", choices=["mocker", "torch"], '
      'default="mocker")', "the port's engine"),
@@ -258,6 +262,54 @@ NAMED["planner/profile.py"] = [
             raise SystemExit("--model-path required for --engine torch")
         engine = _build_torch(args)''', "the port's engine"),
 ]
+# the port's own files that stand where the reference's do, each of its
+# named departures as (reference text, port text, why): the check below
+# holds both texts where they stand
+NAMED["parallel/multihost.py"] = [
+    ("    jax.distributed.initialize(\n",
+     "    dist.init_process_group(backend, init_method=rendezvous_url(\n",
+     "initialize_distributed joins a torch.distributed world (one process "
+     "per device, rank node_rank * local ranks + local_rank; nccl on the "
+     "GPU, gloo on the CPU unless the caller names the backend) and makes "
+     "the host-side fanout group"),
+    ("            self._drt.publish_event(self._subject, msg), self._loop)",
+     "        _broadcast(self._group, msg)",
+     "the step fanout rides the process group (broadcast_object_list on a "
+     "gloo group every rank joins), not the coordinator's event bus: a "
+     "follower blocked in the broadcast cannot miss a step, and the "
+     "profiler and the tests fan out with no coordinator"),
+    ("    sub = await drt.subscribe_events(subject)",
+     "        msg = _broadcast(group)",
+     "follow_steps receives over the group in one thread, the one that "
+     "issues the rank's collectives, until the leader's close"),
+    ('__all__ = ["initialize_distributed", "StepFanout", "follow_steps",',
+     "def start_local_ranks(cmd: List[str], local_ranks: int,",
+     "every device is a process even on one host: the helper that starts a "
+     "node's follower ranks (the worker, the profiler, the tests and "
+     "chip_smoke.py use it)"),
+]
+NAMED["worker/main.py"] = [
+    ('help="multi-host: jax.distributed coordinator address "',
+     'help="the torch.distributed rendezvous address "',
+     "--jax-coordinator keeps its name (the helm chart's and the "
+     "reconciler's flags) as the torch.distributed rendezvous"),
+    ('help="multi-host: local device count override "',
+     'help="ranks (devices) this node runs (default: "',
+     "--local-devices is the number of ranks this node runs, each starting "
+     "as its own process"),
+    ('    p.add_argument("--disagg", choices=["none", "prefill", "decode"],',
+     '    p.add_argument("--dist-backend", choices=["nccl", "gloo"], '
+     'default=None,',
+     "--dist-backend names the model's collective backend: nccl on the "
+     "GPU by default; gloo runs two ranks on one card (fused blocks "
+     "eager)"),
+    ('            raise SystemExit("--jax-coordinator required with '
+     '--num-nodes>1")',
+     "not ported yet (ROADMAP A13b)",
+     "data, pipeline and sequence parallelism, and at world size > 1 the "
+     "disaggregated roles and the KVBM tiers, exit naming ROADMAP A13b"),
+]
+
 NAMED["run.py"] = [
     ('''``python -m dynamo_tpu_torch.run in=<input> out=<engine>``.
 ''', '''``python -m dynamo_tpu_torch.run in=<input> out=<engine>``.
@@ -367,6 +419,18 @@ def test_copy_equals_reference(rel):
         # reworded prose only: the code is the reference's
         assert set(differ) <= _prose_lines(ref) & _prose_lines(port), differ
         assert _code(port) == _code(ref)
+
+
+@pytest.mark.parametrize("rel", sorted(set(NAMED) - set(COPIES)))
+def test_named_departures_of_the_port_files(rel):
+    """A port file that is not a copy: each named departure's reference
+    text stands in the reference and its port text in the port."""
+    with open(os.path.join(REPO, "dynamo_tpu", rel)) as f:
+        ref = f.read()
+    with open(os.path.join(REPO, "dynamo_tpu_torch", rel)) as f:
+        port = f.read()
+    for old, new, why in NAMED[rel]:
+        assert old in ref and new in port and why, (old, new)
 
 
 def test_copies_cover_the_serving_closure():
@@ -710,7 +774,9 @@ def test_processes_serve_over_http(model_dir, reference_texts, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tensor-parallel-size", "2"], "A13"),
+    # tensor parallelism is served (tests/test_torch_parallel_worker.py);
+    # pipeline, data and sequence parallelism name ROADMAP A13b
+    (["--pipeline-parallel-size", "2"], "A13"),
     (["--data-parallel-size", "2"], "A13"),
     (["--sequence-parallel-size", "2"], "A13"),
 ])
