@@ -84,9 +84,9 @@ and suppresses the final result line):
     leaves the per-step one, with the top-2 margin there.
 
 Then, with the Llama model freed, Gemma-2-27B (``ModelConfig.gemma2_27b``
-at full width, cut to ``GEMMA27_LAYERS`` of its 46 layers: Gemma-2-9B serves
-the family at full depth below, and 27B's attention geometry stays in phase
-2's rows; random bf16 weights made on the card): its forward on seven steps (``gemma_plan``: a 5633-token row past the
+at full width, cut to ``GEMMA27_LAYERS`` of its 46 layers: 27B's
+attention geometry stays in phase 2's rows; random bf16 weights made on
+the card): its forward on seven steps (``gemma_plan``: a 5633-token row past the
 sliding layers' 4096-position window beside a 1502-token one; prefill,
 mixed and decode) under phase 3's checks, and phase 4's serve fused (cold,
 warm, graph vs eager) and per step; then:
@@ -140,24 +140,50 @@ warm, graph vs eager) and per step; then:
    request finish with
    its tokens, the pool return to 1 by a drain, no crash be counted and
    the workers' ``/metrics`` show B1 and B2 launched.
-8. tensor parallelism (``phase_tp``): Llama-3.2-3B at full width and depth
-   (seed 0's bf16 weights, phase 3's) as a world of two ranks, one process
-   each (``--tp-rank``). The backend is printed first, with the card
-   count: NCCL over two cards where there are two; on one card NCCL with
-   two ranks there is tried first and what it says printed, and where it
-   refuses both ranks run on the one card over gloo (all-reduce on CUDA
-   tensors; fused blocks eager), a check of correctness, not a speed of
-   tensor parallelism. (a) phase 3's steps (prefill, mixed, decode:
-   B2, B3, B1) through the kernels on each rank's shards: rank 0's logits
-   within phase 3's gate of the tp=1 forward's (1.5 times plain vs
-   oracle, of the same run), the greatest per-layer attention distance
-   printed, both ranks launching B1-B3; (b) the frontend and one worker
-   with ``--tensor-parallel-size 2 --random-weights --dist-backend`` on
-   phase 5's model directory: phase 5's identity pass (every answer
-   checked; each chat's tokens against phase 5's tp=1 worker's, reported:
-   bf16 near ties part), one of phase 5's warm timed windows (TTFT and
-   tok/s beside phase 5's), and each rank's B1-B3 launches, printed by the
-   rank when the leader stops: both must have launched all three.
+8. a world of two ranks (``phase_tp``): Llama-3.2-3B at full width and
+   depth (seed 0's bf16 weights, phase 3's), one process each
+   (``--tp-rank``). The backend is printed first, with the card count:
+   NCCL over two cards where there are two; on one card NCCL with two
+   ranks there is tried first and what it says printed, and where it
+   refuses both ranks run on the one card over gloo (collectives on CUDA
+   tensors through the host; fused blocks eager), a check of
+   correctness, not a speed of parallelism. (a) In the rank processes:
+   phase 3's steps (prefill, mixed, decode: B2, B3, B1) through the
+   kernels on each rank's shards at tp=2: rank 0's logits within phase
+   3's gate of the tp=1 forward's (1.5 times plain vs oracle, of the same
+   run), the greatest per-layer attention distance printed, both ranks
+   launching B1-B3; then the KV data plane over the tp=2 cache
+   (``tp_kv_rank``): a tp=2 ``TorchEngine`` under a host tier prefills
+   6(a)'s four prompts, its merged frames land byte-equal in a tp=1
+   engine, the CUDA IPC plane carries the world's gather to a child
+   process and the child's copy back into the emptied world, the world
+   emptied and re-injected from the frames gathers byte-equal, and a KVBM
+   offload, eviction and onboard brings the same bytes back, with the
+   world's gather and inject GB/s beside 6(a)'s;
+   then dp=2 (``dp_forward_rank``): phase 3's steps, each rank its row of
+   the whole model, within phase 3's gate, both replicas' caches
+   byte-equal at every written page, both ranks launching B1-B3; then a
+   ``MeshSpec(dp=2)`` engine (``dp_serve_rank``) serves six of phase 4's
+   requests (greedy, an unseeded and a seeded draw, two arriving while
+   the others decode; fused blocks): every request its tokens, split
+   dispatches and blocks counted, both replicas' caches byte-equal at
+   every held page, both ranks launching B1-B3. (b) The frontend and one
+   worker with ``--tensor-parallel-size 2 --random-weights
+   --dist-backend`` on phase 5's model directory (``tp_serve``): phase
+   5's identity pass (every answer checked; each chat's tokens against
+   phase 5's tp=1 worker's, reported: bf16 near ties part), one of phase
+   5's warm timed windows (TTFT and tok/s beside phase 5's), and each
+   rank's B1-B3 launches, printed by the rank when SIGTERM drains the
+   leader: both must have launched all three. Then the KV plane through
+   workers (``tp_disagg_serve``): a tp=2 ``--disagg
+   prefill --host-cache-bytes`` world beside a tp=1 ``--disagg decode``
+   worker on phase 5's model directory: phase 5's identity pass (every
+   answer checked, the echo and embeddings phase 5's; each chat's tokens
+   against phase 5's tp=1 worker's, reported: bf16 near ties part), every
+   prompt a remote prefill on the world whose export lease was acked,
+   pulled bytes per plane and the world's tier counters printed; SIGTERM
+   drains the world's leader, which releases its follower, and both
+   ranks print their launches: B2 on each, B1 in the decode worker.
 
 After phase 7, each alone on the card: Gemma-2-9B (``ModelConfig.gemma2_9b``,
 head_dim 256, 42 layers, 18.5 GB) and Llama-3.2-1B (``llama32_1b``, head_dim
@@ -184,8 +210,9 @@ Then DeepSeek-V2-Lite (MLA + MoE):
     plain version's, one ``scaled_dot_product_attention`` call's on the
     gathered latent (and the backend that served it) and its bound
     (runs with the kernel phase 2, before any model is built);
-3b. the full-width, full-depth DeepSeek-V2-Lite forward (random weights
-    from a seed; ~31 GB bf16) on a prefill, a mixed and a decode step,
+3b. the full-width DeepSeek-V2-Lite forward at ``DEEPSEEK_LAYERS`` of its
+    27 layers (its dense layer and 4 MoE layers; random weights from a
+    seed, bf16) on a prefill, a mixed and a decode step,
     through the kernels, their plain versions and the JAX-style oracle
     (``_mla_attend`` / ``_mla_attend_blockwise``): every layer within 2
     ulps per row; the logits gate of phase 3 is reported, and decides
@@ -202,9 +229,10 @@ Then DeepSeek-V2-Lite (MLA + MoE):
     (``phase_dispatch``): its dropped assignments, each stream's agreement
     with the dense backend's, its block's graph against the eager block.
 
-Last, Qwen3-30B-A3B (``ModelConfig.qwen3_30b_a3b``: 48 layers, 128 experts
-of 768, top-8, 32 query heads over 4, qk-norm; 61.1 GB of random bf16
-weights made on the card a layer at a time, after phase 6 has freed its
+Last, Qwen3-30B-A3B (``ModelConfig.qwen3_30b_a3b`` at ``QWEN3_LAYERS``
+of its 48 layers, 128 experts of 768, top-8, 32 query heads over 4,
+qk-norm; random bf16 weights made on the card a layer at a time, after
+phase 6 has freed its
 engines: phase 6(a) must leave ``memory_allocated`` within 1 GiB of its
 value before): phase 3's forward check (its logits gate too, with the
 flipped top-8 routes reported), phase 4's serve on
@@ -222,8 +250,11 @@ workers (``launches_planner``), the int8 serves (``launches_int8``), Gemma-2's
 fused serves (``launches_gemma``), Qwen3-30B-A3B's serves on both
 expert backends (``launches_moe``), Gemma-2-9B's and Llama-3.2-1B's fused
 serves (``launches_gemma9b``, ``launches_llama1b``) and the GGUF model's
-serve (``launches_gguf``), and phase 8's per rank, its forward's
-(``launches_tp_forward``) and its worker's (``launches_tp_serve``); for
+serve (``launches_gguf``), and phase 8's per rank, its rank processes'
+(``launches_tp_forward``: the tp=2 forward, the KV plane's engine, the
+dp=2 forward and the dp=2 engine's serve) and its workers'
+(``launches_tp_serve``: the tp=2 worker's ranks; ``launches_tp_disagg``:
+the prefill world's ranks and the decode worker); for
 the latent kernels, DeepSeek's serves on the dispatch backend
 (``launches_dispatch``).
 """
@@ -238,6 +269,7 @@ import os
 import struct
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -2928,6 +2960,8 @@ DISAGG_WINDOWS = (("cold", COLD_SEED), ("warm", WARM_SEED))
 DRILL_SEED, DRILL_N, DRILL_TOKENS = 4, 6, 400
 # phase 5's identity answers, which phase 6(b) must reproduce
 ENTRY_ANSWERS = {}
+# phase 6(a)'s one-rank gather and inject rates, beside phase 8(a)'s
+KV_LOCAL_RATES = {}
 
 
 def _gbs(nbytes: float, seconds: float) -> str:
@@ -3125,6 +3159,9 @@ def phase_kv_local() -> None:
         if not _pages_equal(a, b, hashes) or b.pages.data_ptr() != ptr:
             raise AssertionError("B's pages are not A's bytes (or moved)")
         tm = pipe.timings
+        # phase 8(a) prints its world's rates beside these one-rank ones
+        KV_LOCAL_RATES.update(gather=_gbs(nbytes, g_ms / 1e3),
+                              inject=_gbs(nbytes, inj_s))
         log(f"[kv-local] gather {g_ms:.3f} ms ({_gbs(nbytes, g_ms / 1e3)}); "
             f"commit (in-place index_copy_) {c_ms:.3f} ms "
             f"({_gbs(nbytes, c_ms / 1e3)}); "
@@ -3487,9 +3524,9 @@ class _Stack:
     def metrics(self, name) -> dict:
         return scrape_metrics(self.sys[name])
 
-    def tails(self):
+    def tails(self, tag="disagg"):
         for k in self.kids.values():
-            log(f"[disagg] last 40 lines of {k.name}:\n{k.tail()}")
+            log(f"[{tag}] last 40 lines of {k.name}:\n{k.tail()}")
 
     def stop(self):
         for k in reversed(list(self.kids.values())):
@@ -4556,19 +4593,26 @@ def phase_spec_mla(params, cfg, per_step):
 # enough for phase 4's workload and the graph-vs-eager block's 1041 pages)
 # and its published 8192-position context
 GEMMA_SIZES = dict(SERVE_SIZES, num_pages=1280, max_context=8192)
-# Gemma-2-27B's served phases run at this depth of its 46 layers (its
-# widths as published): Gemma-2-9B serves the family at full depth and
-# 27B's attention geometry stays in phase 2's rows, and the time this saves
-# goes to phase 7
-GEMMA27_LAYERS = 8
+# the served depth of three presets (their widths as published), so the
+# script keeps a margin under its time limit on a slower host (a whole
+# run took ~1300 s at full depth on one, where others took ~880-1035;
+# phase 8's two worker stacks take ~250 s on such a host): every kernel,
+# expert backend and check of their phases runs as at full depth.
+# Gemma-2-27B's attention geometry stays in phase 2's rows (Gemma-2-9B
+# serves the family at full depth); DeepSeek-V2-Lite keeps its dense
+# layer and 4 of its 26 MoE layers
+GEMMA27_LAYERS = 8          # of 46
+DEEPSEEK_LAYERS = 5         # of 27
+QWEN3_LAYERS = 8            # of 48
 
 
-def gemma27_cut():
+def cut_depth(preset: str, layers: int):
+    """``ModelConfig.<preset>()`` with ``layers`` of its layers."""
     import dataclasses
 
     from dynamo_tpu_torch.models.config import ModelConfig
-    return dataclasses.replace(ModelConfig.gemma2_27b(),
-                               num_layers=GEMMA27_LAYERS)
+    return dataclasses.replace(getattr(ModelConfig, preset)(),
+                               num_layers=layers)
 
 
 def served_model_phases(name, cfg, failures, profile, plan=gemma_plan,
@@ -4655,15 +4699,16 @@ def phase_dispatch(params, cfg, _per_step=None, sizes=None):
     return counts
 
 
-# Qwen3-30B-A3B's serving sizes: 1280 pages of 16 positions (48 layers x 4
-# kv heads: 1.5 MiB a page, 1.9 GiB in all beside the 56.9 GiB of weights;
-# enough for phase 4's workload and the graph-vs-eager block's 1041 pages)
+# Qwen3-30B-A3B's serving sizes: 1280 pages of 16 positions (4 kv heads:
+# 32 KiB a layer a page; enough for phase 4's workload and the
+# graph-vs-eager block's 1041 pages)
 MOE_SIZES = dict(SERVE_SIZES, num_pages=1280)
 
 
 def moe_phases(failures, profile):
-    """Qwen3-30B-A3B at full width and depth (48 layers, 128 experts) in
-    bf16, random weights made on the card a layer at a time: phase 3's
+    """Qwen3-30B-A3B at full width, ``QWEN3_LAYERS`` of its 48 layers (128
+    experts) in bf16, random weights made on the card a layer at a time:
+    phase 3's
     forward check (every layer's B1-B3 against the plain versions, the
     logits under phase 3's gate, the flipped top-8 routes reported: the
     gate's oracle distance flips as many), phase 4's greedy serve fused on
@@ -4673,8 +4718,7 @@ def moe_phases(failures, profile):
     weight floor, and ``memory_allocated`` before and after. Returns the
     kernels' launches over the fused serves of both backends."""
     from dynamo_tpu_torch.models import moe
-    from dynamo_tpu_torch.models.config import ModelConfig
-    cfg = ModelConfig.qwen3_30b_a3b()
+    cfg = cut_depth("qwen3_30b_a3b", QWEN3_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
@@ -4724,12 +4768,18 @@ def moe_phases(failures, profile):
 
 
 
-# -- phase 8: tensor parallelism, a world of two ranks ---------------------
+# -- phase 8: a world of two ranks: tp, the KV data plane over it, dp -------
 
 TP_WORLD = 2
 TP_PROBE_TIMEOUT_S = 90
-TP_FORWARD_TIMEOUT_S = 400
+TP_FORWARD_TIMEOUT_S = 600
 TP_B = ("paged_decode", "paged_prefill", "ragged_mixed")
+# 8(a)'s KV checks: the world engine's pool holds the four prompts' 256
+# blocks and 43 more, so four other prompts evict most of them; the host
+# tier (whole-head blocks, as the leader gathers them) holds them and the
+# other prompts' blocks the onboard evicts in turn
+TP_KV_PAGES = 300
+TP_KV_HOST_BLOCKS = 600
 
 
 def tp_rank_main(spec_path: str, local_rank: int) -> int:
@@ -4737,7 +4787,8 @@ def tp_rank_main(spec_path: str, local_rank: int) -> int:
     starts the others (``start_local_ranks``); every rank joins the world
     on the spec's backend and runs the spec's task; each writes its result
     to ``<out>.<rank>``. Tasks: ``probe`` (one all-reduce) and ``forward``
-    (``tp_forward_rank``)."""
+    (``tp_forward_rank``, then ``tp_kv_rank``, ``dp_forward_rank`` and
+    ``dp_serve_rank`` in the same processes)."""
     import datetime
     from dynamo_tpu_torch.parallel import multihost as mh
     with open(spec_path) as f:
@@ -4762,7 +4813,14 @@ def tp_rank_main(spec_path: str, local_rank: int) -> int:
             torch.cuda.synchronize()
             out["sum"] = x.tolist()
         else:
-            out = tp_forward_rank(world)
+            out, ctx = tp_forward_rank(world)
+            t0 = time.perf_counter()
+            out["kv"] = tp_kv_rank(world, ctx)
+            out["kv"]["seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["dp"] = dp_forward_rank(world, ctx)
+            out["dp"]["seconds"] = time.perf_counter() - t0
+            out["dp_serve"] = dp_serve_rank(world, ctx)
     except Exception:                      # noqa: BLE001 — reported
         out["error"] = traceback.format_exc()
     finally:
@@ -4774,7 +4832,13 @@ def tp_rank_main(spec_path: str, local_rank: int) -> int:
     return 1 if "error" in out else 0
 
 
-def tp_forward_rank(world) -> dict:
+def _step_arrays(step, table, dev):
+    _n, _k, toks, pos, total, new, _w = step
+    return [torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+            for x in (toks, pos, table, total, new)]
+
+
+def tp_forward_rank(world):
     """Phase 8(a) on one rank: Llama-3.2-3B's whole tree from seed 0 on
     the rank's card (phase 3's weights), phase 3's steps (prefill, mixed,
     decode: B2, B3, B1) through the kernels on the rank's shards at tp=2.
@@ -4784,7 +4848,9 @@ def tp_forward_rank(world) -> dict:
     plain vs oracle), recording each layer's attention of its own heads;
     it returns, per step, the tp=2 logits' distance to the tp=1 kernel
     forward's, the gate, and the greatest per-layer attention distance.
-    Every rank returns its launches of B1-B3 in the tp=2 forward."""
+    Every rank returns its launches of B1-B3 in the tp=2 forward. Returns
+    (result, context): the context keeps the whole tree, the plan and rank
+    0's tp=1 logits for ``tp_kv_rank`` and ``dp_forward_rank``."""
     from dynamo_tpu_torch.models import get_family
     from dynamo_tpu_torch.ops.kernels import LAUNCHES
     from dynamo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
@@ -4801,11 +4867,6 @@ def tp_forward_rank(world) -> dict:
     heads = cfg.num_heads // world.world
     h0 = mesh.coords["tp"] * heads
 
-    def arrays(step):
-        _n, _k, toks, pos, total, new, _w = step
-        return [torch.from_numpy(np.asarray(x, np.int32)).to(dev)
-                for x in (toks, pos, table, total, new)]
-
     def recorder(impl, into):
         def attn(*a, **kw):
             out = impl(*a, **kw)
@@ -4819,7 +4880,7 @@ def tp_forward_rank(world) -> dict:
             caches = {k: fam.make_pages(cfg, num_pages, PS, device=dev)
                       for k in ("kernel", "plain", "oracle")}
             for step in steps:
-                a = arrays(step)
+                a = _step_arrays(step, table, dev)
                 rec = []
                 got = {}
                 for k, impl in (("kernel", recorder(kernel[step[1]], rec)),
@@ -4833,7 +4894,6 @@ def tp_forward_rank(world) -> dict:
             del caches
         shard = ModelSharding(cfg, mesh, device=dev)
         params = shard.shard_params(full)
-        del full
         gc.collect()
         torch.cuda.empty_cache()
         lcfg = local_config(cfg, mesh)
@@ -4842,7 +4902,7 @@ def tp_forward_rank(world) -> dict:
         before = {k: LAUNCHES.get(k, 0) for k in TP_B}
         out = {"rank": world.rank, "steps": {}}
         for step in steps:
-            a = arrays(step)
+            a = _step_arrays(step, table, dev)
             rec = []
             logits = fam.forward(params, lcfg, a[0], a[1], pages, a[2],
                                  a[3], a[4],
@@ -4866,6 +4926,374 @@ def tp_forward_rank(world) -> dict:
                     "attn_max": max(float(r.float().abs().max())
                                     for r in ref_attn)}
         out["launches"] = {k: LAUNCHES.get(k, 0) - before[k] for k in TP_B}
+    del params, pages
+    ctx = {"full": full, "plan": (steps, table, num_pages),
+           "ref": {k: v[:2] for k, v in ref.items()}}
+    return out, ctx
+
+
+IPC_ROUND_TRIP = r"""
+import hashlib, json, os, sys, time
+sys.modules["jax"] = None
+import torch
+from dynamo_tpu_torch.engine.transfer import DeviceTransferPlane
+from dynamo_tpu_torch.runtime.codec import pack, unpack
+offer = unpack(open(sys.argv[1], "rb").read())
+plane = DeviceTransferPlane()
+torch.cuda.init()
+t0 = time.perf_counter()
+data = plane.pull(offer)
+secs = time.perf_counter() - t0
+host = data.contiguous().view(torch.int16).cpu().numpy()
+back = plane.offer_array(data)
+with open(sys.argv[2] + ".tmp", "wb") as f:
+    f.write(pack(back))
+os.replace(sys.argv[2] + ".tmp", sys.argv[2])
+print(json.dumps({"sha256": hashlib.sha256(host.tobytes()).hexdigest(),
+                  "seconds": secs, "bytes": data.nbytes}), flush=True)
+while not os.path.exists(sys.argv[3]):
+    time.sleep(0.05)
+"""
+
+
+async def _ipc_round_trip(eng, hashes, want_sha, work) -> dict:
+    """The CUDA IPC plane with a world on either side: the world's leader
+    offers its assembled gather of ``hashes``; a child process (no JAX)
+    pulls it and offers its copy back; the leader empties the world's
+    cache, pulls that offer and injects it (``inject_device_windowed``:
+    on a world, the fanned-out host-values scatter), then gathers again.
+    Returns whether each direction landed ``want_sha``'s bytes and the
+    child's pull time."""
+    from dynamo_tpu_torch.engine import transfer as tr
+    from dynamo_tpu_torch.runtime.codec import pack, unpack
+    plane = tr.DeviceTransferPlane()
+    off = await eng.run_exclusive(plane.offer, eng, hashes)
+    paths = [os.path.join(work, f"ipc-{k}") for k in ("out", "back", "done")]
+    for p in paths:
+        if os.path.exists(p):
+            os.unlink(p)
+    with open(paths[0], "wb") as f:
+        f.write(pack(off))
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    child = subprocess.Popen([sys.executable, "-c", IPC_ROUND_TRIP] + paths,
+                             cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + ENTRY_TIMEOUT_S
+        while not os.path.exists(paths[1]):
+            if child.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"IPC child: {child.communicate()}")
+            await asyncio.sleep(0.05)
+        plane.ack(off["uuid"])
+        with open(paths[1], "rb") as f:
+            back = unpack(f.read())
+        await eng.run_exclusive(eng.allocator.clear)
+        data = await asyncio.to_thread(plane.pull, back, eng.device)
+        metas = [tuple(b) for b in off["blocks"]]
+        n = await tr.inject_device_windowed(eng, metas, data)
+        del data
+    finally:
+        with open(paths[2], "w"):
+            pass
+        out, err = child.communicate(timeout=ENTRY_TIMEOUT_S)
+    if child.returncode != 0:
+        raise AssertionError(f"IPC child failed:\n{err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+
+    def gather():
+        by_hash = eng.allocator._by_hash
+        return _sha(eng.dispatch_gather_pages(
+            [by_hash[h] for h in hashes])[:, :len(hashes)])
+    return {"ipc_out_equal": got["sha256"] == want_sha,
+            "ipc_in_equal": n == len(hashes)
+            and await eng.run_exclusive(gather) == want_sha,
+            "ipc_pull": _gbs(got["bytes"], got["seconds"])}
+
+
+def tp_kv_rank(world, ctx) -> dict:
+    """Phase 8(a), the KV data plane on the same two ranks: a
+    ``TorchEngine`` at tp=2 (``build_rank_engine`` over the whole tree:
+    each rank its shards), rank 0 scheduling under a ``TieredEngine``
+    (host tier, synchronous onboard), the other following. Rank 0 prefills
+    6(a)'s four 1024-token prompts (256 blocks), gathers them (the
+    fanned-out gather: each rank reads its kv heads, rank 0 assembles
+    them) and exports them as merged frames; then: the frames injected
+    into a tp=1 engine of the whole tree in this process land byte-equal;
+    the CUDA IPC plane both ways (``_ipc_round_trip``) lands the same
+    bytes; the world's cache emptied (``allocator.clear``) and the frames
+    injected back (each rank its heads of every scatter) gather
+    byte-equal; four other prompts evict the blocks (their gathers run on
+    the step thread, spilled to the host tier) and the synchronous
+    onboard brings them back byte-equal. Returns the checks, the gather
+    and inject rates and the launches."""
+    from dynamo_tpu_torch.engine import transfer as tr
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.kvbm import TieredEngine, TieredKvConfig
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES
+    from dynamo_tpu_torch.parallel import multihost as mh
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec
+    cfg = llama_cfg()
+    dev = world.device
+    sizes = dict(SERVE_SIZES, num_pages=TP_KV_PAGES)
+    before = {k: LAUNCHES.get(k, 0) for k in TP_B}
+    eng = mh.build_rank_engine(cfg, TorchEngineConfig(**sizes), world,
+                               MeshSpec(tp=world.world), params=ctx["full"])
+    if not world.leader:
+        mh.follow_steps(world.fanout, eng)
+        out = {"launches": {k: LAUNCHES.get(k, 0) - before[k]
+                            for k in TP_B}}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    fanout = mh.StepFanout(world.fanout)
+    fanout.install(eng)
+    block = (cfg.num_layers * 2 * cfg.num_kv_heads * PS * cfg.head_dim
+             * eng.pages.element_size())
+    tiered = TieredEngine(eng, TieredKvConfig(
+        host_budget_bytes=TP_KV_HOST_BLOCKS * block, disk_budget_bytes=0,
+        prefetch_depth_bytes=0))
+    one = TorchEngine(cfg, ctx["full"], TorchEngineConfig(**sizes),
+                      device=dev)
+    prompts = kv_prompts(cfg.vocab_size, KV_SEED)
+    other = kv_prompts(cfg.vocab_size, KV_WARM_SEED)
+    res = {}
+
+    async def checks():
+        hashes = []
+        for i, p in enumerate(prompts):
+            fr = await _one(tiered, p, f"k{i}", prefill_only=True)
+            hashes += [b[0] for b in fr[-1].kv_transfer_params["blocks"]]
+        nbytes = len(hashes) * block
+
+        def gather():
+            # the fanned-out gather of every block, timed to its end
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            by_hash = eng.allocator._by_hash
+            out = eng.dispatch_gather_pages([by_hash[h] for h in hashes])
+            torch.cuda.synchronize()
+            return out[:, :len(hashes)], time.perf_counter() - t0
+
+        want, g_s = await eng.run_exclusive(gather)
+        if want.shape[3] != cfg.num_kv_heads:
+            raise AssertionError(f"the world's gather {tuple(want.shape)} "
+                                 "is not the whole kv heads")
+        want_sha = _sha(want)
+        del want
+        frames = await eng.run_exclusive(tr.export_frames, eng, hashes,
+                                         "layer", 16)
+        wire = []
+        for f in frames:
+            meta = dict(f.obj)
+            meta["_raw"] = np.ascontiguousarray(f.raw).view(
+                np.uint8).tobytes()
+            wire.append(meta)
+        if wire[0]["block_shape"] != [cfg.num_layers, 2, cfg.num_kv_heads,
+                                      PS, cfg.head_dim]:
+            raise AssertionError(f"frame meta {wire[0]['block_shape']}")
+        # into a tp=1 engine of the whole tree, in this process
+        pipe = tr.InjectPipeline(one)
+        for meta in wire:
+            await pipe.add_frame(meta)
+        if await pipe.finish() != len(hashes):
+            raise AssertionError("the tp=1 inject took a partial chain")
+        by1 = one.allocator._by_hash
+        got = one.dispatch_gather_pages([by1[h] for h in hashes])
+        res["tp1_equal"] = _sha(got[:, :len(hashes)]) == want_sha
+        del got
+        res.update(await _ipc_round_trip(
+            eng, hashes, want_sha, os.path.join(ROOT, "build", "tp")))
+        # the world emptied, then the frames injected back
+        await eng.run_exclusive(eng.allocator.clear)
+        gone = sum(h not in eng.allocator._by_hash for h in hashes)
+        pipe = tr.InjectPipeline(eng)
+        t0 = time.perf_counter()
+        for meta in wire:
+            await pipe.add_frame(meta)
+        n = await pipe.finish()
+        inj_s = time.perf_counter() - t0
+        back, _s = await eng.run_exclusive(gather)
+        res["reinject_equal"] = n == len(hashes) == gone and \
+            _sha(back) == want_sha
+        del back
+        # KVBM: other prompts evict the blocks; the onboard brings them
+        for i, p in enumerate(other):
+            await _one(tiered, p, f"o{i}", prefill_only=True)
+        await asyncio.to_thread(tiered.flush_spills, 120.0)
+        evicted = sum(h not in eng.allocator._by_hash for h in hashes)
+        onboarded = 0
+        for p in prompts:
+            onboarded += await eng.run_exclusive(tiered._onboard_for, p)
+        back, _s = await eng.run_exclusive(gather)
+        # (an onboard's own page allocation may evict blocks of a later
+        # prompt, which that prompt's onboard brings back in turn)
+        res["kvbm_equal"] = _sha(back) == want_sha and evicted > 0 and \
+            onboarded >= evicted
+        del back
+        st = tiered.kvbm_stats()
+        res.update(blocks=len(hashes), mbytes=nbytes / 1e6,
+                   gather_s=g_s, gather=_gbs(nbytes, g_s),
+                   inject_s=inj_s, inject=_gbs(nbytes, inj_s),
+                   scatters=eng.page_scatter_dispatches, evicted=evicted,
+                   onboarded=onboarded, offloaded=tiered.offloaded,
+                   host_blocks=len(tiered.host),
+                   offload=_gbs(st["kvbm_offload_bytes"],
+                                st["kvbm_offload_seconds"]))
+
+    async def run():
+        try:
+            await checks()
+        finally:
+            await tiered.stop()
+            await one.stop()
+            await eng.run_on_step_thread(fanout.close)
+
+    asyncio.run(asyncio.wait_for(run(), SERVE_TIMEOUT_S))
+    res["launches"] = {k: LAUNCHES.get(k, 0) - before[k] for k in TP_B}
+    del eng, one, tiered
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_forward_rank(world, ctx) -> dict:
+    """Phase 8(a), dp on the same two ranks: a ``MeshSpec(dp=2)`` mesh,
+    the whole tree on each rank, phase 3's steps with each rank running
+    its row of the two (``DpRows``: every row's K/V gathered over dp
+    before each cache write), the logits gathered over dp. Rank 0 holds
+    them to its tp=1 kernel logits under phase 3's gate; every rank
+    returns a digest of each written page of its cache and its launches
+    of B1-B3."""
+    import hashlib
+    from dynamo_tpu_torch.models import get_family
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES
+    from dynamo_tpu_torch.parallel.mesh import DpRows, MeshSpec, make_mesh
+    cfg = llama_cfg()
+    fam = get_family(cfg)
+    dev = world.device
+    kernel = llama_impls()[0]
+    steps, table, num_pages = ctx["plan"]
+    mesh = make_mesh(MeshSpec(dp=world.world))
+    pages = fam.make_pages(cfg, num_pages, PS, device=dev)
+    before = {k: LAUNCHES.get(k, 0) for k in TP_B}
+    out = {"steps": {}}
+    with torch.no_grad():
+        for step in steps:
+            a = _step_arrays(step, table, dev)
+            B = a[0].shape[0]
+            dp = DpRows(mesh, B // world.world, a[2], a[1], a[4])
+            loc = [dp.local(x) for x in a]
+            logits = dp.gather(fam.forward(
+                ctx["full"], cfg, loc[0], loc[1], pages, loc[2], loc[3],
+                loc[4], attn_impl=kernel[step[1]], mesh=mesh, dp=dp)[0])
+            torch.cuda.synchronize()
+            if world.leader:
+                lk, odiff = ctx["ref"][step[0]]
+                out["steps"][step[0]] = {
+                    "diff": float((logits - lk).abs().max()),
+                    "tol": LOGITS_VS_ORACLE * odiff,
+                    "finite": bool(torch.isfinite(logits).all()),
+                    "argmax_same": float((logits.argmax(-1)
+                                          == lk.argmax(-1)).float().mean())}
+        written = sorted({int(p) for p in table.reshape(-1) if p})
+        out["pages"] = [hashlib.sha256(pages[:, p].contiguous().view(
+            torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+            for p in written]
+    out["launches"] = {k: LAUNCHES.get(k, 0) - before[k] for k in TP_B}
+    return out
+
+
+def _page_digests(pages) -> dict:
+    """{page: digest} of every page of a cache that holds a nonzero
+    byte."""
+    import hashlib
+    held = (pages != 0).flatten(2).any(-1).any(0).nonzero().flatten()
+    host = pages[:, held].contiguous().view(torch.int16).cpu().numpy()
+    return {int(p): hashlib.sha256(host[:, i].tobytes()).hexdigest()[:16]
+            for i, p in enumerate(held.tolist())}
+
+
+# 8(a)'s dp serve: six of phase 4's prompts, 16 tokens each; requests 2
+# and 3 sample (3 seeded), 4 and 5 arrive while the others decode
+DP_SERVE_N, DP_SERVE_TOKENS, DP_SERVE_PAGES = 6, 16, 512
+
+
+def dp_serve_rank(world, ctx) -> dict:
+    """Phase 8(a), dp through the engine on the same two ranks: a
+    ``TorchEngine`` over ``MeshSpec(dp=2)`` (``build_rank_engine``: the
+    whole tree on each rank), rank 0 scheduling, the other following.
+    ``DP_SERVE_N`` of phase 4's prompts: greedy, an unseeded and a seeded
+    draw, two arriving while the others decode (mixed steps); steady
+    batches run as fused blocks (eager over gloo), each rank its rows
+    (the batch's rows split over dp, every row's K/V written by each
+    replica, the packed outputs gathered over dp). Rank 0 returns each
+    request's tokens and finish and the engine's counters; every rank a
+    digest of each page its cache holds (the replicas must be
+    byte-equal) and its launches of B1-B3."""
+    from dynamo_tpu_torch.engine.torch_engine import TorchEngineConfig
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES
+    from dynamo_tpu_torch.parallel import multihost as mh
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec
+    from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
+                                                   SamplingOptions,
+                                                   StopConditions)
+    cfg = llama_cfg()
+    sizes = dict(SERVE_SIZES, num_pages=DP_SERVE_PAGES)
+    before = {k: LAUNCHES.get(k, 0) for k in TP_B}
+    eng = mh.build_rank_engine(cfg, TorchEngineConfig(**sizes), world,
+                               MeshSpec(dp=world.world), params=ctx["full"])
+    out = {}
+    if world.leader:
+        fanout = mh.StepFanout(world.fanout)
+        fanout.install(eng)
+        prompts = serve_prompts(cfg.vocab_size, 2)[:DP_SERVE_N]
+        samp = {2: dict(temperature=0.8), 3: dict(temperature=0.8, seed=5)}
+        started = asyncio.Event()
+        streams = {}
+
+        async def one(i):
+            if i >= DP_SERVE_N - 2:
+                await started.wait()
+            req = PreprocessedRequest(
+                token_ids=prompts[i], request_id=f"dp{i}",
+                stop_conditions=StopConditions(max_tokens=DP_SERVE_TOKENS,
+                                               ignore_eos=True),
+                sampling_options=SamplingOptions(
+                    **samp.get(i, dict(temperature=0.0))))
+            toks, fin = [], None
+            async for frame in eng.generate(req):
+                if frame.error:
+                    raise AssertionError(f"dp request {i}: {frame.error}")
+                toks += frame.token_ids
+                fin = frame.finish_reason
+                if len(toks) >= 2:
+                    started.set()
+            streams[i] = {"tokens": toks, "finish": fin.value}
+
+        async def run():
+            try:
+                await asyncio.gather(*(one(i) for i in range(DP_SERVE_N)))
+            finally:
+                await eng.stop()
+                await eng.run_on_step_thread(fanout.close)
+
+        t0 = time.perf_counter()
+        asyncio.run(asyncio.wait_for(run(), SERVE_TIMEOUT_S))
+        out.update(streams=streams, seconds=time.perf_counter() - t0,
+                   counters={k: getattr(eng, k) for k in (
+                       "dp_splits", "multistep_blocks", "mixed_steps",
+                       "chained_steps", "decode_dispatches")})
+    else:
+        mh.follow_steps(world.fanout, eng)
+    torch.cuda.synchronize()
+    out["pages"] = _page_digests(eng.pages)
+    out["launches"] = {k: LAUNCHES.get(k, 0) - before[k] for k in TP_B}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4922,64 +5350,62 @@ def nccl_probe() -> tuple:
     return False, " | ".join(ln for ln in tail if ln)[:600]
 
 
-def tp_serve(backend: str) -> dict:
-    """Phase 8(b): the frontend and one worker with
-    ``--tensor-parallel-size 2 --random-weights --dist-backend BACKEND`` on
-    phase 5's model directory. Phase 5's identity pass (its chats with
-    their logprobs, echo scoring, embeddings: every answer checked), each
-    chat's tokens held against phase 5's tp=1 worker's (reported), then
-    one of phase 5's warm timed windows (TTFT and tok/s beside phase 5's).
-    The leader is stopped alone, so that it releases its follower, and
-    each rank prints its kernel launches; both must have launched B1, B2
-    and B3. Returns {rank: launches}."""
+def tp_model_dir() -> str:
+    """Phase 5's model directory (Llama-3.2-3B's widths, random weights),
+    written here when phase 5 did not run."""
+    model_dir = os.path.join(ROOT, "build", "serve_entry", "llama32_3b")
+    if not os.path.exists(os.path.join(model_dir, "config.json")):
+        write_entry_model(model_dir, llama_cfg())
+    return model_dir
+
+
+def tp_serve_stack(backend: str) -> "_Stack":
+    """Phase 8(b)'s tp=2 worker stack, brought up (beside 8(a)'s rank
+    processes): a coordinator, one worker with ``--tensor-parallel-size 2
+    --random-weights --dist-backend BACKEND`` on phase 5's model directory
+    and a frontend. Returns the stack, its bring-up seconds in ``up``."""
+    work = os.path.join(ROOT, "build", "tp_serve")
+    os.makedirs(work, exist_ok=True)
+    stack = _Stack(work)
+    t0 = time.perf_counter()
+    try:
+        stack.start_coordinator()
+        stack.start_worker("tp-worker", _worker_args(
+            tp_model_dir(), stack.coord,
+            ["--tensor-parallel-size", str(TP_WORLD), "--dist-backend",
+             backend]))
+        stack.start_frontend()
+        worker = stack.kids["tp-worker"]
+        worker.wait_for("torch worker serving model")
+        worker.wait_for(f"torch follower rank 1/{TP_WORLD} in lockstep")
+        stack.up = time.perf_counter() - t0
+    except Exception:
+        stack.tails("tp")
+        stack.stop()
+        raise
+    return stack
+
+
+def tp_serve(backend: str, stack: "_Stack") -> dict:
+    """Phase 8(b), the tp=2 worker (``tp_serve_stack``): phase 5's
+    identity pass (its chats with their logprobs, echo scoring,
+    embeddings: every answer checked), each chat's tokens held against
+    phase 5's tp=1 worker's (reported), then one of phase 5's warm timed
+    windows (TTFT and tok/s beside phase 5's). The leader alone is sent
+    SIGTERM (its drain controller drains it), so that it releases its
+    follower, and each rank prints its kernel launches; both must have
+    launched B1, B2 and B3. Stops the stack. Returns {rank: launches}."""
     import re
     import signal
     cfg = llama_cfg()
-    work = os.path.join(ROOT, "build", "serve_entry")
-    model_dir = os.path.join(work, "llama32_3b")
-    if not os.path.exists(os.path.join(model_dir, "config.json")):
-        write_entry_model(model_dir, cfg)
-    ports = [free_port() for _ in range(3)]
-    coord = f"127.0.0.1:{ports[0]}"
-    sizes = []
-    for k in ("num_pages", "page_size", "max_num_seqs", "max_prefill_chunk",
-              "max_context"):
-        sizes += [f"--{k.replace('_', '-')}", str(SERVE_SIZES[k])]
-    children = []
-    t0 = time.perf_counter()
+    worker = stack.kids["tp-worker"]
     try:
-        children.append(Child("tp-coordinator",
-                              "dynamo_tpu_torch.runtime.coordinator",
-                              ["--host", "127.0.0.1", "--port",
-                               str(ports[0])], work))
-        children[-1].wait_for("coordinator listening")
-        worker = Child(
-            "tp-worker", "dynamo_tpu_torch.worker.main",
-            ["--coordinator", coord, "--model-path", model_dir,
-             "--random-weights", "--dtype", "bfloat16",
-             "--tensor-parallel-size", str(TP_WORLD), "--dist-backend",
-             backend] + sizes, work,
-            {"DYN_SYSTEM_ENABLED": "1", "DYN_SYSTEM_PORT": str(ports[2])})
-        children.append(worker)
-        children.append(Child(
-            "tp-frontend", "dynamo_tpu_torch.frontend.main",
-            ["--coordinator", coord, "--http-host", "127.0.0.1",
-             "--http-port", str(ports[1])], work))
-        worker.wait_for("torch worker serving model")
-        worker.wait_for(f"torch follower rank 1/{TP_WORLD} in lockstep")
-        children[2].wait_for("frontend listening")
-        base = f"http://127.0.0.1:{ports[1]}"
-        import urllib.request
-        model, deadline = None, time.monotonic() + ENTRY_TIMEOUT_S
-        while model is None and time.monotonic() < deadline:
-            with urllib.request.urlopen(f"{base}/v1/models") as resp:
-                data = json.loads(resp.read())["data"]
-            model = data[0]["id"] if data else time.sleep(0.2)
+        model = stack.model()
         line = [ln for ln in worker.text().splitlines()
                 if "torch worker serving model" in ln][0]
-        log(f"[tp] stack up in {time.perf_counter() - t0:.1f} s: {line}")
+        log(f"[tp] stack up in {stack.up:.1f} s (beside 8(a)): {line}")
         t1 = time.perf_counter()
-        ans = entry_requests(base, model, seed=5)
+        ans = entry_requests(stack.base, model, seed=5)
         check_entry_answers(ans, cfg.hidden_size)
         log(f"[tp] identity pass (4 chats, echo, embeddings) in "
             f"{time.perf_counter() - t1:.1f} s: every answer checked")
@@ -4998,7 +5424,7 @@ def tp_serve(backend: str) -> dict:
                 f"{same}/{total} ({same / max(total, 1):.1%}); first "
                 f"differing token per chat {firsts} (reported: bf16 near "
                 f"ties part, ROADMAP Queue C)")
-        r = entry_window(base, model, cfg.vocab_size, WARM_SEED)
+        r = entry_window(stack.base, model, cfg.vocab_size, WARM_SEED)
         log(f"[tp] timed window (phase 4's requests, seed {WARM_SEED}) at "
             f"tp={TP_WORLD} over {backend}: {r['tokens']} tokens in "
             f"{r['wall']:.4f} s: {r['tok_s']:.2f} tok/s; client TTFT p50="
@@ -5028,12 +5454,168 @@ def tp_serve(backend: str) -> dict:
                     raise AssertionError(f"rank {rank} never launched {k}")
         return launches
     except Exception:
-        for c in children:
-            log(f"[tp] last 40 lines of {c.name}:\n{c.tail()}")
+        stack.tails("tp")
         raise
     finally:
-        for c in reversed(children):
-            c.stop()
+        stack.stop()
+
+
+def tp_disagg_stack(backend: str) -> "_Stack":
+    """Phase 8(b)'s disaggregated stack, brought up: on phase 5's model
+    directory (random weights), a tp=2 world started as ``--disagg
+    prefill --host-cache-bytes ... --dist-backend BACKEND`` beside a tp=1
+    ``--disagg decode`` worker (decode-first: every prompt prefills
+    remotely, on the world), a coordinator and a frontend. Returns the
+    stack, its bring-up seconds in ``up``."""
+    cfg = llama_cfg()
+    work = os.path.join(ROOT, "build", "tp_disagg")
+    os.makedirs(work, exist_ok=True)
+    model_dir = tp_model_dir()
+    block = cfg.num_layers * 2 * cfg.num_kv_heads * PS * cfg.head_dim * 2
+    stack = _Stack(work)
+    t0 = time.perf_counter()
+    try:
+        stack.start_coordinator()
+        stack.start_worker("prefill", _worker_args(
+            model_dir, stack.coord,
+            ["--disagg", "prefill", "--component", "prefill",
+             "--tensor-parallel-size", str(TP_WORLD), "--dist-backend",
+             backend, "--host-cache-bytes", str(TP_KV_HOST_BLOCKS * block)]))
+        stack.start_worker("decode", _worker_args(
+            model_dir, stack.coord, ["--disagg", "decode"]))
+        stack.start_frontend()
+        for name in ("prefill", "decode"):
+            stack.kids[name].wait_for("torch worker serving model")
+        stack.kids["prefill"].wait_for(
+            f"torch follower rank 1/{TP_WORLD} in lockstep")
+        stack.up = time.perf_counter() - t0
+    except Exception:
+        stack.tails("tp")
+        stack.stop()
+        raise
+    return stack
+
+
+def tp_disagg_serve(backend: str, stack: "_Stack") -> dict:
+    """Phase 8(b): the KV data plane through workers
+    (``tp_disagg_stack``: a tp=2 prefill world with a host tier beside a
+    tp=1 decode worker). Phase 5's identity pass through the pair: every
+    answer checked (``check_entry_answers``), the echo and embeddings (the
+    decode worker's own) equal to phase 5's; every chat's prefill a
+    remote job of the world whose export lease was acked (none left
+    pinned, none reclaimed by the TTL sweep); pulled bytes per plane and
+    the world's tier counters printed; the chats' tokens held to phase
+    5's tp=1 worker's (reported: bf16 near ties part). Then SIGTERM on the
+    world's leader: its drain controller drains it, it releases its
+    follower, and both ranks print their launches (B2 on each). Stops the
+    stack. Returns {rank: launches} of the world and the decode
+    worker's."""
+    import re
+    import signal
+    cfg = llama_cfg()
+    try:
+        world = stack.kids["prefill"]
+        model = stack.model()
+        line = [ln for ln in world.text().splitlines()
+                if "torch worker serving model" in ln][0]
+        log(f"[tp] disaggregated stack up in {stack.up:.1f} s: {line}")
+        pre0, dec0 = stack.metrics("prefill"), stack.metrics("decode")
+        t1 = time.perf_counter()
+        ans = entry_requests(stack.base, model, seed=5)
+        check_entry_answers(ans, cfg.hidden_size)
+        secs = time.perf_counter() - t1
+        pre1, dec1 = stack.metrics("prefill"), stack.metrics("decode")
+        chats = len(ENTRY_CHAT_WORDS)
+        jobs = (_metric(pre1, "dynamo_worker_prefill_jobs_total",
+                        outcome="ok")
+                - _metric(pre0, "dynamo_worker_prefill_jobs_total",
+                          outcome="ok"))
+        pinned = _metric(pre1, "dynamo_worker_kv_exports_active")
+        reclaimed = (_metric(pre1, "dynamo_worker_kv_exports_reclaimed_total")
+                     - _metric(pre0,
+                               "dynamo_worker_kv_exports_reclaimed_total"))
+        planes = {p: int(_metric(dec1, "dynamo_worker_disagg_kv_bytes_total",
+                                 direction="pulled", plane=p)
+                         - _metric(dec0, "dynamo_worker_disagg_kv_bytes_total",
+                                   direction="pulled", plane=p))
+                  for p in ("direct", "bulk", "rpc")}
+        tiers = {k: v for k, v in pre1.items() if "kvbm" in k}
+        log(f"[tp] identity pass through the pair (tp=2 prefill world, tp=1 "
+            f"decode worker) in {secs:.1f} s: every answer checked; remote "
+            f"prefill jobs {int(jobs)} for {chats} chats and the echo "
+            f"completion, export leases left "
+            f"pinned {int(pinned)}, reclaimed by the TTL sweep "
+            f"{int(reclaimed)}; pulled bytes by plane {planes}; the world's "
+            f"tiers {tiers}")
+        # the chats and the echo completion's one token, each prefilled
+        # remotely
+        if int(jobs) != chats + 1 or pinned or reclaimed or \
+                sum(planes.values()) <= 0:
+            raise AssertionError("a chat's prefill was not a remote job "
+                                 "whose pull was acked")
+        p5 = ENTRY_ANSWERS.get("first")
+        if p5:
+            # the echo's prompt logprobs and the embeddings are the decode
+            # worker's own (tp=1, as phase 5's); its one generated token
+            # is the world's prefill's
+            same = {"echo prompt": all(ans["echo"][k][:-1] == v[:-1]
+                                       for k, v in p5["echo"].items()),
+                    "echo token": all(ans["echo"][k][-1:] == v[-1:]
+                                      for k, v in p5["echo"].items()),
+                    "embeddings": ans["embed"] == p5["embed"]}
+            log(f"[tp] equal to phase 5's: {same}")
+            if not (same["echo prompt"] and same["embeddings"]):
+                raise AssertionError("the decode worker's echo or "
+                                     "embeddings differ from phase 5's")
+            same = total = 0
+            firsts = []
+            for i in range(chats):
+                a = [e["token"] for e in ans[f"chat{i}"]["logprobs"]]
+                b = [e["token"] for e in p5[f"chat{i}"]["logprobs"]]
+                total += max(len(a), len(b))
+                same += sum(x == y for x, y in zip(a, b))
+                firsts.append(next((j for j, (x, y) in enumerate(zip(a, b))
+                                    if x != y), None))
+            log(f"[tp] chat tokens "
+                f"equal to phase 5's tp=1 worker's: {same}/{total} "
+                f"({same / max(total, 1):.1%}); first differing token per "
+                f"chat {firsts} (reported: bf16 near ties part, ROADMAP "
+                f"Queue C)")
+        dec_launches = {k: int(_metric(dec1,
+                                       "dynamo_worker_kernel_launches_total",
+                                       kernel=k))
+                        for k in TP_B}
+        t2 = time.perf_counter()
+        os.kill(world.proc.pid, signal.SIGTERM)
+        world.proc.wait(timeout=120)
+        text = world.text()
+        if "graceful drain started (SIGTERM)" not in text:
+            raise AssertionError("the world's leader did not drain")
+        launches = {}
+        for rank, pat in ((0, r"torch worker rank 0 stopped: kernel "
+                              r"launches (\{.*?\})"),
+                          (1, r"torch follower rank 1 released: kernel "
+                              r"launches (\{.*?\})")):
+            m = re.search(pat, text)
+            if m is None:
+                raise AssertionError(f"rank {rank} printed no launches")
+            launches[rank] = {k: v for k, v in json.loads(m.group(1)).items()
+                              if k in TP_B}
+        log(f"[tp] SIGTERM: the world's leader drained and exited with "
+            f"{world.proc.returncode} in {time.perf_counter() - t2:.1f} s, "
+            f"its follower released; launches per rank over the world's "
+            f"life {launches}, the decode worker's {dec_launches}")
+        for rank, got in launches.items():
+            if got.get("paged_prefill", 0) <= 0:
+                raise AssertionError(f"rank {rank} never launched B2")
+        if dec_launches["paged_decode"] <= 0:
+            raise AssertionError("the decode worker never launched B1")
+        return {**launches, "decode": dec_launches}
+    except Exception:
+        stack.tails("tp")
+        raise
+    finally:
+        stack.stop()
 
 
 def phase_tp() -> dict:
@@ -5042,9 +5624,15 @@ def phase_tp() -> dict:
     captured. With one: NCCL with two ranks on that card is tried first
     and what it says printed; where it refuses, both ranks run on the one
     card over gloo (all-reduce on CUDA tensors; fused blocks eager), which
-    is a check of correctness, not a speed of tensor parallelism. Then
-    (a) ``tp_forward_rank`` under phase 3's gate, and (b) ``tp_serve``.
-    Returns {"forward": {rank: launches}, "serve": {rank: launches}}."""
+    is a check of correctness, not a speed of parallelism. Then (a)
+    ``tp_forward_rank`` under phase 3's gate, the KV data plane over the
+    tp=2 cache (``tp_kv_rank``) and dp=2 (``dp_forward_rank``: phase 3's
+    gate, both replicas' caches equal, B1-B3 on each rank; then
+    ``dp_serve_rank``: the dp=2 engine's serve, caches equal, B1-B3 on
+    each rank), and (b) ``tp_serve`` (the tp=2 worker) and
+    ``tp_disagg_serve`` (the tp=2 prefill world and a tp=1 decode
+    worker). Returns {"forward": {rank: launches}, "serve": {rank:
+    launches}, "disagg": {rank or "decode": launches}}."""
     cards = torch.cuda.device_count()
     if cards >= TP_WORLD:
         backend = "nccl"
@@ -5057,9 +5645,62 @@ def phase_tp() -> dict:
         backend = "nccl" if ok else "gloo"
         log(f"[tp] {cards} card: both ranks on cuda:0 over {backend} "
             f"(fused blocks {'captured' if ok else 'eager'}); a check of "
-            f"correctness, not a speed of tensor parallelism")
+            f"correctness, not a speed of parallelism")
+    # 8(b)'s tp=2 worker comes up beside 8(a)'s rank processes (the
+    # disaggregated stack comes up after it: beside it, the host's cores
+    # slow both about as much as the overlap saves)
+    tp_model_dir()
+    agg = _Bringup(tp_serve_stack, backend)
+    try:
+        fwd = phase_tp_ranks(backend)
+        serve = tp_serve(backend, agg.result())
+    finally:
+        agg.stop()
+    return {"forward": fwd, "serve": serve,
+            "disagg": tp_disagg_serve(backend, tp_disagg_stack(backend))}
+
+
+class _Bringup:
+    """A stack's bring-up (``fn(*args)``) on a thread of its own."""
+
+    def __init__(self, fn, *args):
+        self.out = self.err = None
+        self.thread = threading.Thread(target=self._run, args=(fn, args),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self.out = fn(*args)
+        except BaseException as e:      # noqa: BLE001 — raised in result
+            self.err = e
+
+    def result(self):
+        """The stack, once up; the bring-up's exception, if it failed."""
+        self.thread.join()
+        if self.err is not None:
+            raise self.err
+        return self.out
+
+    def stop(self) -> None:
+        """Stop the stack, whatever became of the bring-up."""
+        self.thread.join()
+        if self.out is not None:
+            self.out.stop()
+
+
+def phase_tp_ranks(backend: str) -> dict:
+    """Phase 8(a): the world of ``tp_rank_main`` processes and its checks
+    (``check_world``)."""
     t0 = time.perf_counter()
     got = tp_world("forward", backend, TP_FORWARD_TIMEOUT_S)
+    return check_world(got, backend, t0)
+
+
+def check_world(got: dict, backend: str, t0: float) -> dict:
+    """Phase 8(a)'s checks of the rank processes' results (``tp_world``):
+    the tp=2 forward, the KV plane, the dp=2 forward and serve. Returns
+    {rank: launches} over all four."""
     bad = [got[r]["error"] for r in range(TP_WORLD) if "error" in got[r]]
     if bad:
         raise AssertionError(f"tp forward failed: {bad[0]}\n{got['log']}")
@@ -5076,14 +5717,88 @@ def phase_tp() -> dict:
             raise AssertionError(f"tp forward {name}: outside phase 3's "
                                  f"gate")
     fwd = {r: got[r]["launches"] for r in range(TP_WORLD)}
-    log(f"[tp] forward launches per rank {fwd} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[tp] forward launches per rank {fwd}")
     for r, n in fwd.items():
         for k in TP_B:
             if n.get(k, 0) <= 0:
                 raise AssertionError(f"tp forward: rank {r} never launched "
                                      f"{k}")
-    return {"forward": fwd, "serve": tp_serve(backend)}
+    kv = got[0]["kv"]
+    log(f"[tp] KV plane at tp={TP_WORLD} over {backend} in "
+        f"{kv['seconds']:.1f} s: {kv['blocks']} blocks ({kv['mbytes']:.1f} "
+        f"MB of whole-head KV): the world's merged frames injected into a "
+        f"tp=1 engine byte-equal {kv['tp1_equal']}; CUDA IPC from the "
+        f"world's leader to a child process byte-equal "
+        f"{kv['ipc_out_equal']} (pulled at {kv['ipc_pull']}), the child's "
+        f"copy pulled back into the emptied world byte-equal "
+        f"{kv['ipc_in_equal']}; emptied and "
+        f"re-injected (each rank sent its heads of every scatter: "
+        f"{kv['scatters']} in 8(a)), gathered byte-equal "
+        f"{kv['reinject_equal']}; KVBM host tier: "
+        f"{kv['evicted']} evicted by other prompts (offloaded "
+        f"{kv['offloaded']}, {kv['host_blocks']} in the host tier, offload "
+        f"{kv['offload']}), {kv['onboarded']} onboarded, byte-equal "
+        f"{kv['kvbm_equal']}")
+    log(f"[tp] the world's gather {kv['gather_s']:.3f} s ({kv['gather']}) "
+        f"and inject pipeline {kv['inject_s']:.3f} s ({kv['inject']}), "
+        f"beside phase 6(a)'s one rank: gather "
+        f"{KV_LOCAL_RATES.get('gather', 'not run')}, inject pipeline "
+        f"{KV_LOCAL_RATES.get('inject', 'not run')} (the world's gather "
+        f"and scatter go through the host over {backend})")
+    if not all(kv[k] for k in ("tp1_equal", "ipc_out_equal", "ipc_in_equal",
+                                "reinject_equal", "kvbm_equal")):
+        raise AssertionError("the KV plane over the tp=2 cache lost bytes")
+    dpr = got[0]["dp"]
+    for name, st in dpr["steps"].items():
+        log(f"[tp] dp={TP_WORLD} forward {name} (each rank its row, the "
+            f"whole model): logits vs tp=1 max|d|={st['diff']:.4e} (tol "
+            f"{st['tol']:.4e}), argmax agreement {st['argmax_same']:.3f}, "
+            f"finite={st['finite']}")
+        if not st["finite"] or st["diff"] > st["tol"]:
+            raise AssertionError(f"dp forward {name}: outside phase 3's "
+                                 f"gate")
+    same = got[0]["dp"]["pages"] == got[1]["dp"]["pages"]
+    dpl = {r: got[r]["dp"]["launches"] for r in range(TP_WORLD)}
+    log(f"[tp] dp={TP_WORLD}: both replicas' caches byte-equal at every "
+        f"written page ({len(got[0]['dp']['pages'])} pages): {same}; "
+        f"launches per rank {dpl}; phase 8(a) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("the dp replicas' caches differ")
+    for r, n in dpl.items():
+        for k in TP_B:
+            if n.get(k, 0) <= 0:
+                raise AssertionError(f"dp forward: rank {r} never launched "
+                                     f"{k}")
+    dps = got[0]["dp_serve"]
+    sl = {r: got[r]["dp_serve"]["launches"] for r in range(TP_WORLD)}
+    same = got[0]["dp_serve"]["pages"] == got[1]["dp_serve"]["pages"]
+    lens = {i: (len(v["tokens"]), v["finish"])
+            for i, v in sorted(dps["streams"].items())}
+    log(f"[tp] dp={TP_WORLD} engine (MeshSpec(dp={TP_WORLD}), the whole "
+        f"model on each rank) served {len(lens)} of phase 4's requests "
+        f"(2 sampled, 2 arriving while the others decode) in "
+        f"{dps['seconds']:.1f} s: (tokens, finish) {lens}; counters "
+        f"{dps['counters']}; both replicas' caches byte-equal at every "
+        f"held page ({len(got[0]['dp_serve']['pages'])} pages): {same}; "
+        f"launches per rank {sl}")
+    if not same:
+        raise AssertionError("the dp engine's replicas' caches differ")
+    if len(lens) != DP_SERVE_N or any(v != (DP_SERVE_TOKENS, "length")
+                                      for v in lens.values()):
+        raise AssertionError("a dp request lost tokens")
+    if dps["counters"]["dp_splits"] <= 0 or \
+            dps["counters"]["multistep_blocks"] <= 0:
+        raise AssertionError("the dp engine split no dispatch or ran no "
+                             "fused block")
+    for r, n in sl.items():
+        for k in TP_B:
+            if n.get(k, 0) <= 0:
+                raise AssertionError(f"dp serve: rank {r} never launched "
+                                     f"{k}")
+    fwd = {r: {k: fwd[r][k] + got[r]["kv"]["launches"][k] + dpl[r][k]
+               + sl[r][k] for k in TP_B} for r in range(TP_WORLD)}
+    return fwd
 
 
 SOURCES = {
@@ -5236,7 +5951,8 @@ def main() -> int:
         for name, cfg, impls, strict, extras in (
                 ("llama32_3b", llama_cfg(), llama_impls(), True,
                  (("int8", phase_int8), ("spec", phase_spec))),
-                ("deepseek_v2_lite", ModelConfig.deepseek_v2_lite(),
+                ("deepseek_v2_lite",
+                 cut_depth("deepseek_v2_lite", DEEPSEEK_LAYERS),
                  mla_impls(), False, (("spec", phase_spec_mla),
                                       ("dispatch", phase_dispatch)))):
             c, sc, ex = model_phases(name, cfg, impls, strict, failures,
@@ -5248,7 +5964,8 @@ def main() -> int:
             if name == "llama32_3b":
                 # Gemma-2-27B at GEMMA27_LAYERS of its 46 layers, alone
                 slice_counts["gemma"] = served_model_phases(
-                    "gemma2_27b", gemma27_cut(), failures, profile)
+                    "gemma2_27b", cut_depth("gemma2_27b", GEMMA27_LAYERS),
+                    failures, profile)
                 # the entry points, with the in-process models freed
                 entry = run_phase("serve-entry", phase_serve_entry,
                                   failures) or {}
@@ -5261,7 +5978,8 @@ def main() -> int:
                 # the planner's path (phase 7): profiler, mocker, planner
                 planner = run_phase("planner", phase_planner,
                                     failures) or {}
-                # tensor parallelism (phase 8): two ranks, each alone
+                # a world of two ranks (phase 8): tp, the KV data plane
+                # over its cache, dp, and the disaggregated pair
                 tp = run_phase("tp", phase_tp, failures) or {}
                 # head_dim 256 and 64, each alone on the card, then the
                 # GGUF and DeepSeek checkpoint loaders
@@ -5303,6 +6021,9 @@ def main() -> int:
             } if name in TP_B else None,
             "launches_tp_serve": {
                 r: n.get(name) for r, n in tp.get("serve", {}).items()
+            } if name in TP_B else None,
+            "launches_tp_disagg": {
+                r: n.get(name) for r, n in tp.get("disagg", {}).items()
             } if name in TP_B else None,
             "max_abs_err": row["max_abs_err"],
             "max_err_ulps": row["max_err_ulps"], "ms": row["ms"],

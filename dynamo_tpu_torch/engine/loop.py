@@ -11,18 +11,20 @@ subclasses provide only ``_execute_plan`` — the actual compute for one step:
 This module is the port's own copy of ``dynamo_tpu/engine/loop.py``; its
 imports and prose differ, and one behaviour: the loop's thread work
 (steps, fetches, the exclusive lane) is tracked (``_to_thread``) and
-``stop()`` waits for it. A cancelled loop leaves such a call running in
-its thread, whose frame held the engine, its cache and its weights after
-``stop()`` returned (the KVBM test that drops a stopped tiered engine
-failed on a loaded host). An engine may also name the executor those calls
-run on (``_step_executor``): a rank of a multi-process world runs them all
-on one thread, which issues its collectives in one order.
+``stop()`` waits for it, and no pool thread holds such a call's engine
+after its result is out (``_CallOnce``). A cancelled loop leaves such a
+call running in its thread, and a pool thread keeps its work item a
+moment after the result; either held the engine, its cache and its
+weights after ``stop()`` returned (the KVBM test that drops a stopped
+tiered engine failed on a loaded host). An engine may also name the
+executor those calls run on (``_step_executor``): a rank of a
+multi-process world runs them all on one thread, which issues its
+collectives in one order.
 """
 
 from __future__ import annotations
 
 import asyncio
-import functools
 import logging
 import time
 from collections import deque
@@ -65,6 +67,24 @@ logger = logging.getLogger(__name__)
 
 # how long stop() waits for the loop's calls still running in threads
 THREAD_STOP_TIMEOUT_S = 60.0
+
+
+class _CallOnce:
+    """``fn(*args)`` for an executor, which drops ``fn`` and ``args`` as it
+    runs: a pool thread keeps its work item (this object) until after the
+    result is delivered, and the loop's calls are bound methods of the
+    engine, so a held item would keep the engine, its cache and its
+    weights alive past ``stop()``."""
+
+    __slots__ = ("fn", "args")
+
+    def __init__(self, fn: Callable, args: tuple):
+        self.fn, self.args = fn, args
+
+    def __call__(self) -> Any:
+        fn, args = self.fn, self.args
+        self.fn = self.args = None
+        return fn(*args)
 
 # kv_transfer_params key carrying a stream's migration/resume token: a
 # frame with this key is the LAST frame of a gracefully-drained stream.
@@ -928,12 +948,16 @@ class ScheduledEngineBase(EngineBase):
     async def _to_thread(self, fn: Callable, *args) -> Any:
         """``asyncio.to_thread`` for the loop's own work, tracked: when the
         loop is cancelled the call goes on in its thread to its end, and
-        ``stop()`` waits for it."""
+        ``stop()`` waits for it. The executor's thread holds its work item
+        a moment after the call's result is out; the call (``_CallOnce``)
+        lets go of ``fn`` and its arguments before that, so the engine is
+        not held by a thread once ``stop()`` has seen the call end."""
+        call = _CallOnce(fn, args)
         if self._step_executor is not None:
             task = asyncio.get_running_loop().run_in_executor(
-                self._step_executor, functools.partial(fn, *args))
+                self._step_executor, call)
         else:
-            task = asyncio.ensure_future(asyncio.to_thread(fn, *args))
+            task = asyncio.ensure_future(asyncio.to_thread(call))
         self._thread_work.add(task)
         task.add_done_callback(self._thread_done)
         return await asyncio.shield(task)

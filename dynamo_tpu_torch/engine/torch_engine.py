@@ -77,12 +77,12 @@ The decode knobs left ``None`` in ``TorchEngineConfig`` resolve at build
 from ``RuntimeConfig`` and the short-form env (``DYN_DECODE_MULTISTEP``,
 ``DYN_MIXED_BATCH``, ``DYN_DECODE_PROGRESS``), as the reference's do.
 
-Tensor and expert parallelism (``TorchEngineConfig.mesh``, with the
+Tensor, expert and data parallelism (``TorchEngineConfig.mesh``, with the
 ``shard_params_fn`` / ``shard_pages_fn`` hooks of ``parallel/sharding.py``):
 each rank is a process holding its slice of the weights and the cache, and
 its forwards run at its local shapes (``local_config``) with the model's
-collectives over the mesh. Rank 0 schedules; before every dispatch it taps
-the dispatch's padded host arrays (``step_tap``, set by
+collectives over the mesh's groups. Rank 0 schedules; before every
+dispatch it taps the dispatch's padded host arrays (``step_tap``, set by
 ``parallel/multihost.StepFanout``) and runs ``_invoke_step`` /
 ``_invoke_block`` on them, and a follower runs the same function on the
 same arrays (``execute_arrays``): steps, chained steps (on its own last
@@ -95,14 +95,35 @@ included. Fused blocks are captured as CUDA graphs over NCCL; over gloo (a
 group that cannot be captured) they run eagerly, as the engine's startup
 line says.
 
-Refused rather than approximated: sequence-parallel ring prefill, and at
-world size > 1 the KV page gathers and scatters of the data plane (ROADMAP
+Over ``dp`` the engine is the reference's dp-sharded one: the batch
+buckets' floors are ``dp`` and a ``max_num_seqs`` that ``dp`` does not
+divide is refused; a batch that ``dp`` divides runs split (each replica
+its rows: ``parallel/mesh.DpRows``), its sampled draws those rows of the
+whole batch's draw (``ops/prng.py`` counters addressed by the global
+row), and the packed output is gathered over ``dp``, so the leader reads
+every row; every replica writes every row's K/V, so the page pool stays
+the same on all of them. A batch ``dp`` does not divide runs replicated.
+
+The KV data plane on a world (the reference's multi-host branches): a
+page gather is fanned out as ``"gather"`` (every rank of the leader's
+``tp`` group reads its heads of the pages, the leader assembles the whole
+transport array; ``dp`` replicas hold the same bytes and stay out), a
+host-values scatter as ``"scatter"`` with each rank's head slice sent to
+it alone, and a device-values scatter takes the host path. Each consumes
+a step id of its own, and its outcome joins the followers' cross-check.
+Work planned off the step thread that must issue a collective (a KVBM
+eviction's gather, planned by the scheduler) is deferred to the step
+thread, before its next fanned-out dispatch (``defer_to_step_thread``).
+
+Refused rather than approximated: sequence-parallel ring prefill (ROADMAP
 A13b).
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
+import functools
 import inspect
 import json
 import logging
@@ -110,7 +131,7 @@ import os
 import threading
 import time
 import weakref
-from collections import Counter
+from collections import Counter, deque
 from dataclasses import dataclass
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Optional
@@ -140,7 +161,9 @@ from dynamo_tpu_torch.ops.kernels.mla_prefill import mla_paged_prefill_stacked
 from dynamo_tpu_torch.ops.kernels.prefill import (
     paged_prefill_attention_stacked)
 from dynamo_tpu_torch.ops.kernels.ragged import ragged_mixed_attention_stacked
-from dynamo_tpu_torch.parallel.sharding import local_config
+from dynamo_tpu_torch.parallel.mesh import DpRows, rank_coords
+from dynamo_tpu_torch.parallel.sharding import (Sharding, cache_spec,
+                                                local_config, shard_layout)
 from dynamo_tpu_torch.ops.sampling import (TOPK_MAX, apply_penalties,
                                            apply_vocab_mask, log_softmax_at,
                                            penalty_window_entries,
@@ -171,10 +194,6 @@ MLA_ATTENTION = {
     "mla_prefill": mla_paged_prefill_stacked,
 }
 
-# batch rows of prefill and mixed steps pad to the next power of two from
-# this (decode batches from ``min_decode_bucket``)
-MIN_BATCH_BUCKET = 1
-
 # default fused-decode width (decode steps per block), the reference's
 # DECODE_MULTISTEP
 DECODE_MULTISTEP = 8
@@ -197,6 +216,9 @@ class TorchEngineConfig:
     max_prefill_seqs: int = 8     # sequences sharing one prefill step
     max_context: int = 2048       # max prompt+generation length
     min_prefill_bucket: int = 16
+    # floor for the padded row count of prefill and mixed steps (raised to
+    # dp under data parallelism, as the reference's)
+    min_prefill_seqs_bucket: int = 1
     # floor for the padded decode batch: raising it to max_num_seqs gives
     # one decode shape (one graph per width); 1 pads each power of two
     min_decode_bucket: int = 1
@@ -371,6 +393,25 @@ class TorchEngine(ScheduledEngineBase):
         self.mla = bool(model_cfg.kv_lora_rank)
         mesh = self.cfg.mesh
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._dp = 1 if self.mesh is None else self.mesh.shape["dp"]
+        # (ranks, axis) the cache and its transport array split over: the
+        # kv heads over tp ((1, -1): whole on every rank, as MLA's)
+        self.cache_layout = ((1, -1) if self.mesh is None else shard_layout(
+            Sharding(self.mesh, cache_spec(model_cfg))))
+        if self._dp > 1:
+            # the reference's floors: every padded batch divisible by dp;
+            # a cap dp does not divide would run the saturated batches
+            # replicated
+            if self.cfg.max_num_seqs % self._dp:
+                raise ValueError(
+                    f"max_num_seqs={self.cfg.max_num_seqs} not divisible "
+                    f"by dp={self._dp}: the saturated decode batch could "
+                    "not shard over the dp axis")
+            self.cfg = dataclasses.replace(
+                self.cfg,
+                min_decode_bucket=max(self.cfg.min_decode_bucket, self._dp),
+                min_prefill_seqs_bucket=max(
+                    self.cfg.min_prefill_seqs_bucket, self._dp))
         # the forwards' config: this rank's heads and FFN widths
         self.fwd_cfg = local_config(model_cfg, self.mesh)
         if self.device.type == "cuda":
@@ -461,6 +502,8 @@ class TorchEngine(ScheduledEngineBase):
         self.chained_steps = 0       # of which pipelined (chained) steps
         self.multistep_blocks = 0    # of which fused blocks
         self.mixed_steps = 0         # mixed prefill+decode steps
+        # steps and fused blocks run split over dp (each replica its rows)
+        self.dp_splits = 0
         # cache writes of the KV inject paths (engine/transfer.py, kvbm/):
         # one per scatter, as the reference counts its jitted scatters
         self.page_scatter_dispatches = 0
@@ -490,9 +533,16 @@ class TorchEngine(ScheduledEngineBase):
         self.step_tap: Optional[Callable] = None
         self._last_packed: Optional[torch.Tensor] = None
         self._last_block: Optional[dict] = None
+        # work deferred to the step thread (a world's eviction gathers),
+        # and that thread's ident (recorded by the executor's initializer,
+        # which must not hold the engine)
+        self._deferred: deque = deque()
+        self._step_ident: list = [None]
         if self.mesh is not None:
             self._step_executor = ThreadPoolExecutor(
-                1, thread_name_prefix="dynamo-step")
+                1, thread_name_prefix="dynamo-step",
+                initializer=functools.partial(_record_ident,
+                                              self._step_ident))
         if self.mesh is not None or self.device.type == "cuda":
             logger.info(
                 "TorchEngine: rank %d of mesh %s on %s, backend %s, fused "
@@ -536,12 +586,56 @@ class TorchEngine(ScheduledEngineBase):
         (the CPU, and a rank over a gloo group)."""
         return "graphs" if self.graphs is not None else "eager"
 
-    def _tap(self, kind: str, arrays: dict) -> None:
+    @property
+    def world(self) -> bool:
+        """Is this engine the leader of a rank world: its dispatches and
+        page IO fan out to the followers (``step_tap``), and page values
+        cross to them through the host?"""
+        return self.step_tap is not None
+
+    def _tap(self, kind: str, arrays: dict, **kw) -> None:
         """Fan one dispatch's host arrays out before running it (rank 0 of
         a world); the step rides the message itself."""
         if self.step_tap is not None:
             self.step_tap(kind, {k: v for k, v in arrays.items()
-                                 if k != "step"}, self._step_counter)
+                                 if k != "step"}, self._step_counter, **kw)
+
+    def _start_dispatch(self) -> None:
+        """The start of a dispatch on the step thread: this engine's card,
+        then the work deferred to this thread. That work (an eviction's
+        gather) fans out under step ids of its own, so it runs before the
+        dispatch reads the step counter: leader and followers then run
+        the dispatch under one id."""
+        self._use_device()
+        self._run_deferred()
+
+    def on_step_thread(self) -> bool:
+        """May this thread issue the collectives of this rank? Any thread
+        of a one-rank engine; on a world only the loop's step thread."""
+        return self.mesh is None or \
+            threading.get_ident() == self._step_ident[0]
+
+    def defer_to_step_thread(self, fn) -> None:
+        """Run ``fn()`` on the step thread before its next fanned-out
+        dispatch, page IO or exclusive call: what a world's scheduler
+        plans off that thread and must issue a collective (an evicted
+        page's gather) lands before the step that reuses the page."""
+        self._deferred.append(fn)
+
+    def _run_deferred(self) -> None:
+        while self._deferred:
+            self._deferred.popleft()()
+
+    async def run_exclusive(self, fn, *args):
+        """The loop's exclusive lane; on a world, deferred step-thread
+        work runs ahead of ``fn`` there."""
+        if self.mesh is None:
+            return await super().run_exclusive(fn, *args)
+        return await super().run_exclusive(self._after_deferred, fn, args)
+
+    def _after_deferred(self, fn, args):
+        self._run_deferred()
+        return fn(*args)
 
     async def run_on_step_thread(self, fn, *args):
         """``fn(*args)`` on the thread that issues this rank's collectives
@@ -874,7 +968,8 @@ class TorchEngine(ScheduledEngineBase):
                     top_p=np.ones(B, np.float32))
 
     def _chunk_arrays(self, chunks) -> dict:
-        B = _bucket(len(chunks), MIN_BATCH_BUCKET, self.cfg.max_num_seqs)
+        B = _bucket(len(chunks), self.cfg.min_prefill_seqs_bucket,
+                    self.cfg.max_num_seqs)
         S = _bucket(max(c.length for c in chunks),
                     self.cfg.min_prefill_bucket, self.cfg.max_prefill_chunk)
         a = self._empty_arrays(B, S)
@@ -1110,7 +1205,7 @@ class TorchEngine(ScheduledEngineBase):
             return self.fetch_packed_block(self.dispatch_multistep(plan))
         if isinstance(plan, DecodeBatch):
             return self.fetch_packed(self.dispatch_decode(plan))
-        self._use_device()
+        self._start_dispatch()
         self._drop_released()
         if isinstance(plan, SpecDecodeBatch):
             return self._execute_spec(plan)
@@ -1181,8 +1276,18 @@ class TorchEngine(ScheduledEngineBase):
         rank runs the same function on the same arrays, so the model's
         collectives meet; the result is fetched, so a failure of this rank
         surfaces here. Returns what the leader's fetch returns (None for
-        embeddings and scoring)."""
+        embeddings, scoring and page IO)."""
         self._use_device()
+        if kind == "gather":
+            # the leader's tp group reads its heads of the pages and
+            # joins the leader's assembly; the result stays there
+            if self._joins_gather():
+                self._gather_world(np.asarray(a["ids"]))
+            return None
+        if kind == "scatter":
+            # this rank's head slice of the values, written in place
+            self._scatter_host_local(np.asarray(a["ids"]), a["vals"])
+            return None
         # writable copies (arrays off the wire are read-only views)
         a = {k: np.array(v) for k, v in a.items()}
         a["step"] = np.array(step, np.int64)
@@ -1196,8 +1301,7 @@ class TorchEngine(ScheduledEngineBase):
             out = self._invoke_block(a)
             return self.fetch_packed_block(self._stage(out["packed"]))
         if kind not in ("step", "mixed", "chained", "spec"):
-            raise NotImplementedError(
-                f"fanned-out {kind!r} dispatch (ROADMAP A13b)")
+            raise ValueError(f"unknown fanned-out dispatch kind {kind!r}")
         return self.fetch_packed(self._stage(self._invoke_step(kind, a)))
 
     # -- speculative verify ---------------------------------------------------
@@ -1325,9 +1429,10 @@ class TorchEngine(ScheduledEngineBase):
         t = {k: _upload(v, self.device) for k, v in a.items()}
         S = a["toks"].shape[1]
         kernel = "mla_prefill" if self.mla else "paged_prefill"
+        dp, t = self._rows(t)
         logits, aux = self._forward(t["toks"], t["pos"], t["table"],
                                     t["total"], t["new"], kernel,
-                                    logits_window=S)
+                                    logits_window=S, dp=dp)
         # a MoE family's verify step reports dispatch drops like any step
         self._queue_drops(aux.get("moe_dropped_assignments"))
         logits = logits.float()
@@ -1338,14 +1443,16 @@ class TorchEngine(ScheduledEngineBase):
                 t["gmask"].reshape(B * S, -1)).reshape(B, S, V)
         n_acc, final_tok, final_lp, draft_lps = spec_verify(
             logits, t["toks"], prng.fold_in(self._rng, t["step"]),
-            t["temp"], t["top_k"], t["top_p"])
+            t["temp"], t["top_k"], t["top_p"],
+            row0=0 if dp is None else dp.lo)
         cols = [final_tok[:, None], final_lp.view(torch.int32)[:, None],
                 n_acc[:, None], draft_lps.view(torch.int32)]
         if self.cfg.num_top_logprobs > 0:
             # per-slot alternatives: [B, S*kt] ids, then their lp bits
             ids, lp_bits = self._topk_cols(logits.reshape(B * S, V))
             cols += [ids.reshape(B, -1), lp_bits.reshape(B, -1)]
-        return torch.cat(cols, dim=1)
+        packed = torch.cat(cols, dim=1)
+        return packed if dp is None else dp.gather(packed)
 
     @property
     def supports_pipelining(self) -> bool:
@@ -1366,7 +1473,7 @@ class TorchEngine(ScheduledEngineBase):
         return self._dispatch_step(plan, prev_handle)
 
     def _dispatch_step(self, plan, prev_handle):
-        self._use_device()
+        self._start_dispatch()
         self._drop_released()
         seqs = plan.seqs
         a = self._decode_arrays(seqs, chained=prev_handle is not None)
@@ -1398,21 +1505,43 @@ class TorchEngine(ScheduledEngineBase):
         t = {k: _upload(v, self.device) for k, v in a.items()
              if k not in dev_arrays}
         t.update(dev_arrays)
+        dp, t = self._rows(t)
         logits, aux = self._forward(t["toks"], t["pos"], t["table"],
-                                    t["total"], t["new"], kernel)
+                                    t["total"], t["new"], kernel, dp=dp)
         self._queue_drops(aux.get("moe_dropped_assignments"))
-        return self._sample_tail(logits, t, draw=bool(a["temp"].max() > 0))
+        packed = self._sample_tail(logits, t, draw=bool(a["temp"].max() > 0),
+                                   row0=0 if dp is None else dp.lo)
+        return packed if dp is None else dp.gather(packed)
+
+    # a fused block's inputs that are not per row
+    _WHOLE = ("step", "step0", "gt_trans", "gt_masks")
+
+    def _rows(self, t: dict):
+        """(``DpRows`` or None, the step's tensors): over a batch ``dp``
+        divides, this rank's rows of every per-row tensor, and the rows'
+        descriptor with the whole batch's table, positions and counts for
+        the cache write (the reference's ``_shard_batch``); else the
+        tensors as they are (replicated)."""
+        B = t["table"].shape[0]
+        if not DpRows.split(self.mesh, B):
+            return None, t
+        dp = DpRows(self.mesh, B // self._dp, t["table"], t.get("pos"),
+                    t.get("new"))
+        self.dp_splits += 1
+        return dp, {k: v if k in self._WHOLE else dp.local(v)
+                    for k, v in t.items()}
 
     def _forward(self, toks, pos, table, total, new, kernel: str,
-                 logits_window: int = 1):
+                 logits_window: int = 1, dp=None):
         """The family's forward on the serving cache with ``kernel`` as the
         attention; returns (logits, aux). MoE families return a third
         ``aux`` dict (dispatch drop counts), the others the plain
-        ``(logits, pages)`` pair (aux ``{}``)."""
+        ``(logits, pages)`` pair (aux ``{}``). ``dp``: this rank's rows of
+        a batch split over ``dp`` (``_rows``)."""
         out = self.family.forward(
             self.params, self.fwd_cfg, toks, pos, self.pages, table, total,
             new, attn_impl=self._attn[kernel], logits_window=logits_window,
-            mesh=self.mesh)
+            mesh=self.mesh, dp=dp)
         return out[0], (out[2] if len(out) > 2 else {})
 
     def _queue_drops(self, drops: Optional[torch.Tensor]) -> None:
@@ -1428,7 +1557,7 @@ class TorchEngine(ScheduledEngineBase):
             self._drain_moe_drops(keep_last=8)
 
     def _sample_tail(self, logits: torch.Tensor, t: dict,
-                     draw: bool = True) -> torch.Tensor:
+                     draw: bool = True, row0: int = 0) -> torch.Tensor:
         """The reference's sampling epilogue (``JaxEngine._sample_tail``):
         penalties, then bias, then the guided mask on the logits (so the
         top-K alternatives and logprobs are of the distribution sampled
@@ -1446,22 +1575,23 @@ class TorchEngine(ScheduledEngineBase):
             seeds, min_p = t["seeds"], t["pen_min_p"]
         return self._sample_pack(logits, t["step"], t["temp"], t["top_k"],
                                  t["top_p"], seeds, min_p, t["total"],
-                                 draw)[0]
+                                 draw, row0)[0]
 
     def _sample_pack(self, logits, step, temp, top_k, top_p, seeds, min_p,
-                     seed_pos, draw: bool):
+                     seed_pos, draw: bool, row0: int = 0):
         """Sample from float32 ``logits`` and pack ``[B, 2 + 2K]``; returns
         (packed, tokens). The Gumbel draw comes from ``fold_in(engine key,
         step)`` (seeded rows from their seed and ``seed_pos``). With
         ``draw`` False (every row greedy) the noise is zeros: a greedy row
         takes candidate 0 whatever the noise, and the draw is some 600
-        small launches on the card."""
+        small launches on the card. ``row0``: the first row's index in the
+        step's whole batch (a ``dp`` replica's share)."""
         B, V = logits.shape
         k = min(TOPK_MAX, V)
         if draw:
             gumbel = sampling_noise(prng.fold_in(self._rng, step), B, k,
                                     seeds=seeds, seed_rng=self._rng,
-                                    seed_pos=seed_pos)
+                                    seed_pos=seed_pos, row0=row0)
         else:
             gumbel = torch.zeros((B, k), device=logits.device)
         tokens, logprobs = sample_tokens(logits, gumbel, temp, top_k, top_p,
@@ -1562,7 +1692,7 @@ class TorchEngine(ScheduledEngineBase):
         A chained block takes its first token, positions, liveness, budgets
         and penalty/automaton state from the previous block's carry; only
         the page table (pages may have grown) comes from the host."""
-        self._use_device()
+        self._start_dispatch()
         self._drop_released()
         seqs, w = plan.seqs, plan.width
         B = _bucket(len(seqs), self.cfg.min_decode_bucket,
@@ -1625,6 +1755,11 @@ class TorchEngine(ScheduledEngineBase):
              for k, v in xa.items() if k not in self._BLOCK_FLAGS}
         # the wire carries a 0-d array as shape (1,)
         x["step0"] = x["step0"].reshape(())
+        dp, x = self._rows(x)
+        if dp is not None:
+            # the whole table stays for the cache writes of every row (a
+            # chained block's carry, below, is already this rank's rows)
+            x["table_all"] = dp.table
         if "chained" in xa:
             c = carry if carry is not None else self._last_block
             x.update((k, c[k]) for k in CARRY)
@@ -1677,6 +1812,8 @@ class TorchEngine(ScheduledEngineBase):
         gt = "gt_trans" in x
         B = tok.shape[0]
         dev = tok.device
+        split = "table_all" in x
+        row0 = self.mesh.coords["dp"] * B if split else 0
         if "pids" in x:
             pids, pcnt, pctx, pbias, pn, gstate = (x[k] for k in PEN_CARRY)
         else:
@@ -1693,8 +1830,11 @@ class TorchEngine(ScheduledEngineBase):
         drops = torch.zeros((), dtype=torch.int32, device=dev)
         for j in range(w):
             new = alive.to(torch.int32)
+            # a split block's steps gather every replica's positions and
+            # counts for the cache write (the carry is per rank)
+            dp = DpRows(self.mesh, B, x["table_all"]) if split else None
             logits, aux = self._forward(tok, pos, table, total, new,
-                                        self.decode_kernel)
+                                        self.decode_kernel, dp=dp)
             if self._moe_dispatch_active:
                 drops = drops + aux["moe_dropped_assignments"]
             logits = logits.float()
@@ -1716,7 +1856,7 @@ class TorchEngine(ScheduledEngineBase):
                                           x["gt_masks"][gstate.long()])
             packed, sampled = self._sample_pack(
                 logits, x["step0"] + j, x["temp"], x["top_k"], x["top_p"],
-                x.get("seeds"), x.get("min_p"), total, draw)
+                x.get("seeds"), x.get("min_p"), total, draw, row0)
             steps.append(packed)
             hit = (stop_ids == sampled[:, None]).any(dim=1)
             stopped = (hit & (j + 1 >= min_gate)) | (j + 1 >= budget)
@@ -1734,7 +1874,11 @@ class TorchEngine(ScheduledEngineBase):
                     alive, x["gt_trans"][gstate.long(), sampled.long()],
                     gstate)
             alive = alive & ~stopped
-        return {"packed": torch.stack(steps, dim=1), "tok": tok, "pos": pos,
+        packed = torch.stack(steps, dim=1)
+        if split:
+            # the leader reads every row: the replicas' rows gathered
+            packed = dp.gather(packed)
+        return {"packed": packed, "tok": tok, "pos": pos,
                 "total": total, "alive": alive, "budget": budget - w,
                 "min_gate": min_gate - w, "pids": pids, "pcnt": pcnt,
                 "pctx": pctx, "pbias": pbias, "pn": pn, "gstate": gstate,
@@ -1832,14 +1976,60 @@ class TorchEngine(ScheduledEngineBase):
     # the fused blocks' CUDA graphs hold ``self.pages``'s address. Callers
     # run these on the loop's exclusive lane, whose thread issues them on
     # the same stream as the steps, so a gather reads what every step
-    # before it wrote and a scatter lands before the next step reads.
+    # before it wrote and a scatter lands before the next step reads. On
+    # a world's leader each gather and host-values scatter is fanned out
+    # first (the reference's multi-host ``"gather"`` / ``"scatter"``
+    # broadcasts), consuming a step id of its own.
 
-    def _refuse_page_io(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"KV page {what} on a sharded cache (world size "
-                f"{self.mesh.size}): the KV data plane over a sharded cache "
-                "is ROADMAP A13b")
+    def _joins_gather(self) -> bool:
+        """Does this rank take part in a world's page gather: the leader's
+        ``tp`` group (dp coordinate 0), where the heads are split."""
+        return self.cache_layout[0] > 1 and self.mesh.coords["dp"] == 0
+
+    def _fan_page_io(self, kind: str, arrays: dict, fn, *args, **kw):
+        """On a world's leader: fan a page IO op out under a step id of its
+        own (``_tap``), run ``fn(*args)`` here, and relay its outcome to the
+        followers' cross-check. Deferred work runs first (its own ids)."""
+        self._run_deferred()
+        step = self._step_counter
+        self._tap(kind, arrays, **kw)
+        self._step_counter += 1
+        ok = False
+        try:
+            out = fn(*args)
+            ok = True
+        finally:
+            if self.step_outcome_cb is not None:
+                self.step_outcome_cb(step, ok)
+        return out
+
+    def _gather_world(self, ids: np.ndarray) -> torch.Tensor:
+        """This rank's heads of pages ``ids``; on a head-split cache
+        assembled over the ``tp`` group (the whole ``Hkv`` on every rank
+        of it)."""
+        local = self.pages.index_select(1, self._page_index(ids))
+        if self.cache_layout[0] > 1:
+            return self.mesh.all_gather(local, "tp",
+                                        dim=self.cache_layout[1])
+        return local
+
+    def _rank_slices(self, vals: np.ndarray) -> list:
+        """Host values ``[L, n, 2, Hkv, ps, Dh]`` cut into each world
+        rank's part of its cache: its ``tp`` coordinate's heads (the whole
+        for an MLA cache and at ``tp`` = 1), rank by rank."""
+        count, axis = self.cache_layout
+        if count < 2:
+            return [vals] * self.mesh.size
+        parts = np.split(vals, count, axis=axis)
+        return [parts[rank_coords(self.mesh.spec, r)["tp"]]
+                for r in range(self.mesh.size)]
+
+    def _scatter_host_local(self, ids: np.ndarray, vals) -> None:
+        """Write host values of this rank's part (``_rank_slices``) into
+        pages ``ids``, in place."""
+        from dynamo_tpu_torch.engine.transfer import host_tensor
+        self._scatter_local(ids, host_tensor(np.asarray(vals),
+                                             self.pages.dtype))
 
     @staticmethod
     def _pad_page_ids(page_ids) -> np.ndarray:
@@ -1859,10 +2049,14 @@ class TorchEngine(ScheduledEngineBase):
                               replicate: bool = True) -> torch.Tensor:
         """Gather cache pages -> ``[L, n_pad, 2, Hkv, ps, Dh]`` on the
         cache's device, not waited on. ``replicate`` is the reference's
-        mesh flag; one device has nothing to replicate."""
-        self._refuse_page_io("gather")
-        return self.pages.index_select(
-            1, self._page_index(self._pad_page_ids(page_ids)))
+        mesh flag: the transport array here is always the whole one. On a
+        world's leader the gather is fanned out and assembled from the
+        leader's ``tp`` group."""
+        ids = self._pad_page_ids(page_ids)
+        if self.world:
+            return self._fan_page_io("gather", {"ids": ids},
+                                     self._gather_world, ids)
+        return self.pages.index_select(1, self._page_index(ids))
 
     def fetch_host(self, dev: torch.Tensor) -> np.ndarray:
         """``dev`` on the host as a numpy array (bfloat16 as its uint16
@@ -1886,10 +2080,18 @@ class TorchEngine(ScheduledEngineBase):
 
     def scatter_pages_device(self, page_ids, vals_dev) -> None:
         """Write ``vals_dev`` ``[L, n, 2, Hkv, ps, Dh]`` (a tensor, on any
-        device) into cache pages ``page_ids``, in place."""
-        self._refuse_page_io("scatter")
+        device) into cache pages ``page_ids``, in place. On a world's
+        leader the values go to the host and take the fanned-out
+        host-values scatter: every rank writes its part."""
         n = len(page_ids)
-        vals = vals_dev[:, :n]
+        if self.world:
+            self.scatter_pages_chunked(page_ids, self.fetch_host(
+                vals_dev[:, :n].contiguous()))
+            return
+        self._scatter_local(page_ids, vals_dev[:, :n])
+
+    def _scatter_local(self, page_ids, vals: torch.Tensor) -> None:
+        """Write ``vals`` into this rank's cache pages, in place."""
         if vals.device != self.device:
             vals = vals.to(self.device, non_blocking=True)
         elif vals.is_cuda:
@@ -1902,11 +2104,17 @@ class TorchEngine(ScheduledEngineBase):
 
     def scatter_pages_host(self, page_ids, vals) -> None:
         """Scatter host values ``[L, n, 2, Hkv, ps, Dh]`` (numpy; bfloat16
-        as uint16 bits) into cache pages, in place."""
-        from dynamo_tpu_torch.engine.transfer import host_tensor
-        vals = host_tensor(np.asarray(vals)[:, :len(page_ids)],
-                           self.pages.dtype)
-        self.scatter_pages_device(page_ids, vals)
+        as uint16 bits) into cache pages, in place. On a world's leader it
+        is fanned out with each rank's head slice sent to that rank alone
+        (``_rank_slices``), and every rank writes its slice."""
+        vals = np.asarray(vals)[:, :len(page_ids)]
+        if not self.world:
+            self._scatter_host_local(page_ids, vals)
+            return
+        ids = np.asarray(page_ids, np.int64)
+        parts = self._rank_slices(vals)
+        self._fan_page_io("scatter", {"ids": ids}, self._scatter_host_local,
+                          ids, parts[self.mesh.rank], shards=parts)
 
     def scatter_pages_chunked(self, page_ids, vals,
                               max_blocks: Optional[int] = None) -> None:
@@ -2091,6 +2299,11 @@ class TorchEngine(ScheduledEngineBase):
         params = get_family(model_cfg).init_params(model_cfg, gen,
                                                    device=dev)
         return cls(model_cfg, params, config, device=dev)
+
+
+def _record_ident(box: list) -> None:
+    """The step executor's initializer: its thread's ident into ``box``."""
+    box[0] = threading.get_ident()
 
 
 def _flag(v):

@@ -176,6 +176,8 @@ def _inject_data(engine: "TorchEngine",
         return 0
     pages = alloc.allocate(len(fresh))
     if not isinstance(data, torch.Tensor):
+        # host values (the wire path); a world's device values go through
+        # the host in the engine's scatter, fanned out with its values
         host = np.asarray(data)
         if len(fresh) != len(metas):
             host = host[:, np.asarray(fresh, np.int64)]
@@ -229,17 +231,19 @@ def _export_device(engine: "TorchEngine", block_hashes: List[int],
 
 def cache_shard_layout(engine) -> Tuple[int, int]:
     """``(shard_count, axis)`` of the engine cache's stacked transport
-    array ``[L, n, 2, Hkv, ps, Dh]``: ``(1, -1)``, the reference's answer
-    for a single-device cache (the port's cache lives on one card)."""
-    return (1, -1)
+    array ``[L, n, 2, Hkv, ps, Dh]``: ``(1, -1)`` for a one-device or
+    replicated cache, ``(tp, 3)`` for a rank world's head-split one (the
+    reference's ``shard_layout`` of its placement)."""
+    return engine.cache_layout
 
 
 def kv_shard_payload(engine) -> Dict[str, int]:
     """The shard-negotiation keys a puller merges into its wire-v5 pull
-    payload: empty for a single-device cache, so exporters serve merged
-    frames."""
+    payload: its own cache's shard layout. Empty for single-device caches
+    and rank worlds (per-shard frames carry no fanout — followers could
+    not join), so exporters serve merged frames."""
     n, ax = cache_shard_layout(engine)
-    if n < 2:
+    if n < 2 or engine.world:
         return {}
     return {"shards": n, "shard_axis": ax}
 
@@ -361,12 +365,18 @@ def export_frames(engine: "TorchEngine", block_hashes: List[int],
     in one transfer, and shipped as views of it. Runs under
     ``run_exclusive``.
 
-    ``shards`` (wire v5) never matches a one-device cache: the export logs
-    it and serves the merged frames every puller understands."""
+    ``shards`` (wire v5) is the puller's cache shard layout. Per-shard
+    frames are not served: a one-device cache has one shard, and a rank
+    world's leader serves merged frames (a shard read would need its
+    followers outside the step fanout); the export logs why and serves
+    the merged frames every puller understands."""
     if shards is not None:
-        logger.info("per-shard KV export unavailable (engine layout %s vs "
-                    "puller %s); serving merged frames",
-                    cache_shard_layout(engine), tuple(shards))
+        logger.info(
+            "per-shard KV export unavailable (engine layout %s vs puller "
+            "%s%s%s); serving merged frames", cache_shard_layout(engine),
+            tuple(shards),
+            "; multihost" if engine.world else "",
+            "; block-major" if layout != "layer" else "")
     metas, data = _export_device(engine, block_hashes)
     if not metas:
         return []
@@ -497,6 +507,10 @@ class InjectPipeline:
     (staging copies the bytes). Not thread-safe; drive from one task, then
     ``await finish()``. Per-phase wall time accumulates in ``timings``
     (``stage_s``/``upload_s``/``scatter_s``).
+
+    On a rank world's leader (``engine.world``) the upload phase is
+    skipped: the scatter is fanned out WITH its host values so every rank
+    writes its part — commits stay batched, host-side.
     """
 
     def __init__(self, engine: "TorchEngine", window: Optional[int] = None,
@@ -514,7 +528,9 @@ class InjectPipeline:
             # chunked scatter never re-reads the config inside a commit
             self._inner = (lambda eng, metas, data:
                            _inject_data(eng, metas, data, self.window))
-        self._cuda = engine.pages.is_cuda
+        # a world's leader commits host values (no upload, no pinning)
+        self._world = engine.world
+        self._cuda = engine.pages.is_cuda and not self._world
         self._stream = (torch.cuda.Stream(engine.pages.device)
                         if self._cuda else None)
         # per slot: (pinned tensor or None, its numpy staging view)
@@ -556,7 +572,8 @@ class InjectPipeline:
             if release is not None:
                 release(meta["_raw"])
             raise
-        if (release is not None and meta.get("layout") == "layer"
+        if (release is not None and not self._world
+                and meta.get("layout") == "layer"
                 and len(metas) >= self.window and self._fill == 0):
             await self._direct_frame(metas, arr, meta["_raw"], release)
             return
@@ -712,7 +729,9 @@ class InjectPipeline:
     async def _flush(self, slot, metas, fill, prev, done) -> None:
         pinned, buf = slot
         try:
-            if pinned is not None:
+            if self._world:
+                vals = buf[:, :fill]
+            elif pinned is not None:
                 # the whole pinned slot uploads as one async copy (a
                 # partial window is a strided view the copy would stage
                 # through pageable memory)

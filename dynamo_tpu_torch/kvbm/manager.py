@@ -8,7 +8,8 @@ content-addressed inject path (``engine/transfer.py``).
 ``TieredEngine`` wraps a ``TorchEngine``:
 - installs the allocator eviction hook: HBM-evicted blocks are snapshotted
   ON DEVICE (a gather on the steps' stream, ordered before the page's
-  reuse — no host sync, runs between steps) and handed to a background
+  reuse — no host sync, runs between steps; on a rank world on the step
+  thread, which fans it out) and handed to a background
   spill thread through a BOUNDED queue; the thread copies the snapshot to
   pinned host memory on a CUDA stream of its own (after an event wait on
   the gather) and does the G2/G3 tier writes (disk IO never runs
@@ -26,6 +27,7 @@ content-addressed inject path (``engine/transfer.py``).
 from __future__ import annotations
 
 import asyncio
+import functools
 import logging
 import os
 import queue
@@ -139,7 +141,19 @@ class TieredEngine(EngineBase):
         is serialized with the step loop), so the device gather reads a
         consistent cache. Only the gather DISPATCH happens here; the
         device->host copy and tier writes run on the spill thread.
-        """
+
+        On a rank world the gather is a fanned-out collective, which only
+        the loop's step thread may issue: an eviction planned elsewhere
+        (the scheduler, on the event loop) hands it to that thread, which
+        runs it before the dispatch that reuses the pages."""
+        if not self.engine.on_step_thread():
+            self.engine.defer_to_step_thread(
+                functools.partial(self._offload, evicted))
+            return
+        self._offload(evicted)
+
+    def _offload(self, evicted: List[tuple]) -> None:
+        """Gather the evicted pages and queue them for the spill thread."""
         try:
             # the gather runs on the steps' stream, behind every write to
             # these pages and before their reuse; its event is what the

@@ -49,9 +49,10 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import _logits, _rms_norm, torch_dtype
 from dynamo_tpu_torch.models.moe import (combine, dense_experts,
                                          expert_dispatch, expert_range,
-                                         sum_drops)
+                                         split_experts, sum_drops)
 from dynamo_tpu_torch.ops import quant
-from dynamo_tpu_torch.ops.attention import NEG_INF, _pad_table, write_kv
+from dynamo_tpu_torch.ops.attention import (NEG_INF, _pad_table,
+                                            write_kv_rows)
 from dynamo_tpu_torch.ops.sampling import top_k_stable
 
 Params = Dict[str, object]
@@ -480,7 +481,7 @@ def _gate_noaux(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
 
 
 def _moe_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-             x: torch.Tensor, mesh=None
+             x: torch.Tensor, mesh=None, dp=None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Routed experts plus the shared experts. ``cfg.moe_backend`` picks the
     routed compute: ``"dense"`` (every expert on every token, weighted by
@@ -497,12 +498,13 @@ def _moe_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
     xt = x.reshape(B * S, H)
     top_w, top_i = _gate(cfg, lp, xt)                      # [T, k]
     dropped = None
-    if mesh is not None and mesh.size > 1:
+    if split_experts(mesh):
         lo, _n = expert_range(cfg, mesh)
         if cfg.moe_backend == "dispatch":
             part, dropped = expert_dispatch(
                 xt, top_w, top_i, lp["w_gate"], lp["w_up"], lp["w_down"],
-                cfg.num_experts, cfg.moe_capacity_factor, expert_lo=lo)
+                cfg.num_experts, cfg.moe_capacity_factor, expert_lo=lo,
+                dp=dp)
         else:
             part = dense_experts(xt, top_w, top_i, lp["w_gate"],
                                  lp["w_up"], lp["w_down"], expert_lo=lo,
@@ -514,7 +516,7 @@ def _moe_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
     if cfg.moe_backend == "dispatch":
         routed, dropped = expert_dispatch(
             xt, top_w, top_i, lp["w_gate"], lp["w_up"], lp["w_down"],
-            cfg.num_experts, cfg.moe_capacity_factor)
+            cfg.num_experts, cfg.moe_capacity_factor, dp=dp)
         routed = routed.to(x.dtype)
     else:
         routed = dense_experts(xt, top_w, top_i, lp["w_gate"], lp["w_up"],
@@ -539,13 +541,14 @@ def _dense_mlp(lp: Dict[str, torch.Tensor], x: torch.Tensor,
 
 def _layer_step(cfg: ModelConfig, lp, h, positions, total_lens, new_lens,
                 page_table, pages, lidx: int, moe: bool,
-                attn_impl: Optional[Callable], mesh=None
+                attn_impl: Optional[Callable], mesh=None, dp=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer against the stacked latent cache (written in
     place). Returns (h, the MoE dispatch's dropped assignments or None)."""
     q_lat, q_pe, c_kv, k_pe, w_uv = _mla_qkv(cfg, lp, h, positions)
     k_new, v_new = _cache_rows(cfg, c_kv, k_pe)
-    write_kv(pages, lidx, k_new, v_new, page_table, positions, new_lens)
+    write_kv_rows(pages, lidx, k_new, v_new, page_table, positions, new_lens,
+                  dp)
     S = h.shape[1]
     P = page_table.shape[1]
     ps = pages.shape[-2]
@@ -572,7 +575,7 @@ def _layer_step(cfg: ModelConfig, lp, h, positions, total_lens, new_lens,
     if not moe:
         act = F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
         return h + quant.row_mm(lp, "w_down", act, mesh), None
-    mlp, dropped = _moe_mlp(cfg, lp, x, mesh)
+    mlp, dropped = _moe_mlp(cfg, lp, x, mesh, dp)
     return h + mlp, dropped
 
 
@@ -580,7 +583,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, pages: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
             new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
-            logits_window: int = 1, mesh=None
+            logits_window: int = 1, mesh=None, dp=None
             ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Forward over the stacked latent cache: the dense stack, then the MoE
     stack, one shared cache.
@@ -595,7 +598,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     summed over the MoE layers, 0 on the dense backend). Under tensor and
     expert parallelism (``mesh``, ``cfg`` the rank's local config) the
     query heads split over ``tp``, the latent path and cache replicate, and
-    the sums are one after ``wo`` and one per MLP (``_moe_mlp``)."""
+    the sums are one after ``wo`` and one per MLP (``_moe_mlp``). Under
+    data parallelism ``dp`` is this rank's rows (``models/llama.py``): the
+    latent rows are gathered over ``dp`` before each cache write."""
     K = cfg.first_k_dense_replace
     h = params["embed"][tokens.long()]
     stacks = []
@@ -610,10 +615,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             lp = {k: v[i] for k, v in layers.items()}
             h, dropped = _layer_step(cfg, lp, h, positions, total_lens,
                                      new_lens, page_table, pages, first + i,
-                                     moe, attn_impl, mesh)
+                                     moe, attn_impl, mesh, dp)
             if dropped is not None:
                 drops.append(dropped)
-    aux = {"moe_dropped_assignments": sum_drops(drops, h.device)}
+    aux = {"moe_dropped_assignments": sum_drops(drops, h.device, dp)}
     return (_logits(cfg, params, h, new_lens, window=logits_window,
                     mesh=mesh), pages, aux)
 

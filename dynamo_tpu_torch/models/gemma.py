@@ -35,7 +35,7 @@ from dynamo_tpu_torch.models.llama import (head_logits, make_pages,
                                            params_from_jax, select_rows,
                                            torch_dtype)
 from dynamo_tpu_torch.ops import quant
-from dynamo_tpu_torch.ops.attention import paged_attention, write_kv
+from dynamo_tpu_torch.ops.attention import paged_attention, write_kv_rows
 from dynamo_tpu_torch.ops.rope import apply_rope
 
 Params = Dict[str, object]
@@ -171,10 +171,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, pages: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
             new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
-            logits_window: int = 1, mesh=None
+            logits_window: int = 1, mesh=None, dp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward over the stacked paged cache, with ``models/llama.py``'s
-    signature and returns (``mesh`` included); ``attn_impl`` takes
+    signature and returns (``mesh`` and ``dp`` included); ``attn_impl`` takes
     ``paged_attention``'s signature with its ``window`` and ``softcap``
     keywords, which every layer passes (window 0 on the global layers;
     the attention softcap acts per head, on the rank's own heads)."""
@@ -186,7 +186,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for l, win in enumerate(layer_windows(cfg)):
         lp = {k: v[l] for k, v in layers.items()}
         q, k, v = _project_qkv(cfg, lp, h, positions)
-        write_kv(pages, l, k, v, page_table, positions, new_lens)
+        write_kv_rows(pages, l, k, v, page_table, positions, new_lens, dp)
         attn = attn_impl(q, pages, l, page_table, positions, total_lens,
                          sm_scale, window=win, softcap=softcap)
         h = _finish_layer(cfg, lp, h, attn, mesh)

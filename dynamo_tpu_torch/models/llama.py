@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import quant
-from dynamo_tpu_torch.ops.attention import paged_attention, write_kv
+from dynamo_tpu_torch.ops.attention import paged_attention, write_kv_rows
 from dynamo_tpu_torch.ops.rope import apply_rope
 
 Params = Dict[str, object]
@@ -211,7 +211,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, pages: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
             new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
-            logits_window: int = 1, mesh=None
+            logits_window: int = 1, mesh=None, dp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward over the stacked paged cache.
 
@@ -226,7 +226,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     rank's local config (``parallel/sharding.local_config``: its heads and
     FFN width) and ``params`` / ``pages`` its shards; the collectives are
     one sum after ``wo`` and one after ``w_down`` per layer, and the
-    gather of vocab-split logits. None issues none.
+    gather of vocab-split logits. None issues none. Under data parallelism
+    ``dp`` (``parallel/mesh.DpRows``) names this rank's rows of a batch
+    split over ``dp``: the inputs are those rows, and each layer's new K/V
+    rows are gathered over ``dp`` before the cache write, so every
+    replica's cache holds every row (``ops.attention.write_kv_rows``).
     """
     sm_scale = cfg.head_dim ** -0.5
     attn_impl = attn_impl or paged_attention
@@ -235,7 +239,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for l in range(cfg.num_layers):
         lp = {k: v[l] for k, v in layers.items()}
         q, k, v = _project_qkv(cfg, lp, h, positions)
-        write_kv(pages, l, k, v, page_table, positions, new_lens)
+        write_kv_rows(pages, l, k, v, page_table, positions, new_lens, dp)
         attn = attn_impl(q, pages, l, page_table, positions, total_lens,
                          sm_scale)
         h = _finish_layer(cfg, lp, h, attn, mesh)

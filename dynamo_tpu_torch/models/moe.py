@@ -45,7 +45,7 @@ from dynamo_tpu_torch.models.llama import (_logits, _project_qkv, _rms_norm,
                                            make_pages, params_from_jax,
                                            torch_dtype)
 from dynamo_tpu_torch.ops import quant
-from dynamo_tpu_torch.ops.attention import paged_attention, write_kv
+from dynamo_tpu_torch.ops.attention import paged_attention, write_kv_rows
 from dynamo_tpu_torch.ops.sampling import top_k_stable
 
 Params = Dict[str, object]
@@ -80,6 +80,12 @@ def expert_range(cfg: ModelConfig, mesh) -> Tuple[int, int]:
     ep = 1 if mesh is None else mesh.axis_size("ep")
     n = cfg.num_experts // ep
     return (0 if mesh is None else mesh.coords["ep"] * n), n
+
+
+def split_experts(mesh) -> bool:
+    """Do this rank's experts or expert columns hold a partial of the MLP
+    (``tp`` or ``ep`` > 1)? Replicas over ``dp`` alone hold the whole."""
+    return mesh is not None and mesh.axis_size("tp", "ep") > 1
 
 
 def combine(mesh, part: torch.Tensor, dtype) -> torch.Tensor:
@@ -132,7 +138,7 @@ def moe_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
     """The dense backend. x: [B, S, H] (already normed) -> [B, S, H]."""
     B, S, H = x.shape
     top_w, top_i = _router_topk(cfg, lp, x.reshape(B * S, H))  # [T, k]
-    if mesh is None or mesh.size == 1:
+    if not split_experts(mesh):
         return dense_experts(x.reshape(B * S, H), top_w, top_i,
                              lp["w_gate"], lp["w_up"],
                              lp["w_down"]).reshape(B, S, H)
@@ -155,7 +161,7 @@ def capacity(T: int, k: int, num_experts: int,
 
 
 def moe_mlp_dispatch(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-                     x: torch.Tensor, mesh=None
+                     x: torch.Tensor, mesh=None, dp=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The capacity dispatch backend: each expert computes only a buffer of
     its routed tokens (``expert_dispatch``). Returns ``(out [B, S, H],
@@ -166,8 +172,8 @@ def moe_mlp_dispatch(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
     lo, _n = expert_range(cfg, mesh)
     out, dropped = expert_dispatch(
         xt, top_w, top_i, lp["w_gate"], lp["w_up"], lp["w_down"],
-        cfg.num_experts, cfg.moe_capacity_factor, expert_lo=lo)
-    if mesh is not None and mesh.size > 1:
+        cfg.num_experts, cfg.moe_capacity_factor, expert_lo=lo, dp=dp)
+    if split_experts(mesh):
         return combine(mesh, out, x.dtype).reshape(B, S, H), dropped
     return out.reshape(B, S, H).to(x.dtype), dropped
 
@@ -175,7 +181,7 @@ def moe_mlp_dispatch(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
 def expert_dispatch(xt: torch.Tensor, top_w: torch.Tensor,
                     top_i: torch.Tensor, w_gate, w_up, w_down,
                     num_experts: int, capacity_factor: float,
-                    expert_lo: int = 0
+                    expert_lo: int = 0, dp=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based capacity dispatch (routing-agnostic: DeepSeek reuses it
     with its own gate). The ``T * k`` assignments group by expert through a
@@ -195,12 +201,19 @@ def expert_dispatch(xt: torch.Tensor, top_w: torch.Tensor,
     Under ep the weights are the ``E_local`` experts from ``expert_lo``:
     capacity, slots and drops are the global ones (all ``num_experts``),
     assignments to another rank's experts go to the trash row, and ``out``
-    is this rank's partial."""
+    is this rank's partial.
+
+    Over a batch split by ``dp`` (``parallel/mesh.DpRows``) the tokens are
+    this replica's rows: capacity is the whole batch's, and the
+    assignments of the replicas before this one (earlier rows) take their
+    slots first, so every slot, keep and drop is the one the whole batch
+    gives. ``dropped`` counts this replica's."""
     T, H = xt.shape
     E = num_experts
     E_loc = w_gate.shape[0]
     k = top_i.shape[1]
-    C = capacity(T, k, E, capacity_factor)
+    C = capacity(T if dp is None else T * dp.mesh.shape["dp"], k, E,
+                 capacity_factor)
     A = T * k
     dev = xt.device
     flat_e = top_i.reshape(A).long()
@@ -210,6 +223,9 @@ def expert_dispatch(xt: torch.Tensor, top_w: torch.Tensor,
     starts = torch.cumsum(counts, 0) - counts              # [E]
     rank = torch.empty_like(flat_e)
     rank[order] = torch.arange(A, device=dev) - starts[flat_e[order]]
+    if dp is not None:
+        every = dp.gather(counts[None])                   # [dp, E]
+        rank = rank + every[:dp.mesh.coords["dp"]].sum(0)[flat_e]
     keep = rank < C
     dropped = (~keep).sum().to(torch.int32)
     if E_loc != E:
@@ -230,7 +246,7 @@ def expert_dispatch(xt: torch.Tensor, top_w: torch.Tensor,
 
 
 def _moe_layer_tail(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-                    h: torch.Tensor, attn: torch.Tensor, mesh=None
+                    h: torch.Tensor, attn: torch.Tensor, mesh=None, dp=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Out-projection residual, then the routed MLP residual. Returns (h,
     dropped assignments), dropped None on the dense backend (it computes
@@ -239,17 +255,19 @@ def _moe_layer_tail(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
     h = h + quant.row_mm(lp, "wo", attn.reshape(B, S, cfg.q_size), mesh)
     x = _rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     if cfg.moe_backend == "dispatch":
-        mlp, dropped = moe_mlp_dispatch(cfg, lp, x, mesh)
+        mlp, dropped = moe_mlp_dispatch(cfg, lp, x, mesh, dp)
         return h + mlp, dropped
     return h + moe_mlp(cfg, lp, x, mesh), None
 
 
-def sum_drops(drops, device) -> torch.Tensor:
+def sum_drops(drops, device, dp=None) -> torch.Tensor:
     """The forward's drop count: the per-layer int32 scalars summed on the
-    device (a zero when no layer could drop)."""
+    device (a zero when no layer could drop); over a batch split by ``dp``
+    summed over the replicas too, so every rank holds the batch's."""
     if not drops:
         return torch.zeros((), dtype=torch.int32, device=device)
-    return torch.stack(drops).sum().to(torch.int32)
+    total = torch.stack(drops).sum().to(torch.int32)
+    return total if dp is None else dp.sum(total)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -307,10 +325,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, pages: torch.Tensor,
             page_table: torch.Tensor, total_lens: torch.Tensor,
             new_lens: torch.Tensor, attn_impl: Optional[Callable] = None,
-            logits_window: int = 1, mesh=None
+            logits_window: int = 1, mesh=None, dp=None
             ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Forward over the stacked paged cache: ``models/llama.py``'s
-    signature and returns (``mesh`` included) plus a third,
+    signature and returns (``mesh`` and ``dp`` included) plus a third,
     ``{"moe_dropped_assignments": int32 scalar}`` summed over layers (the
     engine's drop count)."""
     sm_scale = cfg.head_dim ** -0.5
@@ -321,13 +339,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for l in range(cfg.num_layers):
         lp = {k: v[l] for k, v in layers.items()}
         q, k, v = _project_qkv(cfg, lp, h, positions)
-        write_kv(pages, l, k, v, page_table, positions, new_lens)
+        write_kv_rows(pages, l, k, v, page_table, positions, new_lens, dp)
         attn = attn_impl(q, pages, l, page_table, positions, total_lens,
                          sm_scale)
-        h, dropped = _moe_layer_tail(cfg, lp, h, attn, mesh)
+        h, dropped = _moe_layer_tail(cfg, lp, h, attn, mesh, dp)
         if dropped is not None:
             drops.append(dropped)
-    aux = {"moe_dropped_assignments": sum_drops(drops, h.device)}
+    aux = {"moe_dropped_assignments": sum_drops(drops, h.device, dp)}
     return (_logits(cfg, params, h, new_lens, window=logits_window,
                     mesh=mesh), pages, aux)
 

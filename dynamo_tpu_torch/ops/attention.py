@@ -49,6 +49,26 @@ def write_kv(pages: torch.Tensor, layer_idx: int, k_new: torch.Tensor,
     return pages
 
 
+def write_kv_rows(pages: torch.Tensor, layer_idx: int, k_new: torch.Tensor,
+                  v_new: torch.Tensor, page_table: torch.Tensor,
+                  positions: torch.Tensor, new_lens: torch.Tensor,
+                  dp=None) -> torch.Tensor:
+    """``write_kv`` of a forward whose rows may be split over ``dp``
+    (``parallel/mesh.DpRows``): the new K/V of every replica's rows are
+    gathered first and written with the whole batch's table, positions
+    and counts, so every replica's cache holds every row. Without ``dp``
+    it is ``write_kv``."""
+    if dp is not None:
+        if k_new.shape == v_new.shape:
+            kv = dp.gather(torch.stack([k_new, v_new]), dim=1)
+            k_new, v_new = kv[0], kv[1]
+        else:
+            k_new, v_new = dp.gather(k_new), dp.gather(v_new)
+        page_table, positions, new_lens = dp.write_args(positions, new_lens)
+    return write_kv(pages, layer_idx, k_new, v_new, page_table, positions,
+                    new_lens)
+
+
 def _softcap(scores: torch.Tensor, cap) -> torch.Tensor:
     if cap is None:
         return scores
@@ -253,6 +273,7 @@ def paged_attention(q: torch.Tensor, pages: torch.Tensor, layer_idx,
                    window=window, softcap=softcap).to(q.dtype)
 
 
-__all__ = ["write_kv", "paged_attention", "ragged_paged_attention",
-           "merge_softmax_partials", "normalize_softmax_partials",
+__all__ = ["write_kv", "write_kv_rows", "paged_attention",
+           "ragged_paged_attention", "merge_softmax_partials",
+           "normalize_softmax_partials",
            "NEG_INF"]

@@ -87,13 +87,18 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return fold_in(key[None, :], torch.arange(num, device=key.device))
 
 
-def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """32-bit ``jax.random.bits``: int64 words ``[*key_batch, *shape]``."""
+def random_bits(key: torch.Tensor, shape: Sequence[int],
+                offset: int = 0) -> torch.Tensor:
+    """32-bit ``jax.random.bits``: int64 words ``[*key_batch, *shape]``.
+    ``offset`` starts the counters there: the words of ``shape`` at flat
+    index ``offset`` onwards of a larger draw from the same key (the rows
+    ``r0..`` of a ``[B, k]`` draw at ``offset = r0 * k``)."""
     shape = tuple(int(d) for d in shape)
     n = 1
     for d in shape:
         n *= d
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=key.device)
     idx = idx.reshape(shape)
     lead = (1,) * len(shape)
     k1 = key[..., 0].reshape(key.shape[:-1] + lead)
@@ -103,9 +108,10 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """float32 ``jax.random.uniform`` in ``[minval, maxval)``."""
-    bits = (random_bits(key, shape) >> 9) | 0x3F800000
+            maxval: float = 1.0, offset: int = 0) -> torch.Tensor:
+    """float32 ``jax.random.uniform`` in ``[minval, maxval)`` (``offset``
+    as ``random_bits``)."""
+    bits = (random_bits(key, shape, offset) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     lo, hi = _f32(minval), _f32(maxval)
     # floats * (maxval - minval) + minval as one fused multiply-add, as
@@ -155,10 +161,12 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     return _fma(e, _f32(0.693359375), m)
 
 
-def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+def gumbel(key: torch.Tensor, shape: Sequence[int],
+           offset: int = 0) -> torch.Tensor:
     """float32 ``jax.random.gumbel(key, shape)`` (``mode="low"``):
-    ``-log(-log(u))`` with ``u = uniform(tiny, 1)``, the logs as XLA's."""
-    return -xla_log(-xla_log(uniform(key, shape, _TINY, 1.0)))
+    ``-log(-log(u))`` with ``u = uniform(tiny, 1)``, the logs as XLA's
+    (``offset`` as ``random_bits``)."""
+    return -xla_log(-xla_log(uniform(key, shape, _TINY, 1.0, offset)))
 
 
 __all__ = ["PRNGKey", "fold_in", "split", "random_bits", "uniform",

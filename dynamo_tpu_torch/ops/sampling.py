@@ -168,7 +168,8 @@ def _masked_candidates(logits: torch.Tensor, temperature: torch.Tensor,
 def sampling_noise(rng: torch.Tensor, B: int, k: int,
                    seeds: Optional[torch.Tensor] = None,
                    seed_rng: Optional[torch.Tensor] = None,
-                   seed_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   seed_pos: Optional[torch.Tensor] = None,
+                   row0: int = 0) -> torch.Tensor:
     """The Gumbel noise ``[B, k]`` the reference's ``sample_tokens`` draws
     from the step key ``rng`` (``fold_in(engine key, step)``).
 
@@ -176,12 +177,16 @@ def sampling_noise(rng: torch.Tensor, B: int, k: int,
     them, a key per row: an unseeded row (seed 0) folds its batch position,
     ``fold_in(fold_in(rng, 7), row)``; a seeded row folds only its seed and
     the position of the token it samples, ``fold_in(fold_in(seed_rng,
-    seed), seed_pos)``, so it replays the same under any batching."""
+    seed), seed_pos)``, so it replays the same under any batching.
+
+    ``row0``: the ``B`` rows are rows ``row0..row0+B-1`` of the step's
+    batch (a replica's share of a batch split over ``dp``), and draw what
+    those rows of the whole batch's draw are."""
     if seeds is None:
-        return prng.gumbel(rng, (B, k))
+        return prng.gumbel(rng, (B, k), offset=row0 * k)
     dev = rng.device
     rows = prng.fold_in(prng.fold_in(rng, 7)[None, :],
-                        torch.arange(B, device=dev))
+                        torch.arange(row0, row0 + B, device=dev))
     base = rng if seed_rng is None else seed_rng
     pos = (torch.zeros(B, dtype=torch.int64, device=dev) if seed_pos is None
            else seed_pos.to(torch.int64))
@@ -222,7 +227,7 @@ def sample_tokens(logits: torch.Tensor, gumbel: torch.Tensor,
 def spec_verify(logits: torch.Tensor, tokens: torch.Tensor,
                 rng: torch.Tensor, temperature: torch.Tensor,
                 top_k: torch.Tensor, top_p: torch.Tensor,
-                mask_words: Optional[torch.Tensor] = None):
+                mask_words: Optional[torch.Tensor] = None, row0: int = 0):
     """Rejection-sampling verification of drafted tokens in one pass
     (Leviathan et al., with the n-gram draft as a point mass): draft ``d``
     is accepted with probability ``p(d)`` under the filtered distribution,
@@ -234,7 +239,8 @@ def spec_verify(logits: torch.Tensor, tokens: torch.Tensor,
     mask_words: optional [B, S, ceil(V/32)] per-slot guided masks.
     Returns (n_acc [B] i32, final_tok [B] i32, final_lp [B] f32 under the
     unfiltered row logits, draft_lps [B, S - 1] f32). The uniform and
-    Gumbel draws use ``split(fold_in(rng, 0x5bec))``, as the reference."""
+    Gumbel draws use ``split(fold_in(rng, 0x5bec))``, as the reference;
+    ``row0`` as ``sampling_noise``'s (the rows of a replica's share)."""
     lf = logits.float()
     B, S, V = lf.shape
     K = S - 1
@@ -259,7 +265,7 @@ def spec_verify(logits: torch.Tensor, tokens: torch.Tensor,
     p_draft = torch.where(in_cand, q[:, :K], 0.0).sum(dim=-1)
 
     k_u, k_g = prng.split(prng.fold_in(rng, 0x5BEC), 2)
-    u = prng.uniform(k_u, (B, K))
+    u = prng.uniform(k_u, (B, K), offset=row0 * K)
     greedy = (temperature <= 0.0)[:, None]
     acc = torch.where(greedy, drafts == top_idx[:, :K, 0], u < p_draft)
     n_acc = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1)
@@ -272,7 +278,7 @@ def spec_verify(logits: torch.Tensor, tokens: torch.Tensor,
         d_rej = drafts[rows, torch.clamp(sel, max=K - 1)]
         excl = (idx_a == d_rej[:, None]) & (sel < K)[:, None]
         scaled_a = torch.where(excl, -torch.inf, scaled_a)
-    gumbel = prng.gumbel(k_g, (B, k))
+    gumbel = prng.gumbel(k_g, (B, k), offset=row0 * k)
     choice = torch.argmax(scaled_a + gumbel, dim=-1)
     choice = torch.where(temperature <= 0.0, 0, choice)
     final_tok = torch.gather(idx_a, 1, choice[:, None])[:, 0]

@@ -13,10 +13,12 @@ themselves over the mesh's process groups (``mesh.py``):
   and the paged KV cache, and each rank's slices;
 - ``multihost.py`` — the world, the step fanout and the follower loop.
 
-Served: tensor parallelism (heads, FFN width and kv heads over ``tp``) and
-expert parallelism (experts over ``ep``). Data, sequence and pipeline
-parallelism (``ring_attention.py``, ``ring_prefill.py``, ``pipeline.py``)
-are ROADMAP A13b.
+Served: tensor parallelism (heads, FFN width and kv heads over ``tp``),
+expert parallelism (experts over ``ep``), data parallelism (batch rows over
+``dp``, the weights and the page pool replicated: ``mesh.DpRows``), and
+the KV data plane (page gathers and scatters) on any of these worlds.
+Sequence and pipeline parallelism (``ring_attention.py``,
+``ring_prefill.py``, ``pipeline.py``) are ROADMAP A13b.
 """
 
 from dynamo_tpu_torch.parallel.mesh import MeshSpec, make_mesh

@@ -3,7 +3,8 @@
 The port of ``dynamo_tpu/parallel/mesh.py``. The axis convention and order
 are the reference's (any subset may be 1):
 
-- ``dp``  — data parallel: independent model replicas (batch-sharded);
+- ``dp``  — data parallel: model replicas, each running its rows of the
+  batch (``DpRows``), one page pool replicated over them;
 - ``pp``  — pipeline parallel: layer stages;
 - ``tp``  — tensor parallel: attention heads / MLP columns over ranks;
 - ``sp``  — sequence/context parallel: ring attention over the sequence;
@@ -158,6 +159,65 @@ class RankMesh:
         return f"RankMesh({self.shape}, rank={self.rank})"
 
 
+class DpRows:
+    """One rank's rows of a batch split over ``dp``: rows ``lo:lo+rows``
+    of the padded batch, the rank's coordinate on ``dp`` times its share.
+
+    The reference shards the batch over ``dp`` with GSPMD and keeps the
+    page pool replicated over it; the pool stays replicated here because
+    every replica writes EVERY row's new K/V (``ops.attention.
+    write_kv_rows``): each layer's new rows are gathered over ``dp``
+    before the cache write, with the whole batch's page table, positions
+    and new-token counts. The table is the step's (every rank holds the
+    whole host arrays); positions and counts are given for a step and
+    gathered once per forward for a fused block, whose carry is per
+    rank."""
+
+    def __init__(self, mesh: RankMesh, rows: int, table: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None,
+                 new_lens: Optional[torch.Tensor] = None):
+        self.mesh = mesh
+        self.rows = rows
+        self.lo = mesh.coords["dp"] * rows
+        self.table = table
+        self._pos = positions
+        self._new = new_lens
+
+    @staticmethod
+    def split(mesh: Optional[RankMesh], batch: int) -> bool:
+        """Does ``dp`` split a padded batch of ``batch`` rows? A batch dp
+        does not divide runs replicated, as the reference's
+        ``_shard_batch`` leaves it."""
+        if mesh is None:
+            return False
+        dp = mesh.shape["dp"]
+        return dp > 1 and batch % dp == 0
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole-batch tensor."""
+        return x[self.lo:self.lo + self.rows]
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every replica's rows of ``x``, in batch order."""
+        return self.mesh.all_gather(x.contiguous(), "dp", dim)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the replicas (a drop count)."""
+        return self.mesh.all_reduce(x.clone(), "dp")
+
+    def write_args(self, positions: torch.Tensor, new_lens: torch.Tensor):
+        """(table, positions, new_lens) of the whole batch, for the cache
+        write; this rank's ``positions`` / ``new_lens`` are gathered with
+        the other replicas' on first use when the step did not give
+        them."""
+        if self._pos is None:
+            both = self.gather(torch.cat(
+                [positions.to(torch.int32),
+                 new_lens.to(torch.int32)[:, None]], dim=1))
+            self._pos, self._new = both[:, :-1], both[:, -1]
+        return self.table, self._pos, self._new
+
+
 def _axis_sets(spec: MeshSpec) -> Iterable[Tuple[str, ...]]:
     """Every non-empty set of axes of size > 1, in one fixed order (every
     rank must create the same groups in the same order)."""
@@ -199,4 +259,5 @@ def make_mesh(spec: Optional[MeshSpec] = None) -> RankMesh:
                     dist.get_backend() if up else None)
 
 
-__all__ = ["MeshSpec", "RankMesh", "make_mesh", "rank_coords", "AXES"]
+__all__ = ["MeshSpec", "RankMesh", "DpRows", "make_mesh", "rank_coords",
+           "AXES"]

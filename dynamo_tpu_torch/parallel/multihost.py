@@ -21,6 +21,12 @@ layer is the footing for every axis here, tp included:
   - Ranks > 0 run ``follow_steps``: receive, unpack, run the SAME step
     function on the SAME arrays (``TorchEngine.execute_arrays``); the
     model's collectives (``models/llama.py``) meet the leader's there.
+  - The KV data plane's page IO rides the same stream, as the reference's
+    ``"gather"`` / ``"scatter"`` kinds: a gather's page ids, a scatter's
+    ids and, after its message, each rank's own head slice of the values
+    (one ``scatter`` over the fanout group: no rank receives the whole
+    window). The leader relays every outcome, page IO included, for the
+    followers' cross-check.
 
 The difference from the reference: the fanout rides the process group
 (``broadcast_object_list`` on a gloo group), not the coordinator's event
@@ -177,6 +183,30 @@ def _broadcast(group, msg=None):
     return box[0]
 
 
+def _send_shards(group, parts: List[np.ndarray]) -> None:
+    """Rank 0: each rank's part of a large array (a scatter's values) to
+    that rank alone, as raw bytes over the fanout group (one ``scatter``;
+    every part has one size). The message that announced it carries the
+    parts' dtype and shape."""
+    import torch
+    import torch.distributed as dist
+    bufs = [torch.from_numpy(np.ascontiguousarray(p).reshape(-1).view(
+        np.uint8)) for p in parts]
+    out = torch.empty_like(bufs[0])
+    dist.scatter(out, bufs, src=0, group=group)
+
+
+def _recv_shard(group, meta: dict) -> np.ndarray:
+    """A follower's part of ``_send_shards``."""
+    import torch
+    import torch.distributed as dist
+    dtype = np.dtype(meta["d"])
+    n = int(np.prod(meta["s"])) * dtype.itemsize
+    buf = torch.empty(n, dtype=torch.uint8)
+    dist.scatter(buf, None, src=0, group=group)
+    return buf.numpy().view(dtype).reshape(meta["s"])
+
+
 # ---------------------------------------------------------------- rank 0
 
 class StepFanout:
@@ -200,14 +230,22 @@ class StepFanout:
             self._outcomes.append((int(step_id), bool(ok)))
 
     def tap(self, kind: str, arrays: Dict[str, np.ndarray],
-            step: int) -> None:
+            step: int, shards: Optional[List[np.ndarray]] = None) -> None:
+        """Broadcast one dispatch's host arrays. ``shards`` (a page
+        scatter's values, one part per world rank) follow the message,
+        each part to its rank alone (``vals`` on the follower's side)."""
         msg = _pack_arrays(kind, arrays, step)
+        if shards is not None:
+            msg["shard"] = {"d": str(shards[0].dtype),
+                            "s": list(shards[0].shape)}
         if self._outcomes:
             drained, self._outcomes = self._outcomes, []
             # piggyback resolved outcomes on the next step message so
             # followers can cross-check their own per-step results
             msg["outcomes"] = drained
         _broadcast(self._group, msg)
+        if shards is not None:
+            _send_shards(self._group, shards)
 
     def install(self, engine) -> None:
         engine.step_tap = self.tap
@@ -233,6 +271,10 @@ def follow_steps(group, engine) -> None:
     my_failed_steps: Dict[int, bool] = {}
     while True:
         msg = _broadcast(group)
+        # this rank's part of the message's values first: the leader waits
+        # in their scatter whatever this rank does next
+        shard = (_recv_shard(group, msg["shard"]) if "shard" in msg
+                 else None)
         # cross-check the leader's resolved outcomes against our own: a
         # step WE failed that the LEADER completed means this rank's
         # KV/pages state silently diverged — restart the group now rather
@@ -247,6 +289,8 @@ def follow_steps(group, engine) -> None:
         if msg["kind"] == "stop":
             return
         arrays = _unpack_arrays(msg)
+        if shard is not None:
+            arrays["vals"] = shard
         try:
             engine.execute_arrays(msg["kind"], arrays, msg["step"])
             consecutive_failures = 0

@@ -19,7 +19,9 @@ the reference's ``PartitionSpec`` tree entry for entry:
 - ``embed`` replicated; an untied ``lm_head`` ``[H, V]`` splits ``V`` over
   ``tp`` when ``tp`` divides the vocabulary, else replicates;
 - the cache ``[L, N, 2, Hkv, page, Dh]``: ``Hkv`` over ``tp`` (MLA's latent
-  cache is shared by every head: replicated).
+  cache is shared by every head: replicated);
+- over ``dp`` every weight and the cache replicate: a replica runs its
+  rows of the batch, and the page pool stays equal on all replicas.
 
 ``shard_layout`` and ``transport_sharding`` describe a placement by its
 mesh and spec (``Sharding``), the form the sharded KV wire reads.
@@ -202,10 +204,9 @@ class ModelSharding:
 
     def pages_spec(self) -> Spec:
         """Stacked cache [L, N, 2, Hkv, page, Dh]: Hkv over tp (MLA: the
-        latent is shared across heads — replicated)."""
-        if self.cfg.kv_lora_rank:
-            return P()
-        return P(None, None, None, "tp", None, None)
+        latent is shared across heads — replicated); replicated over dp,
+        as the reference's (every replica writes every row's KV)."""
+        return cache_spec(self.cfg)
 
     def pages_layer_spec(self) -> Spec:
         """Per-layer cache [N, 2, Hkv, page, Dh]: Hkv over tp."""
@@ -268,6 +269,15 @@ class ModelSharding:
     def pages_sharding(self, per_layer: bool = False) -> Sharding:
         return Sharding(self.mesh, self.pages_layer_spec() if per_layer
                         else self.pages_spec())
+
+
+def cache_spec(cfg: ModelConfig) -> Spec:
+    """The spec of the stacked cache ``[L, N, 2, Hkv, page, Dh]`` and of
+    its transport array ``[L, n, ...]``: Hkv over tp, replicated
+    elsewhere; MLA's latent cache replicated."""
+    if cfg.kv_lora_rank:
+        return P()
+    return P(None, None, None, "tp", None, None)
 
 
 def local_config(cfg: ModelConfig, mesh: Optional[RankMesh]) -> ModelConfig:
@@ -339,4 +349,4 @@ def shard_layout(sharding: Optional[Sharding]) -> tuple:
 
 
 __all__ = ["ModelSharding", "Sharding", "tp_sharding", "transport_sharding",
-           "shard_layout", "local_config", "P"]
+           "cache_spec", "shard_layout", "local_config", "P"]

@@ -28,10 +28,13 @@ backend, as the reference's worker does. A ``--model-path`` ending in
 ``.gguf`` loads a GGUF file (``models/gguf.py``), as the reference's
 worker does.
 
-Tensor parallelism over ranks (``parallel/``): ``--tensor-parallel-size
-T`` runs a world of T ranks, one process per device. ``--num-nodes N
---node-rank r`` keeps the reference's meaning, ``--local-devices`` is the
-number of ranks this node runs (default T / N), ``--jax-coordinator`` keeps
+Tensor and data parallelism over ranks (``parallel/``):
+``--tensor-parallel-size T`` and ``--data-parallel-size D`` run a world of
+D x T ranks, one process per device, as one engine over the reference's
+dp x tp mesh (each dp replica its rows of every batch, the page pool
+replicated over dp). ``--num-nodes N --node-rank r`` keeps the reference's
+meaning, ``--local-devices`` is the number of ranks this node runs
+(default D x T / N), ``--jax-coordinator`` keeps
 its name as the ``torch.distributed`` rendezvous address (``host:port``;
 on one node the worker picks a free local port), and ``--dist-backend``
 names the model's collective backend (default ``nccl`` on the GPU,
@@ -42,10 +45,14 @@ steps (``_follower_main``). ``--random-weights`` makes the whole tree from
 seed 0 on every rank and slices it, so every world size serves the same
 model.
 
+At world size > 1 the KV data plane is served as on one rank: the
+disaggregated roles, the KVBM tiers, the leader's ``kv_export`` endpoint
+(RPC, bulk and, on the GPU, the CUDA IPC planes; merged frames) and
+graceful drain, whose drained leader releases its followers as its stop
+does.
+
 Flags whose paths are not ported exit non-zero naming their ROADMAP item:
-data, pipeline and sequence parallelism, and at world size > 1 the
-disaggregated roles and the KVBM tiers (the KV data plane over a sharded
-cache), all ROADMAP A13b.
+pipeline and sequence parallelism, ROADMAP A13b.
 """
 
 from __future__ import annotations
@@ -56,7 +63,6 @@ import dataclasses
 import functools
 import logging
 import os
-import signal
 import sys
 import tempfile
 
@@ -104,8 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard the model over this many ranks, one process "
                         "per device")
     p.add_argument("--data-parallel-size", type=int, default=1,
-                   help="shard the batch over this many devices (not "
-                        "ported: ROADMAP A13b)")
+                   help="shard the batch over this many replicas of the "
+                        "model (x --tensor-parallel-size ranks in all)")
     p.add_argument("--pipeline-parallel-size", type=int, default=1,
                    help="stage the layers over this many devices (not "
                         "ported: ROADMAP A13b)")
@@ -178,7 +184,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "worker picks a free local port")
     p.add_argument("--local-devices", type=int, default=None,
                    help="ranks (devices) this node runs (default: "
-                        "--tensor-parallel-size / --num-nodes)")
+                        "--data-parallel-size x --tensor-parallel-size / "
+                        "--num-nodes)")
     p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
                    help="backend of the model's collectives at world size "
                         "> 1 (default: nccl on the GPU, gloo on the CPU; "
@@ -207,12 +214,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def world_size(args: argparse.Namespace) -> int:
+    """Ranks of the world: the dp x tp mesh (the reference's devices)."""
+    return args.data_parallel_size * args.tensor_parallel_size
+
+
 def local_ranks(args: argparse.Namespace) -> int:
     """Ranks this node runs: ``--local-devices``, else the world over the
     nodes."""
     if args.local_devices is not None:
         return int(args.local_devices)
-    return max(1, args.tensor_parallel_size // max(1, args.num_nodes))
+    return max(1, world_size(args) // max(1, args.num_nodes))
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
@@ -220,33 +232,25 @@ def refuse_unported(args: argparse.Namespace) -> None:
     not serve yet (the reference refuses its own unsupported
     combinations the same way: ``SystemExit`` before any engine work)."""
     for flag, val, what in (
-            ("--data-parallel-size", args.data_parallel_size,
-             "data parallelism"),
             ("--pipeline-parallel-size", args.pipeline_parallel_size,
              "pipeline parallelism"),
             ("--sequence-parallel-size", args.sequence_parallel_size,
              "sequence parallelism")):
         if val > 1:
-            raise SystemExit(f"{flag} {val}: {what} is not ported yet "
-                             "(ROADMAP A13b)")
-    tp, nodes = args.tensor_parallel_size, args.num_nodes
-    if tp > 1 or nodes > 1:
-        if nodes * local_ranks(args) != tp:
+            raise SystemExit(f"{flag} {val}: {what} is "
+                             "not ported yet (ROADMAP A13b)")
+    dp, tp, nodes = (args.data_parallel_size, args.tensor_parallel_size,
+                     args.num_nodes)
+    world = world_size(args)
+    if world > 1 or nodes > 1:
+        if nodes * local_ranks(args) != world:
             raise SystemExit(
-                f"--tensor-parallel-size {tp} must equal --num-nodes "
-                f"{nodes} x --local-devices {local_ranks(args)}: the world "
-                "is one tensor-parallel group")
+                f"--data-parallel-size {dp} x --tensor-parallel-size {tp} "
+                f"({world} ranks) must equal --num-nodes {nodes} x "
+                f"--local-devices {local_ranks(args)}: the world is one "
+                "dp x tp mesh")
         if nodes > 1 and not args.jax_coordinator:
             raise SystemExit("--jax-coordinator required with --num-nodes>1")
-        if args.disagg != "none":
-            raise SystemExit(
-                f"--disagg {args.disagg} at world size {tp}: the KV data "
-                "plane over a sharded cache is not ported yet (ROADMAP "
-                "A13b)")
-        if args.host_cache_bytes > 0 or args.disk_cache_bytes > 0:
-            raise SystemExit(
-                f"KVBM tiers at world size {tp}: the KV data plane over a "
-                "sharded cache is not ported yet (ROADMAP A13b)")
     if (args.host_cache_bytes > 0 or args.disk_cache_bytes > 0) \
             and args.disagg == "decode":
         raise SystemExit(
@@ -317,7 +321,8 @@ def build_engine(args: argparse.Namespace, world=None) -> TorchEngine:
         from dynamo_tpu_torch.parallel.multihost import build_rank_engine
         return build_rank_engine(
             cfg, engine_cfg, world,
-            MeshSpec(tp=args.tensor_parallel_size), params=params)
+            MeshSpec(dp=args.data_parallel_size,
+                     tp=args.tensor_parallel_size), params=params)
     return TorchEngine(cfg, params, engine_cfg, device=device)
 
 
@@ -362,7 +367,7 @@ def join_world(args: argparse.Namespace):
     """At world size > 1: start this node's other local ranks (from local
     rank 0), then join the world. Returns (world, started processes), or
     (None, []) for a single-process worker."""
-    if args.tensor_parallel_size == 1 and args.num_nodes == 1:
+    if world_size(args) == 1 and args.num_nodes == 1:
         return None, []
     from dynamo_tpu_torch.parallel.multihost import (
         free_address, initialize_distributed, start_local_ranks)
@@ -544,7 +549,7 @@ async def _serve(args: argparse.Namespace, world) -> None:
     resume_admission = None
     served_main = None
     comp = drt.namespace(args.namespace).component(args.component)
-    if args.disagg != "prefill" and world is None:
+    if args.disagg != "prefill":
         from dynamo_tpu_torch.engine.transfer import serve_kv_export
         from dynamo_tpu_torch.worker.disagg import KV_EXPORT_ENDPOINT
         from dynamo_tpu_torch.worker.drain import ResumeAdmission
@@ -690,21 +695,18 @@ async def _serve(args: argparse.Namespace, world) -> None:
     resume_extras = {"instance_id": drain_lease.lease_id}
     if bulk_server is not None:
         resume_extras["bulk_address"] = bulk_server.address
-    if world is None:
-        drain = DrainController(
-            engine, served=[se for se in (served_main,) if se is not None],
-            resume_extras=resume_extras, on_drained=drt.runtime.shutdown)
-        install_signal_drain(drain)
-        if system is not None:
-            system.register_drain(drain)
-    else:
-        # drain migration pulls KV pages, which a sharded cache does not
-        # serve yet (ROADMAP A13b): SIGTERM shuts the world down
-        asyncio.get_running_loop().add_signal_handler(
-            signal.SIGTERM, drt.runtime.shutdown)
+    # (a world's leader drains the same way: survivors pull through its
+    # fanned-out gathers, and its shutdown releases the followers)
+    drain = DrainController(
+        engine, served=[se for se in (served_main,) if se is not None],
+        resume_extras=resume_extras, on_drained=drt.runtime.shutdown)
+    install_signal_drain(drain)
+    if system is not None:
+        system.register_drain(drain)
     par = ("" if world is None else
            f", world {world.world}, backend {world.backend}, fused blocks "
-           f"{engine.block_mode}")
+           f"{engine.block_mode}, mesh dp {args.data_parallel_size} x tp "
+           f"{args.tensor_parallel_size}")
     print(f"torch worker serving model {card.name} on {engine.device} "
           f"(disagg={args.disagg}{par})", flush=True)
     try:

@@ -283,6 +283,39 @@ class TestTieredEngine:
         held = cache()
         assert held is None, referrer_chain(held)
 
+    async def test_a_pool_thread_holding_its_last_call_keeps_no_engine(
+            self, weights, monkeypatch):
+        """The loop's thread calls let go of their bound method before the
+        result is out. A pool thread keeps its work item a moment after
+        delivering the result, and on a loaded host the event loop runs
+        first: a held item kept the engine (and its cache) alive past
+        ``stop()``, from a frame ``gc.get_referrers`` does not see (the
+        stop test above failed so, with an empty referrer chain, when a
+        speculative chained block's call ended as the streams did)."""
+        import gc
+        import threading
+        import weakref
+        from concurrent.futures import thread as pool
+        real = pool._WorkItem.run
+        hold, release = threading.Event(), threading.Event()
+
+        def held(item):
+            real(item)
+            if hold.is_set():
+                release.wait(10)
+        monkeypatch.setattr(pool._WorkItem, "run", held)
+        eng = teng(weights)
+        cache = weakref.ref(eng.pages)
+        hold.set()
+        try:
+            await eng._to_thread(eng.drain_compile_events)
+            del eng
+            gc.collect()
+            held_cache = cache()
+            assert held_cache is None, referrer_chain(held_cache)
+        finally:
+            release.set()
+
     async def test_disk_spill_then_onboard(self, weights, tmp_path):
         """A one-block host tier demotes to disk; the prompt onboards back
         from host and disk with the hot cache's tokens."""

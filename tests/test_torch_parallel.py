@@ -18,9 +18,11 @@ GSPMD mesh, on the CPU.
   (greedy and sampled, through fused blocks, chained steps, speculative
   verify steps), embeddings, scores and MoE drop counts agree; every
   fanned-out dispatch runs on the leader's one step thread (embeddings and
-  scoring asked for while streams decode); a page gather is refused naming
-  ROADMAP A13b; a step that raises on the follower alone trips the outcome
-  cross-check. The MoE engine case's prompts fill their prefill rows (see
+  scoring asked for while streams decode); a page gather after each
+  workload (fanned out, assembled from the tp group) equals the
+  reference's gather of the same pages within ``GATHER_RTOL``; a step that
+  raises on the follower alone trips the outcome cross-check. The MoE
+  engine case's prompts fill their prefill rows (see
   ``torch_parallel_ranks.moe_workload``: padded slots route differently in
   the two packages, ROADMAP Queue C).
 """
@@ -75,6 +77,11 @@ LOGIT_RTOL = 1e-5
 # embeddings and prompt logprobs through the engines
 EMBED_RTOL = 1e-5
 SCORE_ATOL = 2e-5
+# float32 KV pages gathered after a workload (the layers past the first
+# hold K/V computed from row-parallel sums)
+GATHER_RTOL = 1e-5
+# the pages gathered after each engine workload
+GATHER_PAGES = [1, 2, 3]
 PS, NPAGES = 4, 16
 
 # -- the families, at tiny size -----------------------------------------------
@@ -409,7 +416,8 @@ def _run_worlds(tmp):
     for name, fam, shape, sizes, work in ENGINES:
         cases2.append(dict(kind="engine", name=name,
                            cfg=_engine_cfg_kw(fam), tree=_tree(fam)[3],
-                           mesh=shape, engine=sizes, workload=work))
+                           mesh=shape, engine=sizes, workload=work,
+                           gather=GATHER_PAGES))
     # last: a follower's failure breaks the world
     cases2.append(dict(kind="engine", name="fail", cfg=_kw("llama"),
                        tree=_tree("llama")[3], mesh=dict(tp=2),
@@ -435,8 +443,11 @@ def _run_worlds(tmp):
 
         async def go():
             try:
-                return await ranks.WORKLOADS[work](eng, JRequest, JSampling,
-                                                   JStop)
+                out = await ranks.WORKLOADS[work](eng, JRequest, JSampling,
+                                                  JStop)
+                out["gather"] = np.asarray(await eng.run_exclusive(
+                    eng.gather_pages_host, GATHER_PAGES))
+                return out
             finally:
                 await eng.stop()
         refs["engine"][name] = asyncio.run(go())
@@ -545,7 +556,7 @@ def test_engine_streams_match_jax_engine_on_the_mesh(worlds, name):
             np.testing.assert_allclose(gt, wt, atol=SCORE_ATOL)
     if name == "moe":
         assert got["drops"] == want["drops"] > 0
-    assert "ROADMAP A13b" in got["gather"], got["gather"]
+    _close(got["gather"], want["gather"], GATHER_RTOL)
     # every fanned-out dispatch (embeddings and scoring asked for beside
     # the streams included) ran on the one step thread
     assert got["tap_threads"] == 1

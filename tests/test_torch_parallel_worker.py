@@ -7,23 +7,33 @@
 - ``--num-nodes 2``: two workers, one per node rank, rendezvous at
   ``--jax-coordinator`` and through the bring-up barrier, and serve the
   same.
-- The flags the port does not serve at world size > 1 exit naming ROADMAP
-  A13b: data, pipeline and sequence parallelism, the disaggregated roles,
-  the KVBM tiers.
+- The KV data plane and dp at world size > 1, on one stack: a tp=2
+  ``--disagg prefill`` world beside a tp=1 ``--disagg decode`` worker
+  answers as an aggregated tp=1 worker (greedy), its prompts prefilled
+  remotely and pulled; a ``--data-parallel-size 2`` worker answers the
+  same; a tp=2 worker with ``--host-cache-bytes`` serves ``kv_export`` to
+  a peer (merged frames of the whole kv heads, the aggregated worker's
+  blocks); SIGTERM on that world's leader drains it and releases its
+  follower.
+- The flags the port does not serve exit naming ROADMAP A13b: pipeline
+  and sequence parallelism.
 - The profiler's tp=2 sweep config runs over a rank group and writes the
   reference's schema.
 
 Every process here is a subprocess: this process starts no process group.
 """
 
+import asyncio
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import pytest
 
 from dynamo_tpu_torch.planner.perf_interpolation import MultiPerfInterpolator
@@ -126,11 +136,123 @@ def _serve_and_check(tmp_path, model_dir, worker_argvs, follower_line):
             proc.stop()
 
 
+# the KV stack's chats, and the token-id prompt of its peer pull (six
+# full pages and two tokens)
+KV_CHATS = ["tensor hi", "world of ranks", "pages move"]
+KV_PROMPT = [int(x) for x in np.random.default_rng(3).integers(5, 200, 26)]
+PAGE = 4
+
+
+async def _pull_kv_export(coord, component, hashes):
+    """A peer's pull from ``component``'s ``kv_export``: wire-v5 frames,
+    as (meta, bytes) pairs."""
+    from dynamo_tpu_torch.runtime.runtime import DistributedRuntime
+    drt = await DistributedRuntime.create(coordinator=coord)
+    try:
+        client = await drt.namespace("dynamo").component(component) \
+            .endpoint("kv_export").client()
+        (inst, *_rest) = await client.wait_for_instances(1, timeout=30)
+        stream = await client.direct({"block_hashes": hashes, "wire": 5},
+                                     inst.instance_id)
+        frames = []
+        async for f in stream:
+            if "_raw" in f:
+                meta = {k: v for k, v in f.items() if k != "_raw"}
+                frames.append((meta, bytes(f["_raw"])))
+        return frames
+    finally:
+        await drt.close()
+
+
+def _kv_stack(tmp_path, model_dir):
+    """One coordinator and frontend; workers: ``agg`` (tp=1, aggregated),
+    the ``pd`` pair (a tp=2 ``--disagg prefill`` world and a tp=1
+    ``--disagg decode`` worker), ``dp`` (``--data-parallel-size 2``) and
+    ``kv`` (tp=2, ``--host-cache-bytes``). Returns each model's chat
+    answers, the decode worker's pulled bytes, both peer pulls, and the
+    drained world's output."""
+    import chip_smoke as cs
+    from dynamo_tpu_torch.tokens import compute_block_hash_for_seq
+    coord_port, http_port, dec_port = free_port(), free_port(), free_port()
+    coord = f"127.0.0.1:{coord_port}"
+    env = _env()
+    procs = {}
+
+    def worker(name, model, extra, system_port=None):
+        wenv = env if system_port is None else dict(
+            env, DYN_SYSTEM_ENABLED="1", DYN_SYSTEM_PORT=str(system_port))
+        procs[name] = cs.Child(
+            name, "dynamo_tpu_torch.worker.main",
+            ["--coordinator", coord, "--model-path", model_dir,
+             "--model-name", model, "--random-weights", "--device", "cpu"]
+            + ENGINE_FLAGS + extra, str(tmp_path), wenv)
+
+    out = {}
+    try:
+        procs["coordinator"] = cs.Child(
+            "coordinator", "dynamo_tpu_torch.runtime.coordinator",
+            ["--host", "127.0.0.1", "--port", str(coord_port)],
+            str(tmp_path), env)
+        procs["coordinator"].wait_for("coordinator listening", timeout=60)
+        worker("agg", "agg", ["--component", "agg"])
+        worker("prefill", "pd", ["--tensor-parallel-size", "2", "--disagg",
+                                 "prefill", "--component", "prefill"])
+        worker("decode", "pd", ["--disagg", "decode"], dec_port)
+        worker("dp", "dp", ["--data-parallel-size", "2", "--component",
+                            "dp"])
+        worker("kv", "kv", ["--tensor-parallel-size", "2",
+                            "--host-cache-bytes", str(1 << 20),
+                            "--component", "kvt"])
+        procs["frontend"] = cs.Child(
+            "frontend", "dynamo_tpu_torch.frontend.main",
+            ["--coordinator", coord, "--http-host", "127.0.0.1",
+             "--http-port", str(http_port)], str(tmp_path), env)
+        for name in ("agg", "prefill", "decode", "dp", "kv"):
+            procs[name].wait_for("torch worker serving model", timeout=120)
+        procs["frontend"].wait_for("frontend listening", timeout=60)
+        base = f"http://127.0.0.1:{http_port}"
+        deadline = time.monotonic() + 60
+        while {m["id"] for m in _get(f"{base}/v1/models")["data"]} \
+                < {"agg", "pd", "dp", "kv"}:
+            assert time.monotonic() < deadline, "models never registered"
+            time.sleep(0.2)
+        for model in ("agg", "pd", "dp"):
+            out[model] = [_post(f"{base}/v1/chat/completions", {
+                "model": model, "max_tokens": 6, "temperature": 0,
+                "messages": [{"role": "user", "content": c}]})
+                ["choices"][0]["message"]["content"] for c in KV_CHATS]
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{dec_port}/metrics", timeout=30) as r:
+            out["decode_metrics"] = r.read().decode()
+        hashes = compute_block_hash_for_seq(KV_PROMPT, PAGE)
+        for model, component in (("kv", "kvt"), ("agg", "agg")):
+            _post(f"{base}/v1/completions", {
+                "model": model, "prompt": KV_PROMPT, "max_tokens": 2,
+                "temperature": 0})
+            out[f"pull_{model}"] = asyncio.run(
+                _pull_kv_export(coord, component, hashes))
+        out["processes_alive"] = all(p.proc.poll() is None
+                                     for p in procs.values())
+        kv = procs["kv"]
+        os.kill(kv.proc.pid, signal.SIGTERM)
+        out["kv_exit"] = kv.proc.wait(timeout=90)
+        out["kv_log"] = kv.text()
+        return out
+    except BaseException:
+        for proc in procs.values():
+            print(f"--- {proc.name}\n{proc.tail()}")
+        raise
+    finally:
+        for proc in reversed(list(procs.values())):
+            proc.stop()
+
+
 @pytest.fixture(scope="module")
 def stacks(tmp_path_factory, model_dir):
-    """Both serving stacks, side by side: one tp=2 worker that starts its
-    own follower, and two ``--num-nodes 2`` workers. Each entry is the
-    stack's chat text, or the exception it raised."""
+    """The serving stacks, side by side: one tp=2 worker that starts its
+    own follower, two ``--num-nodes 2`` workers, and the KV stack
+    (``_kv_stack``). Each entry is the stack's result, or the exception it
+    raised."""
     addr = f"127.0.0.1:{free_port()}"
     common = ["--tensor-parallel-size", "2", "--num-nodes", "2",
               "--jax-coordinator", addr]
@@ -140,14 +262,23 @@ def stacks(tmp_path_factory, model_dir):
 
     def run(name):
         try:
+            if name == "kv":
+                return _kv_stack(tmp_path_factory.mktemp(name), model_dir)
             return _serve_and_check(tmp_path_factory.mktemp(name), model_dir,
                                     runs[name], "torch follower rank 1/2 "
                                     "in lockstep on cpu")
         except Exception as e:  # noqa: BLE001 — raised by its test
             return e
-    with ThreadPoolExecutor(2) as pool:
-        jobs = {name: pool.submit(run, name) for name in runs}
+    with ThreadPoolExecutor(3) as pool:
+        jobs = {name: pool.submit(run, name) for name in [*runs, "kv"]}
         return {name: job.result() for name, job in jobs.items()}
+
+
+def _kv(stacks):
+    if isinstance(stacks["kv"], Exception):
+        raise stacks["kv"]
+    assert stacks["kv"]["processes_alive"]
+    return stacks["kv"]
 
 
 def test_tensor_parallel_worker_starts_its_follower(stacks):
@@ -162,13 +293,52 @@ def test_two_node_workers_serve_one_endpoint(stacks):
     assert stacks["nodes"]
 
 
+def test_tp2_prefill_world_and_tp1_decode_answer_as_aggregated(stacks):
+    kv = _kv(stacks)
+    assert kv["pd"] == kv["agg"]
+    # every prompt prefilled remotely: its KV pulled from the world
+    pulled = [ln for ln in kv["decode_metrics"].splitlines()
+              if ln.startswith("dynamo_worker_disagg_kv_bytes_total")
+              and 'direction="pulled"' in ln]
+    assert sum(float(ln.rsplit(" ", 1)[1]) for ln in pulled) > 0, pulled
+
+
+def test_data_parallel_worker_answers(stacks):
+    kv = _kv(stacks)
+    assert kv["dp"] == kv["agg"]
+
+
+def test_tp2_world_with_host_tier_serves_kv_export_to_a_peer(stacks):
+    kv = _kv(stacks)
+    got, want = kv["pull_kv"], kv["pull_agg"]
+    assert got and len(got) == len(want)
+    blocks = 0
+    for (gm, graw), (wm, wraw) in zip(got, want):
+        assert {k: gm[k] for k in ("blocks", "dtype", "block_shape",
+                                   "layout")} == \
+            {k: wm[k] for k in ("blocks", "dtype", "block_shape", "layout")}
+        # merged frames: every kv head of the world's two ranks
+        assert gm["block_shape"][2] == 2
+        g = np.frombuffer(graw, np.float32)
+        w = np.frombuffer(wraw, np.float32)
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
+        blocks += len(gm["blocks"])
+    assert blocks == len(KV_PROMPT) // PAGE
+
+
+def test_sigterm_drains_a_world_leader_and_releases_its_follower(stacks):
+    kv = _kv(stacks)
+    log = kv["kv_log"]
+    assert kv["kv_exit"] == 0, log[-3000:]
+    assert "graceful drain started (SIGTERM)" in log
+    assert "drain complete" in log
+    assert "torch worker rank 0 stopped: kernel launches" in log
+    assert "torch follower rank 1 released: kernel launches" in log
+
+
 @pytest.mark.parametrize("flags", [
-    ["--data-parallel-size", "2"],
     ["--pipeline-parallel-size", "2"],
     ["--sequence-parallel-size", "2"],
-    ["--tensor-parallel-size", "2", "--disagg", "prefill"],
-    ["--tensor-parallel-size", "2", "--disagg", "decode"],
-    ["--tensor-parallel-size", "2", "--host-cache-bytes", "4096"],
 ])
 def test_world_refusals_name_a13b(flags):
     args = build_parser().parse_args(["--model-path", "m"] + flags)

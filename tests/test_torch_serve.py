@@ -306,8 +306,8 @@ NAMED["worker/main.py"] = [
     ('            raise SystemExit("--jax-coordinator required with '
      '--num-nodes>1")',
      "not ported yet (ROADMAP A13b)",
-     "data, pipeline and sequence parallelism, and at world size > 1 the "
-     "disaggregated roles and the KVBM tiers, exit naming ROADMAP A13b"),
+     "pipeline and sequence parallelism exit naming ROADMAP A13b (dp, the "
+     "disaggregated roles and the KVBM tiers serve at any world size)"),
 ]
 
 NAMED["run.py"] = [
@@ -774,10 +774,11 @@ def test_processes_serve_over_http(model_dir, reference_texts, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    # tensor parallelism is served (tests/test_torch_parallel_worker.py);
-    # pipeline, data and sequence parallelism name ROADMAP A13b
+    # tensor and data parallelism are served
+    # (tests/test_torch_parallel_worker.py); pipeline and sequence
+    # parallelism name ROADMAP A13b, with data parallelism beside them too
     (["--pipeline-parallel-size", "2"], "A13"),
-    (["--data-parallel-size", "2"], "A13"),
+    (["--data-parallel-size", "2", "--pipeline-parallel-size", "2"], "A13"),
     (["--sequence-parallel-size", "2"], "A13"),
 ])
 def test_worker_refuses_unported_flags(model_dir, flags, item):

@@ -18,10 +18,18 @@ Cases:
   rank 0 fans its steps out (``StepFanout``) and runs the case's workload,
   the others ``follow_steps``. ``fail_step`` makes the followers raise once
   after running the first dispatch at or past that step: the leader's next
-  message must trip the outcome cross-check.
+  message must trip the outcome cross-check. ``dump_pages``: every rank
+  returns its cache after the workload; ``record_steps``: every step and
+  block it ran, with its step id and packed output. Rank 0 records the
+  threads its taps ran on, their kinds in order and each scatter's
+  per-rank value slices; the others record the slices they received.
 
-The workloads are plain functions of (engine, request classes), so the
-tests run them on ``JaxEngine`` too.
+A forward case over a mesh with ``dp`` runs each rank's rows of every
+step (``DpRows``) and gathers the logits over ``dp``.
+
+The workloads are plain functions of (engine, request classes, and for
+the KV data plane a namespace of the package's modules), so the tests run
+them on ``JaxEngine`` too.
 """
 
 from __future__ import annotations
@@ -50,15 +58,17 @@ def _prompts(seed: int, sizes):
 
 
 async def _stream(engine, req):
-    toks, lps, last = [], [], None
+    toks, lps, last, cached = [], [], None, None
     async for frame in engine.generate(req):
         if frame.error:
             return {"error": frame.error}
         toks += list(frame.token_ids)
         lps += list(frame.log_probs or [])
+        if frame.cached_tokens is not None:
+            cached = frame.cached_tokens
         last = frame
     return {"tokens": toks, "logprobs": [float(x) for x in lps],
-            "finish": last.finish_reason.value}
+            "finish": last.finish_reason.value, "cached": cached}
 
 
 def _req(Req, Samp, Stop, rid, prompt, max_tokens, **samp):
@@ -138,8 +148,214 @@ async def fail_workload(engine, Req, Samp, Stop) -> dict:
                                              24, temperature=0.0))}
 
 
+async def dp_workload(engine, Req, Samp, Stop) -> dict:
+    """Data parallelism's rows: four requests in one batch (greedy, an
+    unseeded and a seeded draw: each replica samples its own rows), then a
+    batch whose second row, the other replica's, shares the first batch's
+    first prompt (its prefix pages were written by that batch's replica 0
+    rows; every replica holds them)."""
+    p = _prompts(31, [26, 9, 12, 7, 5])
+    first = [("d0", p[0], 9, dict(temperature=0.0)),
+             ("d1", p[1], 11, dict(temperature=0.0)),
+             ("d2", p[2], 8, dict(temperature=0.9)),
+             ("d3", p[3], 10, dict(temperature=0.8, top_k=30, seed=5))]
+    out = {}
+    res = await asyncio.gather(*[
+        _stream(engine, _req(Req, Samp, Stop, rid, pr, n, **kw))
+        for rid, pr, n, kw in first])
+    out.update(zip([r[0] for r in first], res))
+    # admitted in order: d5 takes the batch's second row
+    later = [("d4", p[4], 6, dict(temperature=0.7, seed=2)),
+             ("d5", p[0][:20] + p[4][:3], 7, dict(temperature=0.0))]
+    res = await asyncio.gather(*[
+        _stream(engine, _req(Req, Samp, Stop, rid, pr, n, **kw))
+        for rid, pr, n, kw in later])
+    out.update(zip([r[0] for r in later], res))
+    return out
+
+
+def _frames_out(frames) -> list:
+    """Wire frames as (meta, bytes) pairs (what a puller receives)."""
+    return [(dict(f.obj), np.ascontiguousarray(f.raw).tobytes())
+            for f in frames]
+
+
+async def kv_workload(engine, Req, Samp, Stop, ns, ref_frames=None) -> dict:
+    """The KV data plane of one engine: serve prompt ``a``, export its
+    prompt blocks as merged layer-major frames of 4 blocks and gather
+    their pages. The reference (``ref_frames`` None) also serves ``a2``
+    and exports its blocks, then serves ``b`` and ``c``, which extend
+    ``a2`` and ``a``; the port's world instead injects the reference's
+    frames of ``a2`` (``ref_frames()``, waited for; one as wire bytes, one
+    as a tensor) and serves ``b`` on them."""
+    xfer, tok = ns["transfer"], ns["tokens"]
+    ps = engine.allocator.page_size
+    pa, pa2 = _prompts(17, [24, 16])
+    tail = _prompts(19, [5])[0]
+
+    async def export(prompt):
+        hashes = tok.compute_block_hash_for_seq(prompt, ps)
+        frames = await engine.run_exclusive(xfer.export_frames, engine,
+                                            hashes, "layer", 4)
+        by_hash = engine.allocator._by_hash
+        pages = await engine.run_exclusive(
+            engine.gather_pages_host, [by_hash[h] for h in hashes])
+        return _frames_out(frames), np.asarray(pages)
+
+    greedy = dict(temperature=0.0)
+    out = {"a": await _stream(engine, _req(Req, Samp, Stop, "a", pa, 6,
+                                           **greedy))}
+    out["frames"], out["pages"] = await export(pa)
+    # the cache's shard layout, and what a pull from it would advertise
+    out["layout"] = tuple(xfer.cache_shard_layout(engine))
+    out["payload"] = xfer.kv_shard_payload(engine)
+    if ref_frames is None:
+        out["a2"] = await _stream(engine, _req(Req, Samp, Stop, "a2", pa2,
+                                               6, **greedy))
+        out["frames2"], _pages = await export(pa2)
+        out["c"] = await _stream(engine, _req(Req, Samp, Stop, "c",
+                                              pa + tail, 6, **greedy))
+    else:
+        # the first frame as wire bytes (host values), the next as a
+        # tensor (what a device-direct pull hands over): on a world both
+        # take the fanned-out host-values scatter
+        n = 0
+        for i, (meta, raw) in enumerate(await ref_frames()):
+            meta = dict(meta, _raw=raw)
+            if i == 0:
+                n += await engine.run_exclusive(xfer.inject_frame, engine,
+                                                meta)
+            else:
+                metas, vals = xfer.frame_arrays(meta)
+                n += await xfer.inject_device_windowed(
+                    engine, metas, torch.from_numpy(vals.copy()))
+        out["injected"] = n
+    out["b"] = await _stream(engine, _req(Req, Samp, Stop, "b", pa2 + tail,
+                                          6, **greedy))
+    return out
+
+
+async def kvfail_workload(engine, Req, Samp, Stop, ns) -> dict:
+    """A prompt served, its blocks exported, the cache emptied and the
+    frames injected back (page scatters), then one more stream: a
+    follower that failed a scatter learns the leader completed it."""
+    ps = engine.allocator.page_size
+    p = _prompts(37, [16])[0]
+    out = {"a": await _stream(engine, _req(Req, Samp, Stop, "a", p, 4,
+                                           temperature=0.0))}
+    hashes = ns["tokens"].compute_block_hash_for_seq(p, ps)
+    frames = await engine.run_exclusive(ns["transfer"].export_frames,
+                                        engine, hashes, "layer", 4)
+    await engine.run_exclusive(engine.allocator.clear)
+    for meta, raw in _frames_out(frames):
+        await engine.run_exclusive(ns["transfer"].inject_frame, engine,
+                                   dict(meta, _raw=raw))
+    out["b"] = await _stream(engine, _req(Req, Samp, Stop, "b", p, 8,
+                                          temperature=0.0))
+    return out
+
+
+# the KVBM case's host tier: three blocks of the tiny model (float32), so
+# the rest demotes to disk
+KVBM_HOST_BLOCKS = 3
+
+
+async def kvbm_workload(engine, Req, Samp, Stop, ns, disk_path) -> dict:
+    """A host + disk tier round trip: prompt ``p`` (six full blocks and a
+    token), a pressure request that evicts its blocks (spilled to the
+    host tier and on to disk), then ``p`` again, onboarded from both
+    tiers. Returns the streams, the tier counters and ``p``'s pages
+    gathered before the eviction and after the onboard."""
+    from functools import partial
+    cfg = engine.model_cfg
+    ps = engine.allocator.page_size
+    block = cfg.num_layers * 2 * cfg.num_kv_heads * ps * cfg.head_dim * 4
+    tiered = ns["TieredEngine"](engine, ns["TieredKvConfig"](
+        host_budget_bytes=KVBM_HOST_BLOCKS * block,
+        disk_budget_bytes=1 << 20, disk_path=disk_path,
+        prefetch_depth_bytes=0))
+    p = _prompts(23, [6 * ps + 1])[0]
+    pressure = _prompts(29, [40])[0]
+    hashes = ns["tokens"].compute_block_hash_for_seq(p, ps)
+
+    def pages_of():
+        by_hash = engine.allocator._by_hash
+        return np.asarray(engine.gather_pages_host(
+            [by_hash[h] for h in hashes]))
+
+    greedy = dict(temperature=0.0)
+    out = {"p1": await _stream(tiered, _req(Req, Samp, Stop, "p1", p, 4,
+                                            **greedy))}
+    out["before"] = await engine.run_exclusive(pages_of)
+    out["x"] = await _stream(tiered, _req(Req, Samp, Stop, "x", pressure,
+                                          16, **greedy))
+    by_hash = engine.allocator._by_hash
+    out["evicted"] = sum(h not in by_hash for h in hashes)
+    await asyncio.to_thread(partial(tiered.flush_spills, 30.0))
+    out["p2"] = await _stream(tiered, _req(Req, Samp, Stop, "p2", p, 4,
+                                           **greedy))
+    out["after"] = await engine.run_exclusive(pages_of)
+    out["offloaded"], out["onboarded"] = tiered.offloaded, tiered.onboarded
+    out["on_disk"] = len(tiered.disk) if tiered.disk is not None else 0
+    await tiered.stop()
+    return out
+
+
+async def kvbm_sampled_workload(engine, Req, Samp, Stop, ns,
+                                disk_path) -> dict:
+    """Evictions between the steps of an unseeded sampled stream: prompt
+    ``q`` served and cached, then ``s`` (temperature 1, no seed) decodes
+    through fused blocks and chained steps while ``x`` is admitted beside
+    it; their pages outgrow the free ones, so ``q``'s blocks are evicted
+    into the host tier at ``x``'s admission and as ``s`` grows. Returns
+    the streams and the evictions."""
+    ps = engine.allocator.page_size
+    tiered = ns["TieredEngine"](engine, ns["TieredKvConfig"](
+        host_budget_bytes=1 << 20, disk_budget_bytes=1 << 20,
+        disk_path=disk_path, prefetch_depth_bytes=0))
+    q, sp, xp = _prompts(41, [6 * ps + 1, 5 * ps, 4 * ps])
+    hashes = ns["tokens"].compute_block_hash_for_seq(q, ps)
+    out = {"q": await _stream(tiered, _req(Req, Samp, Stop, "q", q, 2,
+                                           temperature=0.0))}
+    started = asyncio.Event()
+
+    async def sampled():
+        toks, last = [], None
+        async for frame in tiered.generate(_req(Req, Samp, Stop, "s", sp,
+                                                16, temperature=1.0)):
+            if frame.error:
+                return {"error": frame.error}
+            toks += list(frame.token_ids)
+            started.set()
+            last = frame
+        return {"tokens": toks, "finish": last.finish_reason.value}
+
+    async def beside():
+        await started.wait()
+        return await _stream(tiered, _req(Req, Samp, Stop, "x", xp, 2,
+                                          temperature=0.0))
+
+    out["s"], out["x"] = await asyncio.gather(sampled(), beside())
+    by_hash = engine.allocator._by_hash
+    out["evicted"] = sum(h not in by_hash for h in hashes)
+    await tiered.stop()
+    return out
+
+
 WORKLOADS = {"serve": serve_workload, "spec": spec_workload,
-             "moe": moe_workload, "fail": fail_workload}
+             "moe": moe_workload, "fail": fail_workload, "dp": dp_workload,
+             "kv": kv_workload, "kvbm": kvbm_workload,
+             "kvbm_sampled": kvbm_sampled_workload,
+             "kvfail": kvfail_workload}
+
+
+def port_ns() -> dict:
+    """The port's modules the KV workloads call."""
+    from dynamo_tpu_torch import tokens
+    from dynamo_tpu_torch.engine import transfer
+    from dynamo_tpu_torch.kvbm.manager import TieredEngine, TieredKvConfig
+    return {"transfer": transfer, "tokens": tokens,
+            "TieredEngine": TieredEngine, "TieredKvConfig": TieredKvConfig}
 
 
 # -- cases -------------------------------------------------------------------------
@@ -153,7 +369,7 @@ def _params(cfg, tree):
 def run_forward(case: dict, world) -> dict:
     from dynamo_tpu_torch.models import get_family
     from dynamo_tpu_torch.models.config import ModelConfig
-    from dynamo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from dynamo_tpu_torch.parallel.mesh import DpRows, MeshSpec, make_mesh
     from dynamo_tpu_torch.parallel.sharding import (ModelSharding,
                                                     local_config)
     cfg = ModelConfig(**case["cfg"])
@@ -168,13 +384,45 @@ def run_forward(case: dict, world) -> dict:
     with torch.no_grad():
         for st in case["steps"]:
             t = {k: torch.from_numpy(np.asarray(v)) for k, v in st.items()}
+            kw = {}
+            B = t["tokens"].shape[0]
+            if DpRows.split(mesh, B):
+                dp = DpRows(mesh, B // mesh.shape["dp"], t["table"],
+                            t["positions"], t["new"])
+                t = {k: dp.local(v) for k, v in t.items()}
+                kw["dp"] = dp
             out = fam.forward(params, lcfg, t["tokens"], t["positions"],
                               pages, t["table"], t["total"], t["new"],
-                              mesh=mesh)
-            logits.append(out[0].numpy())
+                              mesh=mesh, **kw)
+            lg = out[0]
+            if "dp" in kw:
+                lg = kw["dp"].gather(lg)
+            logits.append(lg.numpy())
             if len(out) > 2:
                 drops.append(int(out[2]["moe_dropped_assignments"]))
     return {"logits": logits, "drops": drops}
+
+
+def _record_steps(engine) -> list:
+    """Record every step and fused block this rank runs, as (kind, step
+    id, packed output): a world's ranks must run each under one id and
+    agree on its output."""
+    rec = []
+    step, block = engine._invoke_step, engine._invoke_block
+
+    def run_step(kind, a, *args, **kw):
+        out = step(kind, a, *args, **kw)
+        rec.append((kind, int(np.asarray(a["step"]).reshape(())),
+                    out.numpy().copy()))
+        return out
+
+    def run_block(xa, *args, **kw):
+        out = block(xa, *args, **kw)
+        rec.append(("block", int(np.asarray(xa["step0"]).reshape(())),
+                    out["packed"].numpy().copy()))
+        return out
+    engine._invoke_step, engine._invoke_block = run_step, run_block
+    return rec
 
 
 def run_engine(case: dict, world) -> dict:
@@ -189,48 +437,81 @@ def run_engine(case: dict, world) -> dict:
     engine = mh.build_rank_engine(
         cfg, TorchEngineConfig(**case["engine"]), world,
         MeshSpec(**case["mesh"]), params=_params(cfg, case["tree"]))
+    def cache():
+        return engine.pages.numpy().copy() if case.get("dump_pages") \
+            else None
+    steps = _record_steps(engine) if case.get("record_steps") else None
+
     if not world.leader:
         fail_at = case.get("fail_step")
-        if fail_at is not None:
-            real = engine.execute_arrays
-            state = {"armed": True}
+        real = engine.execute_arrays
+        state = {"armed": fail_at is not None, "scatters": {}}
 
-            def flaky(kind, a, step):
-                out = real(kind, a, step)
-                if state["armed"] and kind in ("step", "chained", "block") \
-                        and step >= fail_at:
-                    state["armed"] = False
-                    raise RuntimeError(f"injected failure at step {step}")
-                return out
-            engine.execute_arrays = flaky
+        def follow(kind, a, step):
+            if kind == "scatter":
+                # the values this rank received: its own slice alone
+                state["scatters"][step] = np.array(a["vals"])
+            out = real(kind, a, step)
+            if state["armed"] and kind in case.get(
+                    "fail_kinds", ("step", "chained", "block")) \
+                    and step >= fail_at:
+                state["armed"] = False
+                raise RuntimeError(f"injected failure at step {step}")
+            return out
+        engine.execute_arrays = follow
+        res = {"launches": dict(engine.kernel_launches),
+               "scatters": state["scatters"]}
         try:
             mh.follow_steps(world.fanout, engine)
         except RuntimeError as e:
-            return {"follower_error": str(e),
-                    "launches": dict(engine.kernel_launches)}
-        return {"launches": dict(engine.kernel_launches)}
+            res["follower_error"] = str(e)
+            return res
+        res["launches"] = dict(engine.kernel_launches)
+        res["dp_splits"] = engine.dp_splits
+        res["cache"] = cache()
+        res["steps"] = steps
+        return res
     fanout = mh.StepFanout(world.fanout)
     fanout.install(engine)
-    # the threads the leader's taps ran on (one: the step thread)
+    # the threads the leader's taps ran on (one: the step thread), and the
+    # per-rank slices of each scatter's values
     threads = set()
+    scatters = {}
+    kinds = []
     tap = engine.step_tap
 
-    def tap_on(kind, arrays, step):
+    def tap_on(kind, arrays, step, **kw):
         threads.add(threading.get_ident())
-        tap(kind, arrays, step)
+        kinds.append(kind)
+        if kw.get("shards") is not None:
+            scatters[step] = [np.array(s) for s in kw["shards"]]
+        tap(kind, arrays, step, **kw)
     engine.step_tap = tap_on
     work = WORKLOADS[case["workload"]]
+    extra = {}
+    if case["workload"] in ("kv", "kvbm", "kvbm_sampled", "kvfail"):
+        extra["ns"] = port_ns()
+    if case.get("disk_path"):
+        extra["disk_path"] = case["disk_path"]
+    if case.get("ref_frames"):
+        async def ref_frames(path=case["ref_frames"]):
+            # the reference's frames, written by the pytest process
+            for _ in range(1200):
+                if os.path.exists(path):
+                    with open(path, "rb") as f:
+                        return pickle.load(f)
+                await asyncio.sleep(0.1)
+            raise TimeoutError(f"no reference frames at {path}")
+        extra["ref_frames"] = ref_frames
 
     async def drive():
         try:
             out = await work(engine, PreprocessedRequest, SamplingOptions,
-                             StopConditions)
-            # the KV data plane over a sharded cache is refused
-            try:
-                engine.gather_pages_host([1])
-                out["gather"] = "served"
-            except NotImplementedError as e:
-                out["gather"] = str(e)
+                             StopConditions, **extra)
+            if case.get("gather"):
+                # the KV data plane over the sharded cache: whole pages
+                out["gather"] = await engine.run_exclusive(
+                    engine.gather_pages_host, case["gather"])
             return out
         finally:
             await engine.stop()
@@ -241,9 +522,14 @@ def run_engine(case: dict, world) -> dict:
     out["counters"] = {"blocks": engine.multistep_blocks,
                        "chained": engine.chained_steps,
                        "decode_dispatches": engine.decode_dispatches,
+                       "dp_splits": engine.dp_splits,
                        "block_mode": engine.block_mode}
     out["launches"] = dict(engine.kernel_launches)
     out["tap_threads"] = len(threads)
+    out["taps"] = kinds
+    out["scatters"] = scatters
+    out["cache"] = cache()
+    out["steps"] = steps
     return out
 
 
