@@ -91,9 +91,11 @@ sliding layers' 4096-position window beside a 1502-token one; prefill,
 mixed and decode) under phase 3's checks, and phase 4's serve fused (cold,
 warm, graph vs eager) and per step; then:
 
-5. Llama-3.2-3B served through the port's entry points, at full width and
-   depth in bf16 (random weights from a seed): this script writes a model
-   directory (``config.json`` at the published widths, a SentencePiece
+5. Llama-3.2-3B served through the port's entry points, at full width in
+   bf16 and ``ENTRY_LAYERS`` (14) of its 28 layers, as every worker
+   process of phases 5-8 serves it (random weights from a seed): this
+   script writes a model directory (``config.json`` at the published
+   widths, a SentencePiece
    ``tokenizer.model`` of 128256 pieces, a chat template), starts the
    port's coordinator, one torch worker (phase 4's engine sizes, system
    server on) and the port's frontend as three processes (every serving
@@ -167,7 +169,18 @@ warm, graph vs eager) and per step; then:
    requests (greedy, an unseeded and a seeded draw, two arriving while
    the others decode; fused blocks): every request its tokens, split
    dispatches and blocks counted, both replicas' caches byte-equal at
-   every held page, both ranks launching B1-B3. (b) The frontend and one
+   every held page, both ranks launching B1-B3; then pp=2
+   (``pp_forward_rank``): phase 3's steps through
+   ``parallel/pipeline.pipeline_forward``, each rank its stage's 14
+   layers and cache slab, at one and two microbatches, within phase 3's
+   gate, each slab against its layers of the tp=1 kernel cache (byte
+   equality reported), both ranks launching B1-B3; then a
+   ``MeshSpec(pp=2)`` engine (``pp_serve_rank``) serves four of phase 4's
+   warm requests (greedy and sampled, two arriving while the others
+   decode; fused blocks and mixed steps): every request its tokens, the
+   greedy ones beside phase 4's, the first prompt's blocks gathered from
+   the stages and injected as merged frames into a tp=1 engine
+   byte-equal, both ranks launching B1-B3. (b) The frontend and one
    worker with ``--tensor-parallel-size 2 --random-weights
    --dist-backend`` on phase 5's model directory (``tp_serve``): phase
    5's identity pass (every answer checked; each chat's tokens against
@@ -252,7 +265,8 @@ expert backends (``launches_moe``), Gemma-2-9B's and Llama-3.2-1B's fused
 serves (``launches_gemma9b``, ``launches_llama1b``) and the GGUF model's
 serve (``launches_gguf``), and phase 8's per rank, its rank processes'
 (``launches_tp_forward``: the tp=2 forward, the KV plane's engine, the
-dp=2 forward and the dp=2 engine's serve) and its workers'
+dp=2 forward, the dp=2 engine's serve, the pp=2 forward and the pp=2
+engine's serve) and its workers'
 (``launches_tp_serve``: the tp=2 worker's ranks; ``launches_tp_disagg``:
 the prefill world's ranks and the decode worker); for
 the latent kernels, DeepSeek's serves on the dispatch backend
@@ -2402,7 +2416,7 @@ def phase_serve_entry() -> dict:
                if importlib.util.find_spec(m) is None]
     if missing:
         raise AssertionError(f"serving packages missing here: {missing}")
-    cfg = llama_cfg()
+    cfg = entry_cfg()
     work = os.path.join(ROOT, "build", "serve_entry")
     model_dir = os.path.join(work, "llama32_3b")
     write_entry_model(model_dir, cfg)
@@ -2450,7 +2464,8 @@ def phase_serve_entry() -> dict:
                 data = json.loads(resp.read())["data"]
             model = data[0]["id"] if data else time.sleep(0.2)
         log(f"[serve-entry] stack up in {time.perf_counter() - t0:.1f} s "
-            f"(model {model}, worker pid {children[1].proc.pid}, "
+            f"(model {model} at {ENTRY_LAYERS} of its 28 layers, worker "
+            f"pid {children[1].proc.pid}, "
             f"{len(scrape_launches(ports[2]))} kernels counted on the "
             f"worker's /metrics)")
         t1 = time.perf_counter()
@@ -2502,7 +2517,8 @@ def phase_serve_entry() -> dict:
         p4 = PHASE4_WARM.get("llama")
         if p4:
             log(f"[serve-entry] beside phase 4 in process (warm, seed "
-                f"{WARM_SEED}, the same requests): {p4['tok_s']:.2f} tok/s, "
+                f"{WARM_SEED}, the same requests, all 28 layers): "
+                f"{p4['tok_s']:.2f} tok/s, "
                 f"TTFT p50={p4['ttft_p50']:.4f} s max={p4['ttft_max']:.4f} "
                 f"s mean={p4['ttft_mean']:.4f} s")
         after = scrape_launches(ports[2])
@@ -3698,7 +3714,7 @@ def phase_disagg() -> dict:
     ``--disagg-strategy prefill_first``: the identity check again, against
     the same answers. Returns the Llama kernels' launches in the two
     workers of the decode-first stack."""
-    cfg = llama_cfg()
+    cfg = entry_cfg()
     work = os.path.join(ROOT, "build", "disagg")
     os.makedirs(work, exist_ok=True)
     model_dir = os.path.join(ROOT, "build", "serve_entry", "llama32_3b")
@@ -3984,7 +4000,8 @@ def planner_profile(model_dir: str, work: str, card: str):
     for r in profile["decode"]:
         log(f"[planner] ({card}) decode concurrency={r['concurrency']}: "
             f"itl_s={r['itl_s']!r} tokens_per_s={r['tokens_per_s']!r}; "
-            f"a replayed block token (B=16, ctx 1024, phase 4) "
+            f"a replayed block token (B=16, ctx 1024, phase 4, all 28 "
+            f"layers) "
             + (f"{block:.3f} ms" if block else "not measured in this run"))
     log(f"[planner] ({card}) the wrappers' CUDA launches {launches}; the "
         f"engine's attention calls {calls} (B3: {launches['ragged_mixed']} "
@@ -4408,7 +4425,7 @@ def phase_planner() -> dict:
     the port's workers in a closed loop. Returns the kernels' launches:
     the profiler's engine plus the planner's workers."""
     card = smi_line().strip()
-    cfg = llama_cfg()
+    cfg = entry_cfg()
     work = os.path.join(ROOT, "build", "planner")
     os.makedirs(work, exist_ok=True)
     model_dir = os.path.join(ROOT, "build", "serve_entry", "llama32_3b")
@@ -4594,16 +4611,24 @@ def phase_spec_mla(params, cfg, per_step):
 # and its published 8192-position context
 GEMMA_SIZES = dict(SERVE_SIZES, num_pages=1280, max_context=8192)
 # the served depth of three presets (their widths as published), so the
-# script keeps a margin under its time limit on a slower host (a whole
-# run took ~1300 s at full depth on one, where others took ~880-1035;
-# phase 8's two worker stacks take ~250 s on such a host): every kernel,
-# expert backend and check of their phases runs as at full depth.
-# Gemma-2-27B's attention geometry stays in phase 2's rows (Gemma-2-9B
-# serves the family at full depth); DeepSeek-V2-Lite keeps its dense
-# layer and 4 of its 26 MoE layers
+# script keeps a margin under its time limit on a slower host (whole
+# runs on one H100 80GB HBM3 at 700 W: ~1300 s at full depth on a slow
+# host, ~880-1035 s on others; with phase 8's pp checks 1223 and 1255 s
+# on slow hosts, 941 s on another): every kernel, expert backend and
+# check of their phases runs as at full depth. Gemma-2-27B's attention
+# geometry stays in phase 2's rows (Gemma-2-9B serves the family at full
+# depth); DeepSeek-V2-Lite keeps its dense layer and 2 of its 26 MoE
+# layers
 GEMMA27_LAYERS = 8          # of 46
-DEEPSEEK_LAYERS = 5         # of 27
-QWEN3_LAYERS = 8            # of 48
+DEEPSEEK_LAYERS = 3         # of 27
+QWEN3_LAYERS = 4            # of 48
+# the served depth of Llama-3.2-3B in the worker processes of phases 5,
+# 6(b)-(c), 7 and 8(b) (phase 5's model directory, at its published
+# widths): those phases' host work (process starts, eager steps, each
+# layer's launches) sets the script's length on a slow host (at all 28
+# layers: 1255 s on one, 941 s on another, as above; at 14: 797 s on the
+# faster kind); the in-process phases, 6(a) and 8(a) keep all 28
+ENTRY_LAYERS = 14           # of 28
 
 
 def cut_depth(preset: str, layers: int):
@@ -4613,6 +4638,11 @@ def cut_depth(preset: str, layers: int):
     from dynamo_tpu_torch.models.config import ModelConfig
     return dataclasses.replace(getattr(ModelConfig, preset)(),
                                num_layers=layers)
+
+
+def entry_cfg():
+    """Llama-3.2-3B at ``ENTRY_LAYERS``: the worker processes' model."""
+    return cut_depth("llama32_3b", ENTRY_LAYERS)
 
 
 def served_model_phases(name, cfg, failures, profile, plan=gemma_plan,
@@ -4768,7 +4798,7 @@ def moe_phases(failures, profile):
 
 
 
-# -- phase 8: a world of two ranks: tp, the KV data plane over it, dp -------
+# -- phase 8: a world of two ranks: tp, the KV data plane over it, dp, pp ---
 
 TP_WORLD = 2
 TP_PROBE_TIMEOUT_S = 90
@@ -4787,8 +4817,9 @@ def tp_rank_main(spec_path: str, local_rank: int) -> int:
     starts the others (``start_local_ranks``); every rank joins the world
     on the spec's backend and runs the spec's task; each writes its result
     to ``<out>.<rank>``. Tasks: ``probe`` (one all-reduce) and ``forward``
-    (``tp_forward_rank``, then ``tp_kv_rank``, ``dp_forward_rank`` and
-    ``dp_serve_rank`` in the same processes)."""
+    (``tp_forward_rank``, then ``tp_kv_rank``, ``dp_forward_rank``,
+    ``dp_serve_rank``, ``pp_forward_rank`` and ``pp_serve_rank`` in the
+    same processes)."""
     import datetime
     from dynamo_tpu_torch.parallel import multihost as mh
     with open(spec_path) as f:
@@ -4821,6 +4852,10 @@ def tp_rank_main(spec_path: str, local_rank: int) -> int:
             out["dp"] = dp_forward_rank(world, ctx)
             out["dp"]["seconds"] = time.perf_counter() - t0
             out["dp_serve"] = dp_serve_rank(world, ctx)
+            t0 = time.perf_counter()
+            out["pp"] = pp_forward_rank(world, ctx)
+            out["pp"]["seconds"] = time.perf_counter() - t0
+            out["pp_serve"] = pp_serve_rank(world, ctx)
     except Exception:                      # noqa: BLE001 — reported
         out["error"] = traceback.format_exc()
     finally:
@@ -4891,6 +4926,7 @@ def tp_forward_rank(world):
                 ref[step[0]] = (got["kernel"], float(
                     (got["plain"] - got["oracle"]).abs().max()),
                     [r[:, :, h0:h0 + heads].clone() for r in rec])
+            stage_sha = _stage_digests(caches["kernel"], PP_WORLD, table)
             del caches
         shard = ModelSharding(cfg, mesh, device=dev)
         params = shard.shard_params(full)
@@ -4929,6 +4965,8 @@ def tp_forward_rank(world):
     del params, pages
     ctx = {"full": full, "plan": (steps, table, num_pages),
            "ref": {k: v[:2] for k, v in ref.items()}}
+    if world.leader:
+        out["tp1_stage_sha"] = stage_sha
     return out, ctx
 
 
@@ -5297,6 +5335,192 @@ def dp_serve_rank(world, ctx) -> dict:
     return out
 
 
+PP_WORLD = 2                 # stages of 8(a)'s pp checks (14 layers each)
+PP_MICRO = (1, 2)            # microbatch counts of pp_forward_rank
+# 8(a)'s pp serve: four of phase 4's warm prompts, 16 tokens each
+# (requests 2 and 3 sample and arrive while 0 and 1 decode); the first
+# prompt's 64 blocks are then exported and injected into a tp=1 engine
+PP_SERVE_N, PP_SERVE_TOKENS, PP_SERVE_PAGES = 4, 16, 512
+PP_SAMPLED = {2: dict(temperature=0.8), 3: dict(temperature=0.8, seed=5)}
+
+
+def _stage_digests(pages, stages: int, table) -> list:
+    """A digest per pipeline stage of a whole cache's layers at every page
+    ``table`` names: what each stage's slab must hold."""
+    import hashlib
+    written = torch.tensor(sorted({int(p) for p in np.asarray(
+        table).reshape(-1) if p}), device=pages.device)
+    per = pages.shape[0] // stages
+    return [hashlib.sha256(pages[s * per:(s + 1) * per].index_select(
+        1, written).contiguous().view(torch.int16).cpu().numpy()
+        .tobytes()).hexdigest()[:16] for s in range(stages)]
+
+
+def pp_forward_rank(world, ctx) -> dict:
+    """Phase 8(a), pipeline parallelism on the same two ranks: a
+    ``MeshSpec(pp=2)`` mesh, each rank its stage's 14 layers of the whole
+    tree and of the cache (``pipeline.pp_sharding_fns``), phase 3's steps
+    (prefill B2, mixed B3, decode B1) through ``pipeline_forward`` with
+    the kernels, at ``PP_MICRO`` microbatch counts, each on a fresh slab.
+    Rank 0 holds the logits to its tp=1 kernel logits under phase 3's
+    gate; every rank returns a digest of its slab at every written page
+    (to be held against its layers of rank 0's tp=1 kernel cache: pp
+    splits no sum, but two microbatches halve the GEMMs' rows) and its
+    launches of B1-B3."""
+    from dynamo_tpu_torch.models import get_family
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from dynamo_tpu_torch.parallel.pipeline import (pipeline_forward,
+                                                    pp_sharding_fns)
+    cfg = llama_cfg()
+    fam = get_family(cfg)
+    dev = world.device
+    kernel = llama_impls()[0]
+    steps, table, num_pages = ctx["plan"]
+    mesh = make_mesh(MeshSpec(pp=world.world))
+    shard_params, shard_pages = pp_sharding_fns(mesh, cfg, device=dev)
+    params = shard_params(ctx["full"])
+    before = {k: LAUNCHES.get(k, 0) for k in TP_B}
+    out = {"stage": mesh.coords["pp"], "micro": {}}
+    with torch.no_grad():
+        for micro in PP_MICRO:
+            pages = shard_pages(fam.make_pages(cfg, num_pages, PS,
+                                               device=dev))
+            res = {"steps": {}}
+            for step in steps:
+                a = _step_arrays(step, table, dev)
+                logits, _ = pipeline_forward(
+                    params, cfg, a[0], a[1], pages, a[2], a[3], a[4],
+                    mesh=mesh, n_microbatches=micro,
+                    attn_impl=kernel[step[1]])
+                torch.cuda.synchronize()
+                if world.leader:
+                    lk, odiff = ctx["ref"][step[0]]
+                    res["steps"][step[0]] = {
+                        "diff": float((logits - lk).abs().max()),
+                        "tol": LOGITS_VS_ORACLE * odiff,
+                        "finite": bool(torch.isfinite(logits).all()),
+                        "argmax_same": float((logits.argmax(-1)
+                                              == lk.argmax(-1)).float()
+                                             .mean())}
+            res["sha"] = _stage_digests(pages, 1, table)[0]
+            out["micro"][str(micro)] = res
+            del pages
+    out["launches"] = {k: LAUNCHES.get(k, 0) - before[k] for k in TP_B}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_serve_rank(world, ctx) -> dict:
+    """Phase 8(a), pipeline parallelism through the engine on the same
+    two ranks: a ``TorchEngine`` over ``MeshSpec(pp=2)``
+    (``build_rank_engine``: each rank its stage), rank 0 scheduling, the
+    other following. ``PP_SERVE_N`` of phase 4's warm prompts, greedy and
+    sampled, two arriving while the others decode (mixed steps); steady
+    batches run as fused blocks (eager over gloo), every forward through
+    the stages. Then the first prompt's blocks: gathered from the world
+    (each stage its layers, assembled on rank 0), exported as merged
+    frames and injected into a tp=1 engine of the whole tree in this
+    process, whose gather must be byte-equal. Rank 0 returns the streams,
+    the counters and the check; every rank its launches of B1-B3."""
+    from dynamo_tpu_torch import tokens as tk
+    from dynamo_tpu_torch.engine import transfer as tr
+    from dynamo_tpu_torch.engine.torch_engine import (TorchEngine,
+                                                      TorchEngineConfig)
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES
+    from dynamo_tpu_torch.parallel import multihost as mh
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec
+    from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
+                                                   SamplingOptions,
+                                                   StopConditions)
+    cfg = llama_cfg()
+    sizes = dict(SERVE_SIZES, num_pages=PP_SERVE_PAGES)
+    before = {k: LAUNCHES.get(k, 0) for k in TP_B}
+    eng = mh.build_rank_engine(cfg, TorchEngineConfig(**sizes), world,
+                               MeshSpec(pp=world.world), params=ctx["full"])
+    out = {}
+    if world.leader:
+        fanout = mh.StepFanout(world.fanout)
+        fanout.install(eng)
+        prompts = serve_prompts(cfg.vocab_size, WARM_SEED)[:PP_SERVE_N]
+        started = asyncio.Event()
+        streams = {}
+
+        async def one(i):
+            if i >= PP_SERVE_N - 2:
+                await started.wait()
+            req = PreprocessedRequest(
+                token_ids=prompts[i], request_id=f"pp{i}",
+                stop_conditions=StopConditions(max_tokens=PP_SERVE_TOKENS,
+                                               ignore_eos=True),
+                sampling_options=SamplingOptions(
+                    **PP_SAMPLED.get(i, dict(temperature=0.0))))
+            toks, fin = [], None
+            async for frame in eng.generate(req):
+                if frame.error:
+                    raise AssertionError(f"pp request {i}: {frame.error}")
+                toks += frame.token_ids
+                fin = frame.finish_reason
+                if len(toks) >= 2:
+                    started.set()
+            streams[i] = {"tokens": toks, "finish": fin.value}
+
+        async def frames_into_tp1():
+            hashes = tk.compute_block_hash_for_seq(prompts[0], PS)
+            block = (cfg.num_layers * 2 * cfg.num_kv_heads * PS
+                     * cfg.head_dim * eng.pages.element_size())
+
+            def gather(e):
+                by_hash = e.allocator._by_hash
+                got = e.dispatch_gather_pages([by_hash[h] for h in hashes])
+                return _sha(got[:, :len(hashes)])
+
+            want = await eng.run_exclusive(gather, eng)
+            frames = await eng.run_exclusive(tr.export_frames, eng, hashes,
+                                             "layer", 16)
+            one = TorchEngine(cfg, ctx["full"], TorchEngineConfig(
+                **dict(SERVE_SIZES, num_pages=2 * len(hashes))), device=dev)
+            try:
+                pipe = tr.InjectPipeline(one)
+                for f in frames:
+                    meta = dict(f.obj)
+                    meta["_raw"] = np.ascontiguousarray(f.raw).view(
+                        np.uint8).tobytes()
+                    await pipe.add_frame(meta)
+                n = await pipe.finish()
+                got = gather(one)
+            finally:
+                await one.stop()
+            return {"blocks": len(hashes), "mbytes": len(hashes) * block
+                    / 1e6, "tp1_equal": n == len(hashes) and got == want}
+
+        async def run():
+            try:
+                await asyncio.gather(*(one(i) for i in range(PP_SERVE_N)))
+                out["seconds"] = time.perf_counter() - t0
+                out["kv"] = await frames_into_tp1()
+            finally:
+                await eng.stop()
+                await eng.run_on_step_thread(fanout.close)
+
+        dev = world.device
+        t0 = time.perf_counter()
+        asyncio.run(asyncio.wait_for(run(), SERVE_TIMEOUT_S))
+        out.update(streams=streams, counters={k: getattr(eng, k) for k in (
+            "multistep_blocks", "mixed_steps", "chained_steps",
+            "decode_dispatches")})
+    else:
+        mh.follow_steps(world.fanout, eng)
+    torch.cuda.synchronize()
+    out["launches"] = {k: LAUNCHES.get(k, 0) - before[k] for k in TP_B}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_world(task: str, backend: str, timeout: float) -> dict:
     """Run phase 8's world of ``TP_WORLD`` ranks for ``task``; returns
     {rank: result}, with the ranks' output's tail under "log"."""
@@ -5355,7 +5579,7 @@ def tp_model_dir() -> str:
     written here when phase 5 did not run."""
     model_dir = os.path.join(ROOT, "build", "serve_entry", "llama32_3b")
     if not os.path.exists(os.path.join(model_dir, "config.json")):
-        write_entry_model(model_dir, llama_cfg())
+        write_entry_model(model_dir, entry_cfg())
     return model_dir
 
 
@@ -5467,7 +5691,7 @@ def tp_disagg_stack(backend: str) -> "_Stack":
     ``--disagg decode`` worker (decode-first: every prompt prefills
     remotely, on the world), a coordinator and a frontend. Returns the
     stack, its bring-up seconds in ``up``."""
-    cfg = llama_cfg()
+    cfg = entry_cfg()
     work = os.path.join(ROOT, "build", "tp_disagg")
     os.makedirs(work, exist_ok=True)
     model_dir = tp_model_dir()
@@ -5626,10 +5850,13 @@ def phase_tp() -> dict:
     card over gloo (all-reduce on CUDA tensors; fused blocks eager), which
     is a check of correctness, not a speed of parallelism. Then (a)
     ``tp_forward_rank`` under phase 3's gate, the KV data plane over the
-    tp=2 cache (``tp_kv_rank``) and dp=2 (``dp_forward_rank``: phase 3's
+    tp=2 cache (``tp_kv_rank``), dp=2 (``dp_forward_rank``: phase 3's
     gate, both replicas' caches equal, B1-B3 on each rank; then
     ``dp_serve_rank``: the dp=2 engine's serve, caches equal, B1-B3 on
-    each rank), and (b) ``tp_serve`` (the tp=2 worker) and
+    each rank) and pp=2 (``pp_forward_rank``: phase 3's gate at one and
+    two microbatches, each stage's slab against the tp=1 cache; then
+    ``pp_serve_rank``: the pp=2 engine's serve, its frames byte-equal in a
+    tp=1 engine, B1-B3 on each rank), and (b) ``tp_serve`` (the tp=2 worker) and
     ``tp_disagg_serve`` (the tp=2 prefill world and a tp=1 decode
     worker). Returns {"forward": {rank: launches}, "serve": {rank:
     launches}, "disagg": {rank or "decode": launches}}."""
@@ -5699,8 +5926,9 @@ def phase_tp_ranks(backend: str) -> dict:
 
 def check_world(got: dict, backend: str, t0: float) -> dict:
     """Phase 8(a)'s checks of the rank processes' results (``tp_world``):
-    the tp=2 forward, the KV plane, the dp=2 forward and serve. Returns
-    {rank: launches} over all four."""
+    the tp=2 forward, the KV plane, the dp=2 forward and serve, the pp=2
+    forward and serve (``check_pp``). Returns {rank: launches} over all
+    six."""
     bad = [got[r]["error"] for r in range(TP_WORLD) if "error" in got[r]]
     if bad:
         raise AssertionError(f"tp forward failed: {bad[0]}\n{got['log']}")
@@ -5761,8 +5989,7 @@ def check_world(got: dict, backend: str, t0: float) -> dict:
     dpl = {r: got[r]["dp"]["launches"] for r in range(TP_WORLD)}
     log(f"[tp] dp={TP_WORLD}: both replicas' caches byte-equal at every "
         f"written page ({len(got[0]['dp']['pages'])} pages): {same}; "
-        f"launches per rank {dpl}; phase 8(a) in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"launches per rank {dpl}")
     if not same:
         raise AssertionError("the dp replicas' caches differ")
     for r, n in dpl.items():
@@ -5796,9 +6023,84 @@ def check_world(got: dict, backend: str, t0: float) -> dict:
             if n.get(k, 0) <= 0:
                 raise AssertionError(f"dp serve: rank {r} never launched "
                                      f"{k}")
+    ppl, psl = check_pp(got)
+    log(f"[tp] phase 8(a) in {time.perf_counter() - t0:.1f} s")
     fwd = {r: {k: fwd[r][k] + got[r]["kv"]["launches"][k] + dpl[r][k]
-               + sl[r][k] for k in TP_B} for r in range(TP_WORLD)}
+               + sl[r][k] + ppl[r][k] + psl[r][k] for k in TP_B}
+           for r in range(TP_WORLD)}
     return fwd
+
+
+def check_pp(got: dict) -> tuple:
+    """Phase 8(a)'s pipeline checks (``pp_forward_rank``,
+    ``pp_serve_rank``): the pp=2 forward's logits under phase 3's gate at
+    each microbatch count, each stage's slab against its layers of the
+    tp=1 kernel cache (reported), the pp=2 engine's serve (every request
+    its tokens, fused blocks and mixed steps run, its greedy tokens beside
+    phase 4's, its frames byte-equal in a tp=1 engine), B1-B3 on each
+    rank. Returns the forward's and the serve's {rank: launches}."""
+    pp = {r: got[r]["pp"] for r in range(TP_WORLD)}
+    tp1 = got[0]["tp1_stage_sha"]
+    for micro in PP_MICRO:
+        for name, st in pp[0]["micro"][str(micro)]["steps"].items():
+            log(f"[tp] pp={PP_WORLD} forward {name} at {micro} "
+                f"microbatch(es) (each rank its stage's layers): logits vs "
+                f"tp=1 max|d|={st['diff']:.4e} (tol {st['tol']:.4e}), "
+                f"argmax agreement {st['argmax_same']:.3f}, "
+                f"finite={st['finite']}")
+            if not st["finite"] or st["diff"] > st["tol"]:
+                raise AssertionError(f"pp forward {name} at {micro} "
+                                     f"microbatch(es): outside phase 3's "
+                                     f"gate")
+        same = {r: pp[r]["micro"][str(micro)]["sha"] == tp1[pp[r]["stage"]]
+                for r in range(TP_WORLD)}
+        log(f"[tp] pp={PP_WORLD} at {micro} microbatch(es): each stage's "
+            f"cache slab byte-equal to its layers of the tp=1 kernel cache "
+            f"at every written page (reported, not gated): {same}")
+    ppl = {r: pp[r]["launches"] for r in range(TP_WORLD)}
+    log(f"[tp] pp={PP_WORLD} forward in {pp[0]['seconds']:.1f} s; launches "
+        f"per rank {ppl}")
+    pps = got[0]["pp_serve"]
+    psl = {r: got[r]["pp_serve"]["launches"] for r in range(TP_WORLD)}
+    lens = {i: (len(v["tokens"]), v["finish"])
+            for i, v in sorted(pps["streams"].items())}
+    ref = PHASE4_STREAMS.get(llama_cfg().model_type)
+    greedy = [i for i in range(PP_SERVE_N) if i not in PP_SAMPLED]
+    if ref is None:
+        vs = "phase 4 not run"
+    else:
+        eq = sum(a == b for i in greedy for a, b in zip(
+            pps["streams"][str(i)]["tokens"], ref[i]["tokens"]))
+        vs = (f"{eq} / {len(greedy) * PP_SERVE_TOKENS} greedy tokens equal "
+              f"to phase 4's warm serve of the same prompts (one card, "
+              f"another batch)")
+    kv = pps["kv"]
+    log(f"[tp] pp={PP_WORLD} engine (MeshSpec(pp={PP_WORLD}), each rank "
+        f"its stage) served {len(lens)} of phase 4's warm requests (2 "
+        f"sampled, 2 arriving while the others decode) in "
+        f"{pps['seconds']:.1f} s over gloo (a check of correctness, not a "
+        f"speed): (tokens, finish) {lens}; {vs}; counters "
+        f"{pps['counters']}; its first prompt's {kv['blocks']} blocks "
+        f"({kv['mbytes']:.1f} MB) gathered from the stages, exported as "
+        f"merged frames and injected into a tp=1 engine byte-equal "
+        f"{kv['tp1_equal']}; launches per rank {psl}")
+    if len(lens) != PP_SERVE_N or any(v != (PP_SERVE_TOKENS, "length")
+                                      for v in lens.values()):
+        raise AssertionError("a pp request lost tokens")
+    if pps["counters"]["multistep_blocks"] <= 0 or \
+            pps["counters"]["mixed_steps"] <= 0:
+        raise AssertionError("the pp engine ran no fused block or no mixed "
+                             "step")
+    if not kv["tp1_equal"]:
+        raise AssertionError("the pp world's frames are not byte-equal in "
+                             "a tp=1 engine")
+    for what, launches in (("pp forward", ppl), ("pp serve", psl)):
+        for r, n in launches.items():
+            for k in TP_B:
+                if n.get(k, 0) <= 0:
+                    raise AssertionError(f"{what}: rank {r} never "
+                                         f"launched {k}")
+    return ppl, psl
 
 
 SOURCES = {
@@ -5979,7 +6281,7 @@ def main() -> int:
                 planner = run_phase("planner", phase_planner,
                                     failures) or {}
                 # a world of two ranks (phase 8): tp, the KV data plane
-                # over its cache, dp, and the disaggregated pair
+                # over its cache, dp, pp, and the disaggregated pair
                 tp = run_phase("tp", phase_tp, failures) or {}
                 # head_dim 256 and 64, each alone on the card, then the
                 # GGUF and DeepSeek checkpoint loaders

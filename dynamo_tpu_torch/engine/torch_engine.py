@@ -77,10 +77,11 @@ The decode knobs left ``None`` in ``TorchEngineConfig`` resolve at build
 from ``RuntimeConfig`` and the short-form env (``DYN_DECODE_MULTISTEP``,
 ``DYN_MIXED_BATCH``, ``DYN_DECODE_PROGRESS``), as the reference's do.
 
-Tensor, expert and data parallelism (``TorchEngineConfig.mesh``, with the
-``shard_params_fn`` / ``shard_pages_fn`` hooks of ``parallel/sharding.py``):
-each rank is a process holding its slice of the weights and the cache, and
-its forwards run at its local shapes (``local_config``) with the model's
+Tensor, expert, data and pipeline parallelism (``TorchEngineConfig.mesh``,
+with the ``shard_params_fn`` / ``shard_pages_fn`` hooks of
+``parallel/sharding.py`` or ``parallel/pipeline.py``): each rank is a
+process holding its slice of the weights and the cache, and its forwards
+run at its local shapes (``local_config``) with the model's
 collectives over the mesh's groups. Rank 0 schedules; before every
 dispatch it taps the dispatch's padded host arrays (``step_tap``, set by
 ``parallel/multihost.StepFanout``) and runs ``_invoke_step`` /
@@ -104,19 +105,31 @@ row), and the packed output is gathered over ``dp``, so the leader reads
 every row; every replica writes every row's K/V, so the page pool stays
 the same on all of them. A batch ``dp`` does not divide runs replicated.
 
+Over ``pp`` (the reference's worker plugs ``pipeline_forward`` in as its
+engine's forward) every forward of every path, steps, chained steps,
+mixed steps, fused blocks (eager over gloo, captured over NCCL) and the
+embeddings, runs ``parallel/pipeline.py`` on the rank's stage: its
+``L / pp`` layers of the weights and a cache slab ``[L / pp, N, 2, Hkv /
+tp, ps, Dh]``, the activation handed from stage to stage, the last
+stage's hidden states broadcast so every rank samples the same tokens.
+Refused under ``pp`` as the reference refuses them, in its words:
+speculative decoding, int8, prompt scoring and DeepSeek; MoE dispatch
+drops are not counted.
+
 The KV data plane on a world (the reference's multi-host branches): a
 page gather is fanned out as ``"gather"`` (every rank of the leader's
-``tp`` group reads its heads of the pages, the leader assembles the whole
-transport array; ``dp`` replicas hold the same bytes and stay out), a
-host-values scatter as ``"scatter"`` with each rank's head slice sent to
-it alone, and a device-values scatter takes the host path. Each consumes
-a step id of its own, and its outcome joins the followers' cross-check.
-Work planned off the step thread that must issue a collective (a KVBM
-eviction's gather, planned by the scheduler) is deferred to the step
-thread, before its next fanned-out dispatch (``defer_to_step_thread``).
+``pp`` x ``tp`` group reads its layers and heads of the pages, the leader
+assembles the whole transport array; ``dp`` replicas hold the same bytes
+and stay out), a host-values scatter as ``"scatter"`` with each rank's
+layers x heads slice sent to it alone, and a device-values scatter takes
+the host path. Each consumes a step id of its own, and its outcome joins
+the followers' cross-check. Work planned off the step thread that must
+issue a collective (a KVBM eviction's gather, planned by the scheduler)
+is deferred to the step thread, before its next fanned-out dispatch
+(``defer_to_step_thread``).
 
 Refused rather than approximated: sequence-parallel ring prefill (ROADMAP
-A13b).
+A13b item 4).
 """
 
 from __future__ import annotations
@@ -394,10 +407,20 @@ class TorchEngine(ScheduledEngineBase):
         mesh = self.cfg.mesh
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self._dp = 1 if self.mesh is None else self.mesh.shape["dp"]
-        # (ranks, axis) the cache and its transport array split over: the
-        # kv heads over tp ((1, -1): whole on every rank, as MLA's)
-        self.cache_layout = ((1, -1) if self.mesh is None else shard_layout(
-            Sharding(self.mesh, cache_spec(model_cfg))))
+        # pipeline stages: every forward runs parallel/pipeline.py's ring
+        self.pp = 1 if self.mesh is None else self.mesh.shape["pp"]
+        # the reference's (ranks, axis) of the cache's placement: the kv
+        # heads over tp ((1, -1): whole on every rank, as MLA's), the
+        # layers over pp ((0, -1) when both split)
+        spec = (None if self.mesh is None
+                else cache_spec(model_cfg, self.mesh))
+        self.cache_layout = ((1, -1) if spec is None else shard_layout(
+            Sharding(self.mesh, spec)))
+        # (axis, dim) of each split of the transport array [L, n, 2, Hkv,
+        # ps, Dh] on this world: the page IO assembles and cuts by these
+        self._kv_splits = [] if spec is None else [
+            (axis, dim) for dim, axis in enumerate(spec)
+            if axis is not None and self.mesh.shape[axis] > 1]
         if self._dp > 1:
             # the reference's floors: every padded batch divisible by dp;
             # a cap dp does not divide would run the saturated batches
@@ -447,7 +470,23 @@ class TorchEngine(ScheduledEngineBase):
                     f"quantize='int8' currently covers the llama family "
                     f"tree (llama/mistral/qwen dense) and gemma-2; "
                     f"model_type {model_cfg.model_type!r} is served bf16")
+            if self.pp > 1:
+                # the reference's words: its stage bodies are not
+                # quant-aware, nor are the port's
+                raise ValueError(
+                    "quantize='int8' does not compose with a custom "
+                    "forward_fn (pipeline parallelism) yet")
         self.spec_K = int(self.cfg.spec_tokens or 0)
+        if self.pp > 1:
+            from dynamo_tpu_torch.parallel.pipeline import (
+                no_adapter_message, stage_adapter_for)
+            if self.spec_K:
+                raise ValueError(
+                    "spec_tokens>0 does not compose with a custom "
+                    "forward_fn (pipeline parallelism); drop "
+                    "--speculative-num-tokens or the pp flag")
+            if stage_adapter_for(model_cfg) is None:
+                raise ValueError(no_adapter_message(model_cfg))
         if self.device.type == "cuda" and self.device.index is None:
             # a definite index: dispatches run on the loop's pool threads,
             # each of which sets it
@@ -577,8 +616,11 @@ class TorchEngine(ScheduledEngineBase):
         self._pending_moe_drops: list = []
         self._moe_dropped_total = 0
         self._moe_drops_lock = threading.Lock()
+        # (a pipeline's stages discard their drop counts, as the
+        # reference's do: the worker warns)
         self._moe_dispatch_active = (
-            getattr(model_cfg, "moe_backend", "") == "dispatch")
+            getattr(model_cfg, "moe_backend", "") == "dispatch"
+            and self.pp == 1)
 
     @property
     def block_mode(self) -> str:
@@ -1537,7 +1579,15 @@ class TorchEngine(ScheduledEngineBase):
         attention; returns (logits, aux). MoE families return a third
         ``aux`` dict (dispatch drop counts), the others the plain
         ``(logits, pages)`` pair (aux ``{}``). ``dp``: this rank's rows of
-        a batch split over ``dp`` (``_rows``)."""
+        a batch split over ``dp`` (``_rows``). Over ``pp`` the forward is
+        ``parallel/pipeline.pipeline_forward`` on this rank's stage (one
+        position's logits a row: verify steps and scoring are refused)."""
+        if self.pp > 1:
+            from dynamo_tpu_torch.parallel.pipeline import pipeline_forward
+            return pipeline_forward(
+                self.params, self.model_cfg, toks, pos, self.pages, table,
+                total, new, mesh=self.mesh, attn_impl=self._attn[kernel],
+                dp=dp)[0], {}
         out = self.family.forward(
             self.params, self.fwd_cfg, toks, pos, self.pages, table, total,
             new, attn_impl=self._attn[kernel], logits_window=logits_window,
@@ -1981,10 +2031,20 @@ class TorchEngine(ScheduledEngineBase):
     # first (the reference's multi-host ``"gather"`` / ``"scatter"``
     # broadcasts), consuming a step id of its own.
 
+    def kv_block_shape(self) -> tuple:
+        """One KV block of the whole model, ``[L, 2, Hkv, ps, Dh]``: this
+        rank's block with each split axis (layers over ``pp``, kv heads
+        over ``tp``) at its full size, as a merged frame carries it."""
+        shape = [self.pages.shape[0], *self.pages.shape[2:]]
+        for axis, dim in self._kv_splits:
+            shape[dim - (dim > 0)] *= self.mesh.shape[axis]
+        return tuple(shape)
+
     def _joins_gather(self) -> bool:
         """Does this rank take part in a world's page gather: the leader's
-        ``tp`` group (dp coordinate 0), where the heads are split."""
-        return self.cache_layout[0] > 1 and self.mesh.coords["dp"] == 0
+        ``pp`` x ``tp`` group (dp coordinate 0), where the layers and the
+        heads are split."""
+        return bool(self._kv_splits) and self.mesh.coords["dp"] == 0
 
     def _fan_page_io(self, kind: str, arrays: dict, fn, *args, **kw):
         """On a world's leader: fan a page IO op out under a step id of its
@@ -2004,25 +2064,29 @@ class TorchEngine(ScheduledEngineBase):
         return out
 
     def _gather_world(self, ids: np.ndarray) -> torch.Tensor:
-        """This rank's heads of pages ``ids``; on a head-split cache
-        assembled over the ``tp`` group (the whole ``Hkv`` on every rank
-        of it)."""
-        local = self.pages.index_select(1, self._page_index(ids))
-        if self.cache_layout[0] > 1:
-            return self.mesh.all_gather(local, "tp",
-                                        dim=self.cache_layout[1])
-        return local
+        """This rank's part of pages ``ids``; on a split cache assembled
+        over each split axis in turn (the heads over the stage's ``tp``
+        group, then the layers over the ``pp`` group: the whole transport
+        array on every rank of the leader's ``pp`` x ``tp`` group)."""
+        out = self.pages.index_select(1, self._page_index(ids))
+        for axis, dim in sorted(self._kv_splits, key=lambda s: -s[1]):
+            out = self.mesh.all_gather(out, axis, dim=dim)
+        return out
 
     def _rank_slices(self, vals: np.ndarray) -> list:
         """Host values ``[L, n, 2, Hkv, ps, Dh]`` cut into each world
-        rank's part of its cache: its ``tp`` coordinate's heads (the whole
-        for an MLA cache and at ``tp`` = 1), rank by rank."""
-        count, axis = self.cache_layout
-        if count < 2:
-            return [vals] * self.mesh.size
-        parts = np.split(vals, count, axis=axis)
-        return [parts[rank_coords(self.mesh.spec, r)["tp"]]
-                for r in range(self.mesh.size)]
+        rank's part of its cache: its ``pp`` coordinate's layers and its
+        ``tp`` coordinate's heads (the whole for an MLA cache and at one
+        rank an axis), rank by rank."""
+        out = []
+        for r in range(self.mesh.size):
+            c = rank_coords(self.mesh.spec, r)
+            part = vals
+            for axis, dim in self._kv_splits:
+                part = np.split(part, self.mesh.shape[axis],
+                                axis=dim)[c[axis]]
+            out.append(part)
+        return out
 
     def _scatter_host_local(self, ids: np.ndarray, vals) -> None:
         """Write host values of this rank's part (``_rank_slices``) into
@@ -2179,9 +2243,14 @@ class TorchEngine(ScheduledEngineBase):
     def _embed_raw(self, toks: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """The encode on padded host arrays (leader and followers)."""
         self._use_device()
-        out = self.family.encode(
-            self.params, self.fwd_cfg, _upload(toks, self.device),
-            _upload(mask, self.device), mesh=self.mesh)
+        toks, mask = _upload(toks, self.device), _upload(mask, self.device)
+        if self.pp > 1:
+            from dynamo_tpu_torch.parallel.pipeline import pipeline_encode
+            out = pipeline_encode(self.params, self.model_cfg, toks, mask,
+                                  self.mesh)
+        else:
+            out = self.family.encode(self.params, self.fwd_cfg, toks, mask,
+                                     mesh=self.mesh)
         return out.cpu().numpy()
 
     async def embed(self, token_lists) -> np.ndarray:
@@ -2214,6 +2283,12 @@ class TorchEngine(ScheduledEngineBase):
                 f"{self.cfg.score_max_tokens or 'max_context'}, "
                 f"max_context {self.cfg.max_context}) — raise {knob} "
                 "to score longer prompts")
+        if self.pp > 1:
+            # the reference's words: its pipeline forward takes no logits
+            # window, nor does the port's
+            raise NotImplementedError(
+                f"{self.model_cfg.model_type} has no prompt-scoring "
+                "path (forward lacks logits_window / custom forward_fn)")
         if "logits_window" not in inspect.signature(
                 self.family.forward).parameters:
             raise NotImplementedError(

@@ -95,10 +95,11 @@ def prefetch_depth_bytes() -> int:
 
 
 def _block_bytes(engine) -> int:
-    """Bytes of one KV block in this engine's cache geometry."""
-    ref = engine.pages
-    shape = (ref.shape[0],) + tuple(ref.shape[-4:])  # [L, 2, Hkv, ps, Dh]
-    return int(np.prod(shape)) * ref.element_size()
+    """Bytes of one KV block in this engine's cache geometry: the whole
+    model's block (``[L, 2, Hkv, ps, Dh]``), also on a rank of a world,
+    whose own cache holds its layers and heads only."""
+    return int(np.prod(engine.kv_block_shape())) * \
+        engine.pages.element_size()
 
 
 class PrefetchScheduler:

@@ -247,19 +247,18 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     mesh=mesh), pages)
 
 
-def _dense_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+def _dense_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                   mask: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Causal dense (non-paged) forward of the one-shot embeddings
-    surface: attention over the prompt itself in plain PyTorch, float32
-    scores ``[B, H, S, S]`` per layer (the reference computes it outside
-    any Pallas kernel too), so callers bound S. Returns the final-norm
-    hidden states ``[B, S, H]``."""
-    B, S = tokens.shape
-    dev = tokens.device
+    """The ``cfg.num_layers`` layers of ``params`` over hidden states
+    ``h [B, S, H]``, with causal dense (non-paged) attention over the
+    prompt itself in plain PyTorch: float32 scores ``[B, H, S, S]`` per
+    layer (the reference computes it outside any Pallas kernel too), so
+    callers bound S. A pipeline stage runs its own layers with it."""
+    B, S, _ = h.shape
+    dev = h.device
     sm_scale = cfg.head_dim ** -0.5
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
         B, S)
-    h = params["embed"][tokens.long()]
     causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=dev))
     attn_mask = causal[None, None] & mask[:, None, None, :]      # [B,1,S,S]
     rep = cfg.num_heads // cfg.num_kv_heads
@@ -277,7 +276,23 @@ def _dense_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         probs = torch.softmax(scores, dim=-1)
         attn = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
         h = _finish_layer(cfg, lp, h, attn.to(h.dtype), mesh)
+    return h
+
+
+def _dense_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The causal dense forward of the one-shot embeddings surface
+    (``_dense_layers`` from the embedding); returns the final-norm hidden
+    states ``[B, S, H]``."""
+    h = _dense_layers(params, cfg, params["embed"][tokens.long()], mask,
+                      mesh)
     return _rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+
+
+def mean_pool(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """float32 mean of ``h [B, S, H]`` over each row's real tokens."""
+    m = mask.float()[..., None]
+    return (h.float() * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
 
 
 def encode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -285,9 +300,7 @@ def encode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Embeddings: the mean-pooled final hidden state over each row's real
     tokens, float32 ``[B, H]`` (tokens / mask ``[B, S]``; ``mesh`` as in
     ``forward``)."""
-    h = _dense_hidden(params, cfg, tokens, mask, mesh)
-    m = mask.float()[..., None]
-    return (h.float() * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+    return mean_pool(_dense_hidden(params, cfg, tokens, mask, mesh), mask)
 
 
 __all__ = ["init_params", "params_from_jax", "forward", "encode",

@@ -11,14 +11,17 @@ themselves over the mesh's process groups (``mesh.py``):
   ``ep``) and its per-axis process groups;
 - ``sharding.py`` — the reference's partition specs of the parameter trees
   and the paged KV cache, and each rank's slices;
-- ``multihost.py`` — the world, the step fanout and the follower loop.
+- ``multihost.py`` — the world, the step fanout and the follower loop;
+- ``pipeline.py`` — pipeline parallelism: layer stages over ``pp``, the
+  microbatch ring and its stage handoff.
 
 Served: tensor parallelism (heads, FFN width and kv heads over ``tp``),
 expert parallelism (experts over ``ep``), data parallelism (batch rows over
-``dp``, the weights and the page pool replicated: ``mesh.DpRows``), and
-the KV data plane (page gathers and scatters) on any of these worlds.
-Sequence and pipeline parallelism (``ring_attention.py``,
-``ring_prefill.py``, ``pipeline.py``) are ROADMAP A13b.
+``dp``, the weights and the page pool replicated: ``mesh.DpRows``),
+pipeline parallelism (layers over ``pp``, composed with ``tp`` and ``dp``:
+``pipeline.py``), and the KV data plane (page gathers and scatters) on any
+of these worlds. Sequence parallelism (``ring_attention.py``,
+``ring_prefill.py``) is ROADMAP A13b item 4.
 """
 
 from dynamo_tpu_torch.parallel.mesh import MeshSpec, make_mesh

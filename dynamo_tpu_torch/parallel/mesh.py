@@ -5,7 +5,8 @@ are the reference's (any subset may be 1):
 
 - ``dp``  — data parallel: model replicas, each running its rows of the
   batch (``DpRows``), one page pool replicated over them;
-- ``pp``  — pipeline parallel: layer stages;
+- ``pp``  — pipeline parallel: layer stages, each handing its
+  activation to the next (``RankMesh.send_next``);
 - ``tp``  — tensor parallel: attention heads / MLP columns over ranks;
 - ``sp``  — sequence/context parallel: ring attention over the sequence;
 - ``ep``  — expert parallel: MoE experts over ranks.
@@ -154,6 +155,36 @@ class RankMesh:
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=g)
         return torch.cat(parts, dim=dim)
+
+    def send_next(self, x: torch.Tensor, axis: str = "pp") -> torch.Tensor:
+        """The reference's ``lax.ppermute`` over ``axis`` with pairs ``(i,
+        i + 1)``: ``x`` goes to the rank one coordinate on, and the value
+        the rank one coordinate back sent is returned (zeros at coordinate
+        0, as ``ppermute`` leaves a rank no pair sends to). Every rank of
+        the axis calls it together. Over NCCL one batched send / receive;
+        gloo takes no send of a CUDA tensor, so there the axis gathers
+        every rank's ``x`` (the ``all_gather`` above) and each rank keeps
+        its predecessor's."""
+        g = self.group(axis)
+        if g is None:
+            return torch.zeros_like(x)
+        import torch.distributed as dist
+        c, n = self.coords[axis], self.shape[axis]
+        x = x.contiguous()
+        if self.backend != "nccl":
+            full = self.all_gather(x[None], axis, dim=0)
+            return full[c - 1] if c > 0 else torch.zeros_like(x)
+        out = torch.zeros_like(x)
+        ops = []
+        if c + 1 < n:
+            ops.append(dist.P2POp(dist.isend, x, coords_rank(
+                self.spec, dict(self.coords, **{axis: c + 1})), group=g))
+        if c > 0:
+            ops.append(dist.P2POp(dist.irecv, out, coords_rank(
+                self.spec, dict(self.coords, **{axis: c - 1})), group=g))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
 
     def __repr__(self) -> str:
         return f"RankMesh({self.shape}, rank={self.rank})"

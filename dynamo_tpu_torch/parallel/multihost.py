@@ -23,10 +23,10 @@ layer is the footing for every axis here, tp included:
     model's collectives (``models/llama.py``) meet the leader's there.
   - The KV data plane's page IO rides the same stream, as the reference's
     ``"gather"`` / ``"scatter"`` kinds: a gather's page ids, a scatter's
-    ids and, after its message, each rank's own head slice of the values
-    (one ``scatter`` over the fanout group: no rank receives the whole
-    window). The leader relays every outcome, page IO included, for the
-    followers' cross-check.
+    ids and, after its message, each rank's own slice of the values (its
+    stage's layers and its heads; one ``scatter`` over the fanout group:
+    no rank receives the whole window). The leader relays every outcome,
+    page IO included, for the followers' cross-check.
 
 The difference from the reference: the fanout rides the process group
 (``broadcast_object_list`` on a gloo group), not the coordinator's event
@@ -350,9 +350,10 @@ def build_rank_engine(model_cfg, engine_cfg, world: Optional[RankWorld],
                       device=None):
     """A ``TorchEngine`` for this rank: the mesh over the world (``mesh_spec``
     default: tp over every rank), the sharding hooks of ``ModelSharding``
-    and, without ``params``, the WHOLE tree made from ``seed`` on the
-    rank's device and then sliced, so every world size serves the same
-    model. Leader and followers call it alike."""
+    (of ``pipeline.pp_sharding_fns`` on a mesh with ``pp`` > 1: the rank's
+    stage) and, without ``params``, the WHOLE tree made from ``seed`` on
+    the rank's device and then sliced, so every world size serves the
+    same model. Leader and followers call it alike."""
     import dataclasses
 
     import torch
@@ -365,10 +366,16 @@ def build_rank_engine(model_cfg, engine_cfg, world: Optional[RankWorld],
     dev = world.device if world is not None else rank_device(device, 0)
     if world is not None and world.world > 1:
         mesh = make_mesh(mesh_spec or MeshSpec(tp=world.world))
-        shard = ModelSharding(model_cfg, mesh, device=dev)
+        if mesh.shape["pp"] > 1:
+            from dynamo_tpu_torch.parallel.pipeline import pp_sharding_fns
+            shard_params, shard_pages = pp_sharding_fns(mesh, model_cfg,
+                                                        device=dev)
+        else:
+            shard = ModelSharding(model_cfg, mesh, device=dev)
+            shard_params, shard_pages = shard.shard_params, shard.shard_pages
         engine_cfg = dataclasses.replace(
-            engine_cfg, mesh=mesh, shard_params_fn=shard.shard_params,
-            shard_pages_fn=shard.shard_pages)
+            engine_cfg, mesh=mesh, shard_params_fn=shard_params,
+            shard_pages_fn=shard_pages)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = get_family(model_cfg).init_params(model_cfg, gen,

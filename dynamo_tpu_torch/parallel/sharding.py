@@ -23,6 +23,12 @@ the reference's ``PartitionSpec`` tree entry for entry:
 - over ``dp`` every weight and the cache replicate: a replica runs its
   rows of the batch, and the page pool stays equal on all replicas.
 
+Under pipeline parallelism (``StageSharding``, the reference's
+``parallel/pipeline.py`` specs) every layer-stacked leaf splits its layer
+axis over ``pp`` as well, every other leaf (``lm_head`` included)
+replicates, and the cache splits its layers over ``pp`` and its kv heads
+over ``tp``; ``local_config`` then gives a stage's ``L / pp`` layers.
+
 ``shard_layout`` and ``transport_sharding`` describe a placement by its
 mesh and spec (``Sharding``), the form the sharded KV wire reads.
 """
@@ -218,37 +224,10 @@ class ModelSharding:
 
     def local_slice(self, x: torch.Tensor, spec: Spec) -> torch.Tensor:
         """This rank's block of ``x`` under ``spec`` (a view)."""
-        for dim, entry in enumerate(spec):
-            if entry is None:
-                continue
-            names = entry if isinstance(entry, tuple) else (entry,)
-            n, idx = 1, 0
-            for nm in names:
-                size = self.mesh.shape.get(nm, 1)
-                idx = idx * size + self.mesh.coords.get(nm, 0)
-                n *= size
-            if n == 1:
-                continue
-            if x.shape[dim] % n:
-                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
-                                 f"split {n} ways ({spec})")
-            step = x.shape[dim] // n
-            x = x.narrow(dim, idx * step, step)
-        return x
+        return local_slice(self.mesh, x, spec)
 
     def _place(self, x: torch.Tensor, spec: Spec) -> torch.Tensor:
-        s = self.local_slice(x, spec)
-        if s is x:
-            return x if self.device is None else x.to(self.device)
-        # a slice gets storage of its own (a view would keep the whole
-        # tree alive), in the leaf's layout: quant's column-major int8
-        # layer stacks stay column-major
-        if s.dim() == 3 and s.shape[1] > 1 and s.stride(1) == 1:
-            s = s.transpose(1, 2).clone(
-                memory_format=torch.contiguous_format).transpose(1, 2)
-        else:
-            s = s.clone(memory_format=torch.contiguous_format)
-        return s if self.device is None else s.to(self.device)
+        return place(self.mesh, x, spec, self.device)
 
     def shard_params(self, params: Dict[str, Any]) -> Dict[str, Any]:
         specs = self.param_specs()
@@ -271,10 +250,51 @@ class ModelSharding:
                         else self.pages_spec())
 
 
-def cache_spec(cfg: ModelConfig) -> Spec:
+def local_slice(mesh: RankMesh, x: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """The block of ``x`` that ``mesh``'s rank holds under ``spec`` (a
+    view)."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        n, idx = 1, 0
+        for nm in names:
+            size = mesh.shape.get(nm, 1)
+            idx = idx * size + mesh.coords.get(nm, 0)
+            n *= size
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"split {n} ways ({spec})")
+        step = x.shape[dim] // n
+        x = x.narrow(dim, idx * step, step)
+    return x
+
+
+def place(mesh: RankMesh, x: torch.Tensor, spec: Spec,
+          device=None) -> torch.Tensor:
+    """``local_slice`` with storage of its own (a view would keep the
+    whole tree alive), in the leaf's layout (quant's column-major int8
+    layer stacks stay column-major), on ``device``."""
+    s = local_slice(mesh, x, spec)
+    if s is x:
+        return x if device is None else x.to(device)
+    if s.dim() == 3 and s.shape[1] > 1 and s.stride(1) == 1:
+        s = s.transpose(1, 2).clone(
+            memory_format=torch.contiguous_format).transpose(1, 2)
+    else:
+        s = s.clone(memory_format=torch.contiguous_format)
+    return s if device is None else s.to(device)
+
+
+def cache_spec(cfg: ModelConfig, mesh: Optional[RankMesh] = None) -> Spec:
     """The spec of the stacked cache ``[L, N, 2, Hkv, page, Dh]`` and of
     its transport array ``[L, n, ...]``: Hkv over tp, replicated
-    elsewhere; MLA's latent cache replicated."""
+    elsewhere; MLA's latent cache replicated. On a mesh with ``pp`` > 1
+    the layer axis is split over the stages too (``pp_pages_spec``)."""
+    if mesh is not None and mesh.shape.get("pp", 1) > 1:
+        return pp_pages_spec(mesh.shape.get("tp", 1))
     if cfg.kv_lora_rank:
         return P()
     return P(None, None, None, "tp", None, None)
@@ -283,19 +303,125 @@ def cache_spec(cfg: ModelConfig) -> Spec:
 def local_config(cfg: ModelConfig, mesh: Optional[RankMesh]) -> ModelConfig:
     """The config one rank's forward runs with: its local query and kv
     heads and FFN widths (experts keep their global count: every rank
-    routes over all of them). The geometry checks of the attention kernels
-    apply to these local shapes."""
+    routes over all of them), and on a mesh with ``pp`` > 1 its stage's
+    ``L / pp`` layers. The geometry checks of the attention kernels apply
+    to these local shapes."""
     import dataclasses
     tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+    pp = 1 if mesh is None else mesh.shape.get("pp", 1)
+    kw = {}
+    if pp > 1:
+        kw["num_layers"] = cfg.num_layers // pp
+    if tp > 1:
+        kw.update(num_heads=cfg.num_heads // tp,
+                  intermediate_size=cfg.intermediate_size // tp)
+        if not cfg.kv_lora_rank:
+            kw["num_kv_heads"] = cfg.num_kv_heads // tp
+        if cfg.num_experts and cfg.moe_intermediate_size:
+            kw["moe_intermediate_size"] = cfg.moe_intermediate_size // tp
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+# -- layer staging (pipeline parallelism) -------------------------------------
+# The reference's ``parallel/pipeline.py`` specs: a layer-stacked leaf splits
+# its layer axis over ``pp`` and, under ``tp``, the dims after it by the
+# family's tail (the plain tp path's placement: qkv / FFN-up split their
+# output dim, the out / down projections their input dim); every other leaf
+# is replicated, ``lm_head`` included (the vocab projection runs whole after
+# the pipeline); the pages split their layers over ``pp`` and their kv heads
+# over ``tp``.
+
+TP_TAILS: Dict[str, Tuple] = {
+    "attn_norm": (), "mlp_norm": (), "q_norm": (), "k_norm": (),
+    "wq": (None, "tp"), "wk": (None, "tp"), "wv": (None, "tp"),
+    "wo": ("tp", None),
+    "w_gate": (None, "tp"), "w_up": (None, "tp"), "w_down": ("tp", None),
+    "bq": ("tp",), "bk": ("tp",), "bv": ("tp",),
+}
+
+# MoE expert leaves carry a leading E dim: [L, E, H, I] / [L, E, I, H]
+TP_TAILS_MOE: Dict[str, Tuple] = {
+    **TP_TAILS,
+    "w_router": (),
+    "w_gate": (None, None, "tp"), "w_up": (None, None, "tp"),
+    "w_down": (None, "tp", None),
+}
+
+
+def pp_layer_spec(name: str, tp: int,
+                  tails: Dict[str, Tuple] = TP_TAILS) -> Spec:
+    """A layer-stacked leaf's spec: its layers over ``pp``, then the
+    family's tp tail when ``tp`` > 1 (a leaf without a tail: the rest
+    replicated)."""
     if tp == 1:
-        return cfg
-    kw = dict(num_heads=cfg.num_heads // tp,
-              intermediate_size=cfg.intermediate_size // tp)
-    if not cfg.kv_lora_rank:
-        kw["num_kv_heads"] = cfg.num_kv_heads // tp
-    if cfg.num_experts and cfg.moe_intermediate_size:
-        kw["moe_intermediate_size"] = cfg.moe_intermediate_size // tp
-    return dataclasses.replace(cfg, **kw)
+        return P("pp")
+    return P("pp", *tails.get(name, ()))
+
+
+def pp_param_specs(params: Dict[str, Any], tp: int,
+                   tails: Dict[str, Tuple] = TP_TAILS) -> Dict[str, Any]:
+    """The reference's ``_param_specs``: the layer leaves staged, every
+    other leaf replicated."""
+    specs: Dict[str, Any] = {k: P() for k in params if k != "layers"}
+    specs["layers"] = {k: pp_layer_spec(k, tp, tails)
+                       for k in params["layers"]}
+    return specs
+
+
+def pp_pages_spec(tp: int) -> Spec:
+    """The stacked cache's spec under ``pp``: layers over the stages, kv
+    heads over ``tp``."""
+    return P("pp") if tp == 1 else P("pp", None, None, "tp")
+
+
+def ffn_width(cfg: ModelConfig) -> int:
+    """The per-layer FFN width the tp axis splits (the expert width on
+    MoE)."""
+    if cfg.num_experts:
+        return cfg.moe_intermediate_size or cfg.intermediate_size
+    return cfg.intermediate_size
+
+
+class StageSharding:
+    """The placement of ``pp_param_specs`` / ``pp_pages_spec`` on one
+    rank: its stage's layers (and under ``tp`` its heads and FFN columns)
+    of a whole tree and cache, with the reference's divisibility checks
+    and messages."""
+
+    def __init__(self, cfg: Optional[ModelConfig], mesh: RankMesh,
+                 tails: Dict[str, Tuple] = TP_TAILS, device=None):
+        tp = mesh.shape.get("tp", 1)
+        if tp > 1:
+            if cfg is None:
+                raise ValueError("pp x tp sharding needs the model config")
+            if cfg.num_kv_heads % tp or ffn_width(cfg) % tp:
+                raise ValueError(
+                    f"num_kv_heads={cfg.num_kv_heads}/ffn_width="
+                    f"{ffn_width(cfg)} not divisible by tp={tp}")
+        pp = mesh.shape.get("pp", 1)
+        if cfg is not None and cfg.num_layers % pp:
+            raise ValueError(f"num_layers={cfg.num_layers} not divisible "
+                             f"by pp={pp}")
+        self.cfg, self.mesh, self.tp, self.tails = cfg, mesh, tp, tails
+        self.device = device
+
+    def param_specs(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        return pp_param_specs(params, self.tp, self.tails)
+
+    def pages_spec(self) -> Spec:
+        return pp_pages_spec(self.tp)
+
+    def shard_params(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        specs = self.param_specs(params)
+        out = {k: place(self.mesh, v, specs[k], self.device)
+               for k, v in params.items() if k != "layers"}
+        out["layers"] = {k: place(self.mesh, v, specs["layers"][k],
+                                  self.device)
+                         for k, v in params["layers"].items()}
+        return out
+
+    def shard_pages(self, pages: torch.Tensor) -> torch.Tensor:
+        return place(self.mesh, pages, self.pages_spec(), self.device)
 
 
 def tp_sharding(cfg: ModelConfig, tp_size: int, rank: Optional[int] = None,
@@ -348,5 +474,8 @@ def shard_layout(sharding: Optional[Sharding]) -> tuple:
     return parted[0]
 
 
-__all__ = ["ModelSharding", "Sharding", "tp_sharding", "transport_sharding",
-           "cache_spec", "shard_layout", "local_config", "P"]
+__all__ = ["ModelSharding", "StageSharding", "Sharding", "tp_sharding",
+           "transport_sharding", "cache_spec", "shard_layout",
+           "local_config", "local_slice", "place", "pp_param_specs",
+           "pp_pages_spec", "pp_layer_spec", "ffn_width", "TP_TAILS",
+           "TP_TAILS_MOE", "P"]

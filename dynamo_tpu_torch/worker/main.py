@@ -28,13 +28,15 @@ backend, as the reference's worker does. A ``--model-path`` ending in
 ``.gguf`` loads a GGUF file (``models/gguf.py``), as the reference's
 worker does.
 
-Tensor and data parallelism over ranks (``parallel/``):
-``--tensor-parallel-size T`` and ``--data-parallel-size D`` run a world of
-D x T ranks, one process per device, as one engine over the reference's
-dp x tp mesh (each dp replica its rows of every batch, the page pool
-replicated over dp). ``--num-nodes N --node-rank r`` keeps the reference's
-meaning, ``--local-devices`` is the number of ranks this node runs
-(default D x T / N), ``--jax-coordinator`` keeps
+Tensor, data and pipeline parallelism over ranks (``parallel/``):
+``--tensor-parallel-size T``, ``--data-parallel-size D`` and
+``--pipeline-parallel-size P`` run a world of D x P x T ranks, one process
+per device, as one engine over the reference's dp x pp x tp mesh (each dp
+replica its rows of every batch, the page pool replicated over dp; each
+of the P stages its L / P layers, ``parallel/pipeline.py``).
+``--num-nodes N --node-rank r`` keeps the reference's meaning,
+``--local-devices`` is the number of ranks this node runs (default D x P
+x T / N), ``--jax-coordinator`` keeps
 its name as the ``torch.distributed`` rendezvous address (``host:port``;
 on one node the worker picks a free local port), and ``--dist-backend``
 names the model's collective backend (default ``nccl`` on the GPU,
@@ -51,8 +53,12 @@ disaggregated roles, the KVBM tiers, the leader's ``kv_export`` endpoint
 graceful drain, whose drained leader releases its followers as its stop
 does.
 
-Flags whose paths are not ported exit non-zero naming their ROADMAP item:
-pipeline and sequence parallelism, ROADMAP A13b.
+The reference's own refusals under pipeline parallelism are mirrored in
+its words: with sequence parallelism, with ``--num-nodes`` > 1, a layer
+count the stages do not divide, and a family with no stage adapter
+(DeepSeek); with the MoE dispatch backend it warns that drops go
+uncounted. Flags whose paths are not ported exit non-zero naming their
+ROADMAP item: sequence parallelism, ROADMAP A13b item 4.
 """
 
 from __future__ import annotations
@@ -113,8 +119,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard the batch over this many replicas of the "
                         "model (x --tensor-parallel-size ranks in all)")
     p.add_argument("--pipeline-parallel-size", type=int, default=1,
-                   help="stage the layers over this many devices (not "
-                        "ported: ROADMAP A13b)")
+                   help="stage the layers over this many devices (x "
+                        "--tensor-parallel-size x --data-parallel-size "
+                        "ranks in all)")
     p.add_argument("--sequence-parallel-size", type=int, default=1,
                    help="ring-attention sequence parallelism (not ported: "
                         "ROADMAP A13b)")
@@ -215,8 +222,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def world_size(args: argparse.Namespace) -> int:
-    """Ranks of the world: the dp x tp mesh (the reference's devices)."""
-    return args.data_parallel_size * args.tensor_parallel_size
+    """Ranks of the world: the dp x pp x tp mesh (the reference's
+    devices)."""
+    return (args.data_parallel_size * args.pipeline_parallel_size
+            * args.tensor_parallel_size)
 
 
 def local_ranks(args: argparse.Namespace) -> int:
@@ -230,25 +239,32 @@ def local_ranks(args: argparse.Namespace) -> int:
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit naming the ROADMAP item of any flag whose path the port does
     not serve yet (the reference refuses its own unsupported
-    combinations the same way: ``SystemExit`` before any engine work)."""
-    for flag, val, what in (
-            ("--pipeline-parallel-size", args.pipeline_parallel_size,
-             "pipeline parallelism"),
-            ("--sequence-parallel-size", args.sequence_parallel_size,
-             "sequence parallelism")):
-        if val > 1:
-            raise SystemExit(f"{flag} {val}: {what} is "
-                             "not ported yet (ROADMAP A13b)")
-    dp, tp, nodes = (args.data_parallel_size, args.tensor_parallel_size,
-                     args.num_nodes)
+    combinations the same way: ``SystemExit`` before any engine work).
+    The reference's refusals under pp that need no model config come
+    first, in its words (``refuse_pp`` checks the rest)."""
+    if args.pipeline_parallel_size > 1:
+        if args.sequence_parallel_size > 1:
+            raise SystemExit("--pipeline-parallel-size does not combine "
+                             "with sp yet")
+        if args.num_nodes > 1:
+            raise SystemExit("--pipeline-parallel-size with --num-nodes>1 "
+                             "is not wired yet (as in the reference, no "
+                             "stage spans nodes)")
+    if args.sequence_parallel_size > 1:
+        raise SystemExit(f"--sequence-parallel-size "
+                         f"{args.sequence_parallel_size}: sequence "
+                         "parallelism is not ported yet (ROADMAP A13b)")
+    dp, pp, tp, nodes = (args.data_parallel_size,
+                         args.pipeline_parallel_size,
+                         args.tensor_parallel_size, args.num_nodes)
     world = world_size(args)
     if world > 1 or nodes > 1:
         if nodes * local_ranks(args) != world:
             raise SystemExit(
-                f"--data-parallel-size {dp} x --tensor-parallel-size {tp} "
-                f"({world} ranks) must equal --num-nodes {nodes} x "
-                f"--local-devices {local_ranks(args)}: the world is one "
-                "dp x tp mesh")
+                f"--data-parallel-size {dp} x --pipeline-parallel-size "
+                f"{pp} x --tensor-parallel-size {tp} ({world} ranks) must "
+                f"equal --num-nodes {nodes} x --local-devices "
+                f"{local_ranks(args)}: the world is one dp x pp x tp mesh")
         if nodes > 1 and not args.jax_coordinator:
             raise SystemExit("--jax-coordinator required with --num-nodes>1")
     if (args.host_cache_bytes > 0 or args.disk_cache_bytes > 0) \
@@ -261,6 +277,34 @@ def refuse_unported(args: argparse.Namespace) -> None:
         raise SystemExit(f"--attn-impl {args.attn_impl}: the port serves "
                          "auto only (its CUDA kernels on the GPU, their "
                          "plain versions on the CPU)")
+
+
+def refuse_pp(args: argparse.Namespace, cfg: ModelConfig) -> None:
+    """The reference worker's checks of ``--pipeline-parallel-size``
+    against the model, in its words: layers the stages divide, a family
+    with a stage adapter; and its warning for MoE dispatch drops, which
+    the stages do not count."""
+    pp = args.pipeline_parallel_size
+    if pp <= 1:
+        return
+    from dynamo_tpu_torch.parallel.pipeline import stage_adapter_for
+    if cfg.num_layers % pp:
+        raise SystemExit(
+            f"model has {cfg.num_layers} layers — not divisible by "
+            f"--pipeline-parallel-size {pp}")
+    if stage_adapter_for(cfg) is None:
+        # only families with a stage adapter (the Llama tree, Gemma-2,
+        # MoE) may stage; an MLA model run through another family's
+        # layers would serve silently wrong outputs
+        raise SystemExit(
+            f"--pipeline-parallel-size has no stage adapter for "
+            f"{cfg.model_type!r}; this family is served by tp/dp/sp "
+            f"instead")
+    if cfg.num_experts and cfg.moe_backend == "dispatch":
+        logger.warning(
+            "MoE dispatch drop accounting is not surfaced under "
+            "--pipeline-parallel-size: worker_stats.moe_dropped_tokens "
+            "will read 0 even when experts overflow capacity")
 
 
 def arm_guided(engine, card) -> None:
@@ -292,6 +336,7 @@ def build_engine(args: argparse.Namespace, world=None) -> TorchEngine:
         cfg = ModelConfig.from_pretrained(args.model_path, dtype=args.dtype)
     if args.moe_backend is not None and cfg.num_experts:
         cfg = dataclasses.replace(cfg, moe_backend=args.moe_backend)
+    refuse_pp(args, cfg)
     engine_cfg = TorchEngineConfig(
         num_pages=args.num_pages, page_size=args.page_size,
         max_num_seqs=args.max_num_seqs,
@@ -322,6 +367,7 @@ def build_engine(args: argparse.Namespace, world=None) -> TorchEngine:
         return build_rank_engine(
             cfg, engine_cfg, world,
             MeshSpec(dp=args.data_parallel_size,
+                     pp=args.pipeline_parallel_size,
                      tp=args.tensor_parallel_size), params=params)
     return TorchEngine(cfg, params, engine_cfg, device=device)
 
@@ -705,7 +751,8 @@ async def _serve(args: argparse.Namespace, world) -> None:
         system.register_drain(drain)
     par = ("" if world is None else
            f", world {world.world}, backend {world.backend}, fused blocks "
-           f"{engine.block_mode}, mesh dp {args.data_parallel_size} x tp "
+           f"{engine.block_mode}, mesh dp {args.data_parallel_size} x pp "
+           f"{args.pipeline_parallel_size} x tp "
            f"{args.tensor_parallel_size}")
     print(f"torch worker serving model {card.name} on {engine.device} "
           f"(disagg={args.disagg}{par})", flush=True)

@@ -15,8 +15,9 @@
   a peer (merged frames of the whole kv heads, the aggregated worker's
   blocks); SIGTERM on that world's leader drains it and releases its
   follower.
-- The flags the port does not serve exit naming ROADMAP A13b: pipeline
-  and sequence parallelism.
+- The flag the port does not serve exits naming ROADMAP A13b: sequence
+  parallelism, alone or beside the served axes (pipeline parallelism is
+  served: ``tests/test_torch_parallel_pp.py``).
 - The profiler's tp=2 sweep config runs over a rank group and writes the
   reference's schema.
 
@@ -337,7 +338,7 @@ def test_sigterm_drains_a_world_leader_and_releases_its_follower(stacks):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--pipeline-parallel-size", "2"],
+    ["--sequence-parallel-size", "2", "--data-parallel-size", "2"],
     ["--sequence-parallel-size", "2"],
 ])
 def test_world_refusals_name_a13b(flags):

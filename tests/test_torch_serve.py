@@ -306,7 +306,7 @@ NAMED["worker/main.py"] = [
     ('            raise SystemExit("--jax-coordinator required with '
      '--num-nodes>1")',
      "not ported yet (ROADMAP A13b)",
-     "pipeline and sequence parallelism exit naming ROADMAP A13b (dp, the "
+     "sequence parallelism exits naming ROADMAP A13b (dp, pp, the "
      "disaggregated roles and the KVBM tiers serve at any world size)"),
 ]
 
@@ -774,11 +774,13 @@ def test_processes_serve_over_http(model_dir, reference_texts, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    # tensor and data parallelism are served
-    # (tests/test_torch_parallel_worker.py); pipeline and sequence
-    # parallelism name ROADMAP A13b, with data parallelism beside them too
-    (["--pipeline-parallel-size", "2"], "A13"),
-    (["--data-parallel-size", "2", "--pipeline-parallel-size", "2"], "A13"),
+    # tensor, data and pipeline parallelism are served
+    # (tests/test_torch_parallel_worker.py, test_torch_parallel_pp.py);
+    # sequence parallelism names ROADMAP A13b, with the served axes
+    # beside it too
+    (["--tensor-parallel-size", "2", "--sequence-parallel-size", "2"],
+     "A13"),
+    (["--data-parallel-size", "2", "--sequence-parallel-size", "2"], "A13"),
     (["--sequence-parallel-size", "2"], "A13"),
 ])
 def test_worker_refuses_unported_flags(model_dir, flags, item):

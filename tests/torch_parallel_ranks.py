@@ -27,6 +27,13 @@ Cases:
 A forward case over a mesh with ``dp`` runs each rank's rows of every
 step (``DpRows``) and gathers the logits over ``dp``.
 
+- ``pipeline``: ``parallel/pipeline.pipeline_forward`` on this rank's
+  stage (``pp_sharding_fns`` over the case's mesh) through the case's
+  steps at the case's microbatch count, each step through the attention
+  its ``attn`` names (None: the plain paged attention; ``"decode"``: the
+  decode kernel's wrapper); the logits (gathered over ``dp``), this
+  rank's coordinates and its cache slab after the steps.
+
 The workloads are plain functions of (engine, request classes, and for
 the KV data plane a namespace of the package's modules), so the tests run
 them on ``JaxEngine`` too.
@@ -121,6 +128,93 @@ async def spec_workload(engine, Req, Samp, Stop) -> dict:
         for rid, pr, n, kw in reqs], aside())
     out = dict(zip([r[0] for r in reqs], res))
     out["embed"], out["score"] = emb, scored
+    return out
+
+
+async def pp_workload(engine, Req, Samp, Stop) -> dict:
+    """Pipeline serving: two prompts (one past a prefill chunk) greedy and
+    a seeded draw decode through fused blocks, a third arrives while they
+    decode (mixed steps); then a greedy request whose logit bias fills
+    the penalty window, so its decode runs per step, chained."""
+    p = _prompts(47, [40, 10, 7, 12])
+    first = [("p0", p[0], 12, dict(temperature=0.0)),
+             ("p1", p[1], 10, dict(temperature=0.8, seed=7))]
+    started = asyncio.Event()
+
+    async def after(rid, prompt, n, kw):
+        await started.wait()
+        return await _stream(engine, _req(Req, Samp, Stop, rid, prompt, n,
+                                          **kw))
+
+    async def first_of(rid, prompt, n, kw):
+        toks, lps, last = [], [], None
+        async for frame in engine.generate(_req(Req, Samp, Stop, rid, prompt,
+                                                n, **kw)):
+            if frame.error:
+                return {"error": frame.error}
+            toks += list(frame.token_ids)
+            lps += list(frame.log_probs or [])
+            last = frame
+            if len(toks) >= 2:
+                started.set()
+        return {"tokens": toks, "logprobs": [float(x) for x in lps],
+                "finish": last.finish_reason.value}
+
+    res = await asyncio.gather(
+        *[first_of(*r) for r in first],
+        after("p2", p[2], 8, dict(temperature=0.0)))
+    out = dict(zip(["p0", "p1", "p2"], res))
+    out["q0"] = await _stream(engine, _req(
+        Req, Samp, Stop, "q0", p[3], 10, temperature=0.0,
+        logit_bias={5: 0.5, 9: -0.5, 11: 0.25}))
+    return out
+
+
+async def ppkv_workload(engine, Req, Samp, Stop, ns) -> dict:
+    """The KV data plane of a layer-staged world and a one-rank engine of
+    the same tree (``ns["one"]()``): both serve prompt ``a`` and export its
+    blocks as merged frames; the world's frames are injected into the
+    emptied one-rank engine and the one-rank engine's into the emptied
+    world (each rank its slice of every scatter); both gather the blocks
+    again; then ``b``, which extends ``a``, is served on the world."""
+    xfer, tok = ns["transfer"], ns["tokens"]
+    ps = engine.allocator.page_size
+    pa = _prompts(43, [26])[0]
+    tail = _prompts(44, [5])[0]
+    hashes = tok.compute_block_hash_for_seq(pa, ps)
+    greedy = dict(temperature=0.0)
+
+    def pages_of(eng):
+        by_hash = eng.allocator._by_hash
+        return np.asarray(eng.gather_pages_host([by_hash[h]
+                                                 for h in hashes]))
+
+    async def export(eng):
+        return _frames_out(await eng.run_exclusive(
+            xfer.export_frames, eng, hashes, "layer", 4))
+
+    async def inject(eng, frames):
+        await eng.run_exclusive(eng.allocator.clear)
+        for meta, raw in frames:
+            await eng.run_exclusive(xfer.inject_frame, eng,
+                                    dict(meta, _raw=raw))
+        return await eng.run_exclusive(pages_of, eng)
+
+    out = {"a": await _stream(engine, _req(Req, Samp, Stop, "a", pa, 4,
+                                           **greedy))}
+    out["frames"] = await export(engine)
+    out["pages"] = await engine.run_exclusive(pages_of, engine)
+    one = ns["one"]()
+    try:
+        out["one_a"] = await _stream(one, _req(Req, Samp, Stop, "a", pa, 4,
+                                               **greedy))
+        out["one_frames"] = await export(one)
+        out["one_pages"] = await inject(one, out["frames"])
+    finally:
+        await one.stop()
+    out["back"] = await inject(engine, out["one_frames"])
+    out["b"] = await _stream(engine, _req(Req, Samp, Stop, "b", pa + tail,
+                                          4, **greedy))
     return out
 
 
@@ -344,6 +438,7 @@ async def kvbm_sampled_workload(engine, Req, Samp, Stop, ns,
 
 WORKLOADS = {"serve": serve_workload, "spec": spec_workload,
              "moe": moe_workload, "fail": fail_workload, "dp": dp_workload,
+             "pp": pp_workload, "ppkv": ppkv_workload,
              "kv": kv_workload, "kvbm": kvbm_workload,
              "kvbm_sampled": kvbm_sampled_workload,
              "kvfail": kvfail_workload}
@@ -401,6 +496,41 @@ def run_forward(case: dict, world) -> dict:
             if len(out) > 2:
                 drops.append(int(out[2]["moe_dropped_assignments"]))
     return {"logits": logits, "drops": drops}
+
+
+def run_pipeline(case: dict, world) -> dict:
+    from dynamo_tpu_torch.models import get_family
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops.kernels.decode import \
+        paged_decode_attention_stacked
+    from dynamo_tpu_torch.parallel.mesh import DpRows, MeshSpec, make_mesh
+    from dynamo_tpu_torch.parallel.pipeline import (pipeline_forward,
+                                                    pp_sharding_fns)
+    cfg = ModelConfig(**case["cfg"])
+    mesh = make_mesh(MeshSpec(**case["mesh"]))
+    shard_params, shard_pages = pp_sharding_fns(mesh, cfg)
+    params = shard_params(_params(cfg, case["tree"]))
+    pages = shard_pages(get_family(cfg).make_pages(
+        cfg, case["num_pages"], case["page_size"]))
+    attn = {None: None, "decode": paged_decode_attention_stacked}
+    logits = []
+    with torch.no_grad():
+        for st in case["steps"]:
+            t = {k: torch.from_numpy(np.asarray(v)) for k, v in st.items()
+                 if k != "attn"}
+            B = t["tokens"].shape[0]
+            dp = None
+            if DpRows.split(mesh, B):
+                dp = DpRows(mesh, B // mesh.shape["dp"], t["table"])
+                t = {k: dp.local(v) for k, v in t.items()}
+            lg, _ = pipeline_forward(
+                params, cfg, t["tokens"], t["positions"], pages, t["table"],
+                t["total"], t["new"], mesh=mesh,
+                n_microbatches=case.get("micro"),
+                attn_impl=attn[st.get("attn")], dp=dp)
+            logits.append((lg if dp is None else dp.gather(lg)).numpy())
+    return {"logits": logits, "coords": dict(mesh.coords),
+            "cache": pages.numpy().copy()}
 
 
 def _record_steps(engine) -> list:
@@ -489,8 +619,13 @@ def run_engine(case: dict, world) -> dict:
     engine.step_tap = tap_on
     work = WORKLOADS[case["workload"]]
     extra = {}
-    if case["workload"] in ("kv", "kvbm", "kvbm_sampled", "kvfail"):
+    if case["workload"] in ("kv", "kvbm", "kvbm_sampled", "kvfail", "ppkv"):
         extra["ns"] = port_ns()
+    if case["workload"] == "ppkv":
+        from dynamo_tpu_torch.engine.torch_engine import TorchEngine
+        extra["ns"]["one"] = lambda: TorchEngine(
+            cfg, _params(cfg, case["tree"]),
+            TorchEngineConfig(**case["engine"]), device="cpu")
     if case.get("disk_path"):
         extra["disk_path"] = case["disk_path"]
     if case.get("ref_frames"):
@@ -556,7 +691,8 @@ def main(argv) -> int:
                                           timeout=datetime.timedelta(
                                               seconds=120))
         for case in spec["cases"]:
-            run = run_forward if case["kind"] == "forward" else run_engine
+            run = {"forward": run_forward, "pipeline": run_pipeline,
+                   "engine": run_engine}[case["kind"]]
             results[case["name"]] = run(case, world)
     except Exception:  # noqa: BLE001 — reported through the results file
         results["error"] = traceback.format_exc()
