@@ -165,9 +165,9 @@ warm, graph vs eager) and per step; then:
    then dp=2 (``dp_forward_rank``): phase 3's steps, each rank its row of
    the whole model, within phase 3's gate, both replicas' caches
    byte-equal at every written page, both ranks launching B1-B3; then a
-   ``MeshSpec(dp=2)`` engine (``dp_serve_rank``) serves six of phase 4's
-   requests (greedy, an unseeded and a seeded draw, two arriving while
-   the others decode; fused blocks): every request its tokens, split
+   ``MeshSpec(dp=2)`` engine (``dp_serve_rank``) serves four of phase 4's
+   requests (two greedy, then an unseeded and a seeded draw arriving
+   while those decode; fused blocks): every request its tokens, split
    dispatches and blocks counted, both replicas' caches byte-equal at
    every held page, both ranks launching B1-B3; then pp=2
    (``pp_forward_rank``): phase 3's steps through
@@ -180,7 +180,22 @@ warm, graph vs eager) and per step; then:
    decode; fused blocks and mixed steps): every request its tokens, the
    greedy ones beside phase 4's, the first prompt's blocks gathered from
    the stages and injected as merged frames into a tp=1 engine
-   byte-equal, both ranks launching B1-B3. (b) The frontend and one
+   byte-equal, both ranks launching B1-B3; then sp=2
+   (``sp_forward_rank``): a 4096-token prompt through
+   ``parallel/ring_prefill.ring_prefill`` (each rank half the positions,
+   the K/V round the ring, every position written by both replicas),
+   then a prompt sharing its first 64 pages with a 1024-token novel tail
+   (the ring merged with the cached prefix), then two decode steps of
+   both through B1 over the ring-written cache: rank 0's logits within
+   phase 3's gate rule of a tp=1 kernel forward's (B2 chunks of 512, B1),
+   the tolerance 1.5 times that forward's distance to the oracle's on the
+   same step, each layer's cache distance to the tp=1 kernel cache
+   reported, both replicas' ring caches byte-equal, both ranks launching
+   B1; then a ``MeshSpec(sp=2)`` engine (``sp_serve_rank``) serves a
+   short prompt, a 2048-token one (one ring step) and a short one
+   arriving while they decode (a mixed step): every request its tokens,
+   exactly one ring step, both replicas' caches byte-equal at every held
+   page, both ranks launching B1-B3. (b) The frontend and one
    worker with ``--tensor-parallel-size 2 --random-weights
    --dist-backend`` on phase 5's model directory (``tp_serve``): phase
    5's identity pass (every answer checked; each chat's tokens against
@@ -265,8 +280,9 @@ expert backends (``launches_moe``), Gemma-2-9B's and Llama-3.2-1B's fused
 serves (``launches_gemma9b``, ``launches_llama1b``) and the GGUF model's
 serve (``launches_gguf``), and phase 8's per rank, its rank processes'
 (``launches_tp_forward``: the tp=2 forward, the KV plane's engine, the
-dp=2 forward, the dp=2 engine's serve, the pp=2 forward and the pp=2
-engine's serve) and its workers'
+dp=2 forward, the dp=2 engine's serve, the pp=2 forward, the pp=2
+engine's serve, the sp=2 forward and the sp=2 engine's serve; the sp
+checks' alone in ``launches_sp``) and its workers'
 (``launches_tp_serve``: the tp=2 worker's ranks; ``launches_tp_disagg``:
 the prefill world's ranks and the decode worker); for
 the latent kernels, DeepSeek's serves on the dispatch backend
@@ -4798,7 +4814,7 @@ def moe_phases(failures, profile):
 
 
 
-# -- phase 8: a world of two ranks: tp, the KV data plane over it, dp, pp ---
+# -- phase 8: two ranks: tp, the KV data plane over it, dp, pp, sp ---------
 
 TP_WORLD = 2
 TP_PROBE_TIMEOUT_S = 90
@@ -4818,8 +4834,8 @@ def tp_rank_main(spec_path: str, local_rank: int) -> int:
     on the spec's backend and runs the spec's task; each writes its result
     to ``<out>.<rank>``. Tasks: ``probe`` (one all-reduce) and ``forward``
     (``tp_forward_rank``, then ``tp_kv_rank``, ``dp_forward_rank``,
-    ``dp_serve_rank``, ``pp_forward_rank`` and ``pp_serve_rank`` in the
-    same processes)."""
+    ``dp_serve_rank``, ``pp_forward_rank``, ``pp_serve_rank``,
+    ``sp_forward_rank`` and ``sp_serve_rank`` in the same processes)."""
     import datetime
     from dynamo_tpu_torch.parallel import multihost as mh
     with open(spec_path) as f:
@@ -4856,6 +4872,10 @@ def tp_rank_main(spec_path: str, local_rank: int) -> int:
             out["pp"] = pp_forward_rank(world, ctx)
             out["pp"]["seconds"] = time.perf_counter() - t0
             out["pp_serve"] = pp_serve_rank(world, ctx)
+            t0 = time.perf_counter()
+            out["sp"] = sp_forward_rank(world, ctx)
+            out["sp"]["seconds"] = time.perf_counter() - t0
+            out["sp_serve"] = sp_serve_rank(world, ctx)
     except Exception:                      # noqa: BLE001 — reported
         out["error"] = traceback.format_exc()
     finally:
@@ -5254,17 +5274,17 @@ def _page_digests(pages) -> dict:
             for i, p in enumerate(held.tolist())}
 
 
-# 8(a)'s dp serve: six of phase 4's prompts, 16 tokens each; requests 2
-# and 3 sample (3 seeded), 4 and 5 arrive while the others decode
-DP_SERVE_N, DP_SERVE_TOKENS, DP_SERVE_PAGES = 6, 16, 512
+# 8(a)'s dp serve: four of phase 4's prompts, 16 tokens each; requests 2
+# and 3 sample (3 seeded) and arrive while the others decode
+DP_SERVE_N, DP_SERVE_TOKENS, DP_SERVE_PAGES = 4, 16, 512
 
 
 def dp_serve_rank(world, ctx) -> dict:
     """Phase 8(a), dp through the engine on the same two ranks: a
     ``TorchEngine`` over ``MeshSpec(dp=2)`` (``build_rank_engine``: the
     whole tree on each rank), rank 0 scheduling, the other following.
-    ``DP_SERVE_N`` of phase 4's prompts: greedy, an unseeded and a seeded
-    draw, two arriving while the others decode (mixed steps); steady
+    ``DP_SERVE_N`` of phase 4's prompts: greedy, then an unseeded and a
+    seeded draw arriving while those decode (mixed steps); steady
     batches run as fused blocks (eager over gloo), each rank its rows
     (the batch's rows split over dp, every row's K/V written by each
     replica, the packed outputs gathered over dp). Rank 0 returns each
@@ -5514,6 +5534,245 @@ def pp_serve_rank(world, ctx) -> dict:
     else:
         mh.follow_steps(world.fanout, eng)
     torch.cuda.synchronize()
+    out["launches"] = {k: LAUNCHES.get(k, 0) - before[k] for k in TP_B}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+SP_WORLD = 2                 # sequence-parallel ranks of 8(a)'s sp checks
+# 8(a)'s ring forward: a novel prompt of SP_PROMPT tokens, then one that
+# shares its first SP_PREFIX_PAGES pages and adds a novel tail of SP_TAIL
+# (a prefix-hit ring step), then SP_DECODE decode steps of both rows (B1)
+# over the ring-written cache; the tp=1 references prefill in chunks of
+# SP_CHUNK (phase 3's)
+SP_PROMPT, SP_PREFIX_PAGES, SP_TAIL, SP_CHUNK, SP_DECODE = \
+    4096, 64, 1024, 512, 2
+# 8(a)'s sp serve: request 0 (short, a pure prefill: B2), 1 (long: the
+# ring step), 2 (short, arriving once 1 decodes: a mixed step, B3);
+# greedy, SP_SERVE_TOKENS each; the ring threshold is the chunk budget
+SP_SERVE_LENS, SP_SERVE_TOKENS = (384, 2048, 256), 16
+SP_SERVE_SIZES = dict(SERVE_SIZES, num_pages=1024, max_context=8192)
+
+
+def sp_plan(V: int, rng, dev):
+    """The ring forward's steps, each (tokens, positions, table, total,
+    new) on ``dev``: the novel prompt's whole prefill (row 0 of the table:
+    its pages and one for its decode steps), the prefix-hit prompt's tail
+    (row 1: the first SP_PREFIX_PAGES of row 0's pages, then its tail's
+    and one more), then SP_DECODE decode steps of both rows (seeded
+    tokens). Returns (prefills, decodes, the table, pages per cache)."""
+    n_a, n_b = SP_PROMPT // PS, SP_TAIL // PS
+    table = np.zeros((2, n_a + 8), np.int32)
+    table[0, :n_a + 1] = np.arange(1, n_a + 2)
+    table[1, :SP_PREFIX_PAGES] = np.arange(1, SP_PREFIX_PAGES + 1)
+    table[1, SP_PREFIX_PAGES:SP_PREFIX_PAGES + n_b + 1] = np.arange(
+        n_a + 2, n_a + n_b + 3)
+    a = rng.integers(0, V, size=SP_PROMPT)
+    tail = rng.integers(0, V, size=SP_TAIL)
+    start = SP_PREFIX_PAGES * PS
+    ends = np.array([SP_PROMPT, start + SP_TAIL])
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+    prefills = [(t(a[None]), t(np.arange(SP_PROMPT)[None]), t(table[0:1]),
+                 t([SP_PROMPT]), t([SP_PROMPT])),
+                (t(tail[None]), t(np.arange(start, ends[1])[None]),
+                 t(table[1:2]), t(ends[1:]), t([SP_TAIL]))]
+    decodes = [(t([[7 + 2 * i], [9 + 2 * i]]), t((ends + i)[:, None]),
+                t(table), t(ends + i + 1), t([1, 1]))
+               for i in range(SP_DECODE)]
+    return prefills, decodes, table, n_a + n_b + 3
+
+
+def sp_forward_rank(world, ctx) -> dict:
+    """Phase 8(a), sequence parallelism on the same two ranks: a
+    ``MeshSpec(sp=2)`` mesh, the whole tree on each rank (replicated over
+    sp). First the tp=1 references, each on a cache of its own, the two
+    at once: rank 0 through the kernels, rank 1 through the oracle
+    (``paged_attention``), which hands its logits to rank 0 over the
+    world's gloo group: SP_PROMPT's prefill in chunks of SP_CHUNK (B2),
+    then the prefix-hit prompt's tail the same way over the cached
+    prefix, then SP_DECODE decode steps of both rows (B1). Then both ranks
+    run ``parallel/ring_prefill.ring_prefill`` on the two prompts (each
+    rank half the positions, the K/V round the ring, every position
+    written by both replicas; the second prompt's prefix merged from the
+    cache) and the decode steps through B1 over the ring-written cache.
+    Rank 0 holds every logits row to the tp=1 kernel's under phase 3's
+    gate rule, scaled by the kernel-vs-oracle distance of the same step;
+    it reports each layer's largest cache difference from the tp=1
+    kernel cache (not gated: the GEMMs see other row counts); every rank
+    returns a digest of every written page of its ring cache (the
+    replicas must be byte-equal) and its launches of B1-B3."""
+    from dynamo_tpu_torch.models import get_family
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from dynamo_tpu_torch.parallel.ring_prefill import ring_prefill
+    cfg = llama_cfg()
+    fam = get_family(cfg)
+    dev = world.device
+    full = ctx["full"]
+    kernel, _plain, oracle = llama_impls()
+    prefills, decodes, table, num_pages = sp_plan(
+        cfg.vocab_size, np.random.default_rng(11), dev)
+    mesh = make_mesh(MeshSpec(sp=world.world))
+    written = torch.tensor(sorted({int(p) for p in table.reshape(-1) if p}),
+                           device=dev)
+    out = {"steps": {}}
+    times = out["times"] = {}
+    with torch.no_grad():
+        # the tp=1 references: the kernels on rank 0, the oracle on rank 1
+        t0 = time.perf_counter()
+        use = "kernel" if world.leader else "oracle"
+        kc = fam.make_pages(cfg, num_pages, PS, device=dev)
+        ref = []
+        for toks, pos, tbl, total, new in prefills:
+            n0 = int(pos[0, 0])
+            for c0 in range(0, toks.shape[1], SP_CHUNK):
+                c1 = c0 + SP_CHUNK
+                lg = fam.forward(
+                    full, cfg, toks[:, c0:c1], pos[:, c0:c1], kc, tbl,
+                    torch.full_like(total, n0 + c1),
+                    torch.full_like(new, SP_CHUNK),
+                    attn_impl=(kernel["prefill"] if use == "kernel"
+                               else oracle))[0]
+            ref.append(lg)
+        for step in decodes:
+            ref.append(fam.forward(
+                full, cfg, *step[:2], kc, *step[2:],
+                attn_impl=(kernel["decode"] if use == "kernel"
+                           else oracle))[0])
+        if not world.leader:
+            del kc
+        # rank 1's oracle logits to rank 0, through the host (gloo)
+        import torch.distributed as dist
+        flat = torch.cat([x.float().reshape(-1) for x in ref]).cpu()
+        dist.broadcast(flat, src=1)
+        oracle_ref = [x.reshape(r.shape).to(dev) for x, r in zip(
+            flat.split([r.numel() for r in ref]), ref)]
+        torch.cuda.synchronize()
+        times["references"] = time.perf_counter() - t0
+        # the launches of this rank's ring forward and of the decode over
+        # its cache (the tp=1 references are not counted)
+        before = {k: LAUNCHES.get(k, 0) for k in TP_B}
+        pages = fam.make_pages(cfg, num_pages, PS, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [ring_prefill(full, cfg, *step[:2], pages, *step[2:],
+                            mesh=mesh)[0] for step in prefills]
+        torch.cuda.synchronize()
+        out["ring_s"] = times["ring"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for step in decodes:
+            got.append(fam.forward(full, cfg, *step[:2], pages, *step[2:],
+                                   attn_impl=kernel["decode"])[0])
+        torch.cuda.synchronize()
+        times["decode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        names = (["ring", "prefix-hit ring"]
+                 + [f"decode {i + 1}" for i in range(SP_DECODE)])
+        if world.leader:
+            for i, name in enumerate(names):
+                lk, lo, lr = ref[i], oracle_ref[i], got[i]
+                odiff = float((lk - lo).abs().max())
+                out["steps"][name] = {
+                    "diff": float((lr - lk).abs().max()),
+                    "tol": LOGITS_VS_ORACLE * odiff, "odiff": odiff,
+                    "vs_oracle": float((lr - lo).abs().max()),
+                    "finite": bool(torch.isfinite(lr).all()),
+                    "argmax_same": float((lr.argmax(-1)
+                                          == lk.argmax(-1)).float().mean())}
+            out["layer_max"] = [float((pages[layer].index_select(0, written)
+                                       .float() - kc[layer].index_select(
+                                           0, written).float()).abs().max())
+                                for layer in range(cfg.num_layers)]
+            del kc
+        out["sha"] = _sha(pages.index_select(1, written))
+        times["checks"] = time.perf_counter() - t0
+    out["launches"] = {k: LAUNCHES.get(k, 0) - before[k] for k in TP_B}
+    del pages, ref, oracle_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_serve_rank(world, ctx) -> dict:
+    """Phase 8(a), sequence parallelism through the engine on the same two
+    ranks: a ``TorchEngine`` over ``MeshSpec(sp=2)`` (``build_rank_engine``:
+    the whole tree on each rank), rank 0 scheduling, the other following.
+    The SP_SERVE_LENS prompts, greedy: request 0 (a chunked prefill),
+    request 1 (past the chunk budget: one ring step over both ranks),
+    request 2 once request 1 decodes (a mixed step); the decode of all
+    three replicated on both ranks (fused blocks, eager over gloo). Rank
+    0 returns the tokens, the counters and the ring steps; every rank a
+    digest of each page its cache holds (the replicas must be byte-equal)
+    and its launches of B1-B3. The ring's numbers against tp=1 are
+    ``sp_forward_rank``'s logits checks."""
+    from dynamo_tpu_torch.engine.torch_engine import TorchEngineConfig
+    from dynamo_tpu_torch.ops.kernels import LAUNCHES
+    from dynamo_tpu_torch.parallel import multihost as mh
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec
+    from dynamo_tpu_torch.protocols.common import (PreprocessedRequest,
+                                                   SamplingOptions,
+                                                   StopConditions)
+    cfg = llama_cfg()
+    before = {k: LAUNCHES.get(k, 0) for k in TP_B}
+    eng = mh.build_rank_engine(cfg, TorchEngineConfig(**SP_SERVE_SIZES),
+                               world, MeshSpec(sp=world.world),
+                               params=ctx["full"])
+    rng = np.random.default_rng(13)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, size=n)))
+               for n in SP_SERVE_LENS]
+    out = {}
+
+    def serve_on(engine, tag, close):
+        """Serve the prompts on ``engine`` and stop it (then ``close``,
+        on its step thread); (streams, seconds)."""
+        started = asyncio.Event()
+        streams = {}
+
+        async def one(i):
+            if i == 2:
+                await started.wait()
+            req = PreprocessedRequest(
+                token_ids=prompts[i], request_id=f"{tag}{i}",
+                stop_conditions=StopConditions(max_tokens=SP_SERVE_TOKENS,
+                                               ignore_eos=True),
+                sampling_options=SamplingOptions(temperature=0.0))
+            toks, fin = [], None
+            async for frame in engine.generate(req):
+                if frame.error:
+                    raise AssertionError(f"{tag} request {i}: "
+                                         f"{frame.error}")
+                toks += frame.token_ids
+                fin = frame.finish_reason
+                if i == 1 and len(toks) >= 2:
+                    started.set()
+            streams[i] = {"tokens": toks, "finish": fin.value}
+
+        async def run():
+            try:
+                await asyncio.gather(*(one(i) for i in range(3)))
+            finally:
+                await engine.stop()
+                await engine.run_on_step_thread(close)
+        t0 = time.perf_counter()
+        asyncio.run(asyncio.wait_for(run(), SERVE_TIMEOUT_S))
+        return streams, time.perf_counter() - t0
+
+    if world.leader:
+        fanout = mh.StepFanout(world.fanout)
+        fanout.install(eng)
+        streams, secs = serve_on(eng, "sp", fanout.close)
+        out.update(streams=streams, seconds=secs, counters={
+            k: getattr(eng, k) for k in ("ring_steps", "mixed_steps",
+                                         "multistep_blocks",
+                                         "decode_dispatches")})
+    else:
+        mh.follow_steps(world.fanout, eng)
+    torch.cuda.synchronize()
+    out["pages"] = _page_digests(eng.pages)
     out["launches"] = {k: LAUNCHES.get(k, 0) - before[k] for k in TP_B}
     del eng
     gc.collect()
@@ -5856,10 +6115,15 @@ def phase_tp() -> dict:
     each rank) and pp=2 (``pp_forward_rank``: phase 3's gate at one and
     two microbatches, each stage's slab against the tp=1 cache; then
     ``pp_serve_rank``: the pp=2 engine's serve, its frames byte-equal in a
-    tp=1 engine, B1-B3 on each rank), and (b) ``tp_serve`` (the tp=2 worker) and
+    tp=1 engine, B1-B3 on each rank) and sp=2 (``sp_forward_rank``: the
+    ring's logits, novel and prefix-hit, and B1 decode over its cache
+    under phase 3's gate, the replicas' ring caches byte-equal; then
+    ``sp_serve_rank``: the sp=2 engine's serve, one ring step, caches
+    equal, B1-B3 on each rank), and (b) ``tp_serve`` (the tp=2 worker) and
     ``tp_disagg_serve`` (the tp=2 prefill world and a tp=1 decode
-    worker). Returns {"forward": {rank: launches}, "serve": {rank:
-    launches}, "disagg": {rank or "decode": launches}}."""
+    worker). Returns {"forward": {rank: launches}, "sp": {rank: launches
+    of the sp checks}, "serve": {rank: launches}, "disagg": {rank or
+    "decode": launches}}."""
     cards = torch.cuda.device_count()
     if cards >= TP_WORLD:
         backend = "nccl"
@@ -5879,11 +6143,11 @@ def phase_tp() -> dict:
     tp_model_dir()
     agg = _Bringup(tp_serve_stack, backend)
     try:
-        fwd = phase_tp_ranks(backend)
+        fwd, sp = phase_tp_ranks(backend)
         serve = tp_serve(backend, agg.result())
     finally:
         agg.stop()
-    return {"forward": fwd, "serve": serve,
+    return {"forward": fwd, "sp": sp, "serve": serve,
             "disagg": tp_disagg_serve(backend, tp_disagg_stack(backend))}
 
 
@@ -5916,7 +6180,7 @@ class _Bringup:
             self.out.stop()
 
 
-def phase_tp_ranks(backend: str) -> dict:
+def phase_tp_ranks(backend: str) -> tuple:
     """Phase 8(a): the world of ``tp_rank_main`` processes and its checks
     (``check_world``)."""
     t0 = time.perf_counter()
@@ -5924,11 +6188,12 @@ def phase_tp_ranks(backend: str) -> dict:
     return check_world(got, backend, t0)
 
 
-def check_world(got: dict, backend: str, t0: float) -> dict:
+def check_world(got: dict, backend: str, t0: float) -> tuple:
     """Phase 8(a)'s checks of the rank processes' results (``tp_world``):
     the tp=2 forward, the KV plane, the dp=2 forward and serve, the pp=2
-    forward and serve (``check_pp``). Returns {rank: launches} over all
-    six."""
+    forward and serve (``check_pp``), the sp=2 forward and serve
+    (``check_sp``). Returns ({rank: launches} over all eight, {rank:
+    launches} of the sp checks alone)."""
     bad = [got[r]["error"] for r in range(TP_WORLD) if "error" in got[r]]
     if bad:
         raise AssertionError(f"tp forward failed: {bad[0]}\n{got['log']}")
@@ -6004,7 +6269,7 @@ def check_world(got: dict, backend: str, t0: float) -> dict:
             for i, v in sorted(dps["streams"].items())}
     log(f"[tp] dp={TP_WORLD} engine (MeshSpec(dp={TP_WORLD}), the whole "
         f"model on each rank) served {len(lens)} of phase 4's requests "
-        f"(2 sampled, 2 arriving while the others decode) in "
+        f"(2 sampled, arriving while the others decode) in "
         f"{dps['seconds']:.1f} s: (tokens, finish) {lens}; counters "
         f"{dps['counters']}; both replicas' caches byte-equal at every "
         f"held page ({len(got[0]['dp_serve']['pages'])} pages): {same}; "
@@ -6024,11 +6289,13 @@ def check_world(got: dict, backend: str, t0: float) -> dict:
                 raise AssertionError(f"dp serve: rank {r} never launched "
                                      f"{k}")
     ppl, psl = check_pp(got)
+    spl = check_sp(got)
     log(f"[tp] phase 8(a) in {time.perf_counter() - t0:.1f} s")
     fwd = {r: {k: fwd[r][k] + got[r]["kv"]["launches"][k] + dpl[r][k]
-               + sl[r][k] + ppl[r][k] + psl[r][k] for k in TP_B}
+               + sl[r][k] + ppl[r][k] + psl[r][k] + spl[r][k]
+               for k in TP_B}
            for r in range(TP_WORLD)}
-    return fwd
+    return fwd, spl
 
 
 def check_pp(got: dict) -> tuple:
@@ -6101,6 +6368,75 @@ def check_pp(got: dict) -> tuple:
                     raise AssertionError(f"{what}: rank {r} never "
                                          f"launched {k}")
     return ppl, psl
+
+
+def check_sp(got: dict) -> dict:
+    """Phase 8(a)'s sequence-parallel checks (``sp_forward_rank``,
+    ``sp_serve_rank``): the ring's logits (novel and prefix-hit) and the
+    decode steps over the ring-written cache under phase 3's gate rule,
+    the replicas' ring caches byte-equal, the sp=2 engine's serve (one
+    ring step, every request its tokens, the replicas' caches byte-equal),
+    B1 on each rank in the forward and B1-B3 on each rank in the serve.
+    Returns {rank: launches} over both."""
+    sp = {r: got[r]["sp"] for r in range(TP_WORLD)}
+    for name, st in sp[0]["steps"].items():
+        log(f"[tp] sp={SP_WORLD} {name} ({SP_PROMPT}-token prompt, then "
+            f"{SP_TAIL} tokens over a {SP_PREFIX_PAGES}-page prefix; each "
+            f"rank half the positions): logits vs the tp=1 kernel forward "
+            f"(B2 chunks of {SP_CHUNK}, B1) max|d|={st['diff']:.4e} (tol "
+            f"{st['tol']:.4e} = {LOGITS_VS_ORACLE} x kernel vs oracle "
+            f"{st['odiff']:.4e}); vs the oracle {st['vs_oracle']:.4e}; "
+            f"argmax agreement {st['argmax_same']:.3f}, "
+            f"finite={st['finite']}")
+        if not st["finite"] or st["diff"] > st["tol"]:
+            raise AssertionError(f"sp {name}: outside phase 3's gate")
+    lm = sp[0]["layer_max"]
+    same = sp[0]["sha"] == sp[1]["sha"]
+    fl = {r: sp[r]["launches"] for r in range(TP_WORLD)}
+    log(f"[tp] sp={SP_WORLD}: the two ring prefills in {sp[0]['ring_s']:.2f}"
+        f" s over gloo (a check of correctness, not a speed); the ring "
+        f"cache's largest distance to the tp=1 kernel cache at every "
+        f"written page, layer by layer (reported, not gated): "
+        f"{' '.join(f'{x:.3g}' for x in lm)} (largest {max(lm):.4e} at "
+        f"layer {lm.index(max(lm))}); both "
+        f"replicas' ring caches byte-equal: {same}; the sp checks in "
+        f"{sp[0]['seconds']:.1f} s (rank 0: "
+        f"{', '.join(f'{k} {v:.2f} s' for k, v in sp[0]['times'].items())}"
+        f"); launches per rank {fl}")
+    if not same:
+        raise AssertionError("the sp replicas' ring caches differ")
+    for r, n in fl.items():
+        if n.get("paged_decode", 0) <= 0:
+            raise AssertionError(f"sp forward: rank {r} never launched "
+                                 f"paged_decode over the ring cache")
+    sps = got[0]["sp_serve"]
+    sl = {r: got[r]["sp_serve"]["launches"] for r in range(TP_WORLD)}
+    same = got[0]["sp_serve"]["pages"] == got[1]["sp_serve"]["pages"]
+    lens = {i: (len(v["tokens"]), v["finish"])
+            for i, v in sorted(sps["streams"].items())}
+    log(f"[tp] sp={SP_WORLD} engine (MeshSpec(sp={SP_WORLD}), the whole "
+        f"model on each rank) served prompts of {SP_SERVE_LENS} tokens in "
+        f"{sps['seconds']:.1f} s over gloo: (tokens, finish) {lens}; "
+        f"counters {sps['counters']}; "
+        f"both replicas' caches byte-equal at every held page "
+        f"({len(got[0]['sp_serve']['pages'])} pages): {same}; launches per "
+        f"rank {sl}")
+    if not same:
+        raise AssertionError("the sp engine's replicas' caches differ")
+    if len(lens) != len(SP_SERVE_LENS) or any(
+            v != (SP_SERVE_TOKENS, "length") for v in lens.values()):
+        raise AssertionError("an sp request lost tokens")
+    if sps["counters"]["ring_steps"] != 1:
+        raise AssertionError(f"the sp engine ran "
+                             f"{sps['counters']['ring_steps']} ring steps, "
+                             f"not 1")
+    for r, n in sl.items():
+        for k in TP_B:
+            if n.get(k, 0) <= 0:
+                raise AssertionError(f"sp serve: rank {r} never launched "
+                                     f"{k}")
+    return {r: {k: fl[r][k] + sl[r][k] for k in TP_B}
+            for r in range(TP_WORLD)}
 
 
 SOURCES = {
@@ -6281,7 +6617,7 @@ def main() -> int:
                 planner = run_phase("planner", phase_planner,
                                     failures) or {}
                 # a world of two ranks (phase 8): tp, the KV data plane
-                # over its cache, dp, pp, and the disaggregated pair
+                # over its cache, dp, pp, sp, and the disaggregated pair
                 tp = run_phase("tp", phase_tp, failures) or {}
                 # head_dim 256 and 64, each alone on the card, then the
                 # GGUF and DeepSeek checkpoint loaders
@@ -6326,6 +6662,9 @@ def main() -> int:
             } if name in TP_B else None,
             "launches_tp_disagg": {
                 r: n.get(name) for r, n in tp.get("disagg", {}).items()
+            } if name in TP_B else None,
+            "launches_sp": {
+                r: n.get(name) for r, n in tp.get("sp", {}).items()
             } if name in TP_B else None,
             "max_abs_err": row["max_abs_err"],
             "max_err_ulps": row["max_err_ulps"], "ms": row["ms"],

@@ -77,24 +77,24 @@ The decode knobs left ``None`` in ``TorchEngineConfig`` resolve at build
 from ``RuntimeConfig`` and the short-form env (``DYN_DECODE_MULTISTEP``,
 ``DYN_MIXED_BATCH``, ``DYN_DECODE_PROGRESS``), as the reference's do.
 
-Tensor, expert, data and pipeline parallelism (``TorchEngineConfig.mesh``,
-with the ``shard_params_fn`` / ``shard_pages_fn`` hooks of
-``parallel/sharding.py`` or ``parallel/pipeline.py``): each rank is a
-process holding its slice of the weights and the cache, and its forwards
-run at its local shapes (``local_config``) with the model's
-collectives over the mesh's groups. Rank 0 schedules; before every
-dispatch it taps the dispatch's padded host arrays (``step_tap``, set by
-``parallel/multihost.StepFanout``) and runs ``_invoke_step`` /
-``_invoke_block`` on them, and a follower runs the same function on the
-same arrays (``execute_arrays``): steps, chained steps (on its own last
-packed output), verify steps, fused blocks (chained ones on its own last
-carry), embeddings and scoring. Every sampled token is the same on every
-rank, so the chained KV stays in step. On a rank of a world, every call of
-the loop that reaches a collective runs on one thread (the loop's
-``_step_executor``), the embeddings and scoring on the exclusive lane
-included. Fused blocks are captured as CUDA graphs over NCCL; over gloo (a
-group that cannot be captured) they run eagerly, as the engine's startup
-line says.
+Tensor, expert, data, pipeline and sequence parallelism
+(``TorchEngineConfig.mesh``, with the ``shard_params_fn`` /
+``shard_pages_fn`` hooks of ``parallel/sharding.py`` or
+``parallel/pipeline.py``): each rank is a process holding its slice of the
+weights and the cache, and its forwards run at its local shapes
+(``local_config``) with the model's collectives over the mesh's groups.
+Rank 0 schedules; before every dispatch it taps the dispatch's padded host
+arrays (``step_tap``, set by ``parallel/multihost.StepFanout``) and runs
+``_invoke_step`` / ``_invoke_block`` on them, and a follower runs the same
+function on the same arrays (``execute_arrays``): steps, chained steps (on
+its own last packed output), verify steps, fused blocks (chained ones on
+its own last carry), embeddings and scoring. Every sampled token is the
+same on every rank, so the chained KV stays in step. On a rank of a world,
+every call of the loop that reaches a collective runs on one thread (the
+loop's ``_step_executor``), the embeddings and scoring on the exclusive
+lane included. Fused blocks are captured as CUDA graphs over NCCL; over
+gloo (a group that cannot be captured) they run eagerly, as the engine's
+startup line says.
 
 Over ``dp`` the engine is the reference's dp-sharded one: the batch
 buckets' floors are ``dp`` and a ``max_num_seqs`` that ``dp`` does not
@@ -119,17 +119,27 @@ drops are not counted.
 The KV data plane on a world (the reference's multi-host branches): a
 page gather is fanned out as ``"gather"`` (every rank of the leader's
 ``pp`` x ``tp`` group reads its layers and heads of the pages, the leader
-assembles the whole transport array; ``dp`` replicas hold the same bytes
-and stay out), a host-values scatter as ``"scatter"`` with each rank's
-layers x heads slice sent to it alone, and a device-values scatter takes
-the host path. Each consumes a step id of its own, and its outcome joins
+assembles the whole transport array; ``dp`` and ``sp`` replicas hold
+the same bytes and stay out), a host-values scatter as ``"scatter"``
+with each rank's layers x heads slice sent to it alone, and a
+device-values scatter takes the host path. Each consumes a step id of its own, and its outcome joins
 the followers' cross-check. Work planned off the step thread that must
 issue a collective (a KVBM eviction's gather, planned by the scheduler)
 is deferred to the step thread, before its next fanned-out dispatch
 (``defer_to_step_thread``).
 
-Refused rather than approximated: sequence-parallel ring prefill (ROADMAP
-A13b item 4).
+Over ``sp`` (the reference's ``ring_threshold``, defaulting to the chunk
+budget when the mesh has ``sp`` > 1): the scheduler runs a prompt whose
+remaining tokens pass the threshold alone, as one ring step (``"ring"``:
+one row, its length padded to a power of two the sp ranks divide): the
+whole prompt through ``parallel/ring_prefill.py``, its sequence split over
+the sp ranks and its K/V going round them, a resident prefix merged from
+the cache; every replica writes every position, so the page pool stays
+replicated over sp, and every other step runs replicated on the sp ranks,
+through the kernels. The ring runs the Llama tree's dense layers, as the
+reference's does: the other families are refused under sp at
+construction (the reference fails on them at its first ring step), as is
+sp with pp.
 """
 
 from __future__ import annotations
@@ -285,7 +295,12 @@ class TorchEngineConfig:
     # whole parameter tree and cache to its shards
     shard_params_fn: Optional[Callable] = None
     shard_pages_fn: Optional[Callable] = None
+    # sequence-parallel long-prompt prefill: when ``mesh`` has an ``sp``
+    # axis > 1, prompts longer than ``ring_threshold`` (default: the chunk
+    # budget) prefill in ONE ring-attention step over the sp ranks instead
+    # of serial chunks (``parallel/ring_prefill.py``)
     mesh: Optional[object] = None
+    ring_threshold: Optional[int] = None
 
 
 # prompt-scoring chunk: each full chunk of the prompt is one forward whose
@@ -409,6 +424,22 @@ class TorchEngine(ScheduledEngineBase):
         self._dp = 1 if self.mesh is None else self.mesh.shape["dp"]
         # pipeline stages: every forward runs parallel/pipeline.py's ring
         self.pp = 1 if self.mesh is None else self.mesh.shape["pp"]
+        # sequence parallelism: long prompts take one ring prefill step
+        # over the sp ranks; every other step runs replicated over them
+        self._sp = 1 if self.mesh is None else self.mesh.shape["sp"]
+        if self._sp > 1:
+            if self.pp > 1:
+                raise ValueError("pipeline parallelism does not combine "
+                                 "with sp yet")
+            if self.family.__name__.rsplit(".", 1)[-1] != "llama":
+                # the ring runs the Llama tree's dense layers; the
+                # reference's ring step fails on these trees at its first
+                # long prompt (ROADMAP Queue C)
+                raise ValueError(
+                    f"sequence-parallel ring prefill runs the Llama "
+                    f"tree's dense layers and has no path for "
+                    f"{model_cfg.model_type!r}; serve this family with "
+                    f"tp/dp instead")
         # the reference's (ranks, axis) of the cache's placement: the kv
         # heads over tp ((1, -1): whole on every rank, as MLA's), the
         # layers over pp ((0, -1) when both split)
@@ -499,12 +530,18 @@ class TorchEngine(ScheduledEngineBase):
         self.mixed_batch = (bool(self.cfg.mixed_batch)
                             if self.cfg.mixed_batch is not None
                             else mixed_batch_default())
+        ring_threshold = None
+        if self._sp > 1:
+            ring_threshold = (self.cfg.ring_threshold
+                              if self.cfg.ring_threshold is not None
+                              else self.cfg.max_prefill_chunk)
         super().__init__(
             num_pages=self.cfg.num_pages, page_size=self.cfg.page_size,
             max_num_seqs=self.cfg.max_num_seqs,
             max_prefill_chunk=self.cfg.max_prefill_chunk,
             max_context=self.cfg.max_context,
             max_prefill_seqs=self.cfg.max_prefill_seqs,
+            ring_threshold=ring_threshold,
             spec_tokens=self.spec_K,
             spec_ngram_max=self.cfg.spec_ngram_max,
             spec_ngram_min=self.cfg.spec_ngram_min,
@@ -541,6 +578,7 @@ class TorchEngine(ScheduledEngineBase):
         self.chained_steps = 0       # of which pipelined (chained) steps
         self.multistep_blocks = 0    # of which fused blocks
         self.mixed_steps = 0         # mixed prefill+decode steps
+        self.ring_steps = 0          # sequence-parallel ring prefills
         # steps and fused blocks run split over dp (each replica its rows)
         self.dp_splits = 0
         # cache writes of the KV inject paths (engine/transfer.py, kvbm/):
@@ -1009,11 +1047,20 @@ class TorchEngine(ScheduledEngineBase):
                     top_k=np.zeros(B, np.int32),
                     top_p=np.ones(B, np.float32))
 
-    def _chunk_arrays(self, chunks) -> dict:
-        B = _bucket(len(chunks), self.cfg.min_prefill_seqs_bucket,
-                    self.cfg.max_num_seqs)
-        S = _bucket(max(c.length for c in chunks),
-                    self.cfg.min_prefill_bucket, self.cfg.max_prefill_chunk)
+    def _chunk_arrays(self, chunks, ring: bool = False) -> dict:
+        if ring:
+            # the whole prompt in one step: one row, its length padded to
+            # a power of two (bounded shapes) that the sp ranks divide
+            B = 1
+            S = _bucket(chunks[0].length, self.cfg.min_prefill_bucket,
+                        self.cfg.max_context)
+            S = -(-S // self._sp) * self._sp
+        else:
+            B = _bucket(len(chunks), self.cfg.min_prefill_seqs_bucket,
+                        self.cfg.max_num_seqs)
+            S = _bucket(max(c.length for c in chunks),
+                        self.cfg.min_prefill_bucket,
+                        self.cfg.max_prefill_chunk)
         a = self._empty_arrays(B, S)
         a["table"] = np.zeros((B, self.table_width), np.int32)
         for i, c in enumerate(chunks):
@@ -1252,20 +1299,22 @@ class TorchEngine(ScheduledEngineBase):
         if isinstance(plan, SpecDecodeBatch):
             return self._execute_spec(plan)
         mixed = isinstance(plan, MixedStepBatch)
-        if not mixed and plan.ring:
-            raise NotImplementedError(
-                "sequence-parallel ring prefill (ROADMAP A13b)")
+        ring = not mixed and plan.ring
         chunks = list(plan.chunks)
         if mixed:
             # decode rows ARE ragged chunks of length 1
             chunks += [PrefillChunk(seq=s, start=len(s) - 1, length=1,
                                     is_last=True)
                        for s in plan.decode_seqs]
-        a = self._chunk_arrays(chunks)
-        kind = "mixed" if mixed else "step"
+        a = self._chunk_arrays(chunks, ring)
+        kind = "mixed" if mixed else "ring" if ring else "step"
         if mixed:
             self.decode_dispatches += 1
             self.mixed_steps += 1
+        elif ring:
+            self.ring_steps += 1
+            logger.info("ring prefill: %d prompt tokens in one step over "
+                        "sp=%d", plan.chunks[0].length, self._sp)
         plan._step_id = self._step_counter
         a["step"] = np.array(self._step_counter, np.int64)
         self._tap(kind, a)
@@ -1294,14 +1343,16 @@ class TorchEngine(ScheduledEngineBase):
     def _invoke_step(self, kind: str, a: dict,
                      dev_arrays: Optional[dict] = None,
                      prev: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Run one step of ``kind`` ("step", "mixed", "chained", "spec") on
-        its host arrays ``a`` (those in ``dev_arrays`` already on the
-        device: the leader's composition caches) and return its packed
-        device output. The ONE function leader and followers run: a
+        """Run one step of ``kind`` ("step", "mixed", "chained", "spec",
+        "ring") on its host arrays ``a`` (those in ``dev_arrays`` already
+        on the device: the leader's composition caches) and return its
+        packed device output. The ONE function leader and followers run: a
         chained step takes its tokens from ``prev`` (the leader's previous
         handle), else from this rank's last packed output."""
         if kind == "spec":
             packed = self._spec_step(a)
+        elif kind == "ring":
+            packed = self._ring_step(a)
         else:
             dev_arrays = dict(dev_arrays or {})
             if kind == "chained":
@@ -1342,7 +1393,7 @@ class TorchEngine(ScheduledEngineBase):
         if kind == "block":
             out = self._invoke_block(a)
             return self.fetch_packed_block(self._stage(out["packed"]))
-        if kind not in ("step", "mixed", "chained", "spec"):
+        if kind not in ("step", "mixed", "chained", "spec", "ring"):
             raise ValueError(f"unknown fanned-out dispatch kind {kind!r}")
         return self.fetch_packed(self._stage(self._invoke_step(kind, a)))
 
@@ -1554,6 +1605,21 @@ class TorchEngine(ScheduledEngineBase):
         packed = self._sample_tail(logits, t, draw=bool(a["temp"].max() > 0),
                                    row0=0 if dp is None else dp.lo)
         return packed if dp is None else dp.gather(packed)
+
+    @torch.no_grad()
+    def _ring_step(self, a: dict) -> torch.Tensor:
+        """One sequence-parallel whole-prompt prefill (the reference's
+        ``_ring_step_impl``): ``parallel/ring_prefill.py`` over this rank's
+        sp ring on the step's one row, eagerly (the reference fuses and
+        captures no ring step either), replicated over dp (a batch of one
+        row is not split), sampled through ``_sample_tail``. Returns the
+        packed output on the device."""
+        from dynamo_tpu_torch.parallel.ring_prefill import ring_prefill
+        t = {k: _upload(v, self.device) for k, v in a.items()}
+        logits, _ = ring_prefill(
+            self.params, self.model_cfg, t["toks"], t["pos"], self.pages,
+            t["table"], t["total"], t["new"], mesh=self.mesh)
+        return self._sample_tail(logits, t, draw=bool(a["temp"].max() > 0))
 
     # a fused block's inputs that are not per row
     _WHOLE = ("step", "step0", "gt_trans", "gt_masks")
@@ -2042,9 +2108,11 @@ class TorchEngine(ScheduledEngineBase):
 
     def _joins_gather(self) -> bool:
         """Does this rank take part in a world's page gather: the leader's
-        ``pp`` x ``tp`` group (dp coordinate 0), where the layers and the
-        heads are split."""
-        return bool(self._kv_splits) and self.mesh.coords["dp"] == 0
+        ``pp`` x ``tp`` group (dp and sp coordinate 0), where the layers
+        and the heads are split; the dp and sp replicas hold the same
+        bytes."""
+        return (bool(self._kv_splits) and self.mesh.coords["dp"] == 0
+                and self.mesh.coords["sp"] == 0)
 
     def _fan_page_io(self, kind: str, arrays: dict, fn, *args, **kw):
         """On a world's leader: fan a page IO op out under a step id of its

@@ -13,15 +13,19 @@ themselves over the mesh's process groups (``mesh.py``):
   and the paged KV cache, and each rank's slices;
 - ``multihost.py`` — the world, the step fanout and the follower loop;
 - ``pipeline.py`` — pipeline parallelism: layer stages over ``pp``, the
-  microbatch ring and its stage handoff.
+  microbatch ring and its stage handoff;
+- ``ring_attention.py`` / ``ring_prefill.py`` — sequence parallelism: ring
+  attention over ``sp`` (``RankMesh.rotate``) and the whole-prompt ring
+  prefill that fills the paged cache.
 
 Served: tensor parallelism (heads, FFN width and kv heads over ``tp``),
 expert parallelism (experts over ``ep``), data parallelism (batch rows over
 ``dp``, the weights and the page pool replicated: ``mesh.DpRows``),
 pipeline parallelism (layers over ``pp``, composed with ``tp`` and ``dp``:
-``pipeline.py``), and the KV data plane (page gathers and scatters) on any
-of these worlds. Sequence parallelism (``ring_attention.py``,
-``ring_prefill.py``) is ROADMAP A13b item 4.
+``pipeline.py``), sequence parallelism (long prompts in one ring step over
+``sp``, composed with ``tp`` and ``dp``, the weights and the page pool
+replicated over ``sp``), and the KV data plane (page gathers and scatters)
+on any of these worlds.
 """
 
 from dynamo_tpu_torch.parallel.mesh import MeshSpec, make_mesh

@@ -160,28 +160,44 @@ class RankMesh:
         """The reference's ``lax.ppermute`` over ``axis`` with pairs ``(i,
         i + 1)``: ``x`` goes to the rank one coordinate on, and the value
         the rank one coordinate back sent is returned (zeros at coordinate
-        0, as ``ppermute`` leaves a rank no pair sends to). Every rank of
-        the axis calls it together. Over NCCL one batched send / receive;
-        gloo takes no send of a CUDA tensor, so there the axis gathers
-        every rank's ``x`` (the ``all_gather`` above) and each rank keeps
-        its predecessor's."""
+        0, as ``ppermute`` leaves a rank no pair sends to)."""
+        return self._ppermute(x, axis, wrap=False)
+
+    def rotate(self, x: torch.Tensor, axis: str = "sp") -> torch.Tensor:
+        """The reference's ``lax.ppermute`` over ``axis`` with wrap-around
+        pairs ``(j, (j + 1) % n)``: as ``send_next``, with the last
+        coordinate sending to coordinate 0; at one rank ``x`` itself."""
+        return self._ppermute(x, axis, wrap=True)
+
+    def _ppermute(self, x: torch.Tensor, axis: str,
+                  wrap: bool) -> torch.Tensor:
+        """One hop along ``axis``: each rank sends ``x`` one coordinate on
+        and returns what the rank one coordinate back sent; without
+        ``wrap`` the last coordinate sends nothing and coordinate 0
+        receives zeros. Every rank of the axis calls it together. Over
+        NCCL one batched send / receive; gloo takes no send of a CUDA
+        tensor, so there the axis gathers every rank's ``x`` (the
+        ``all_gather`` above) and each rank keeps its predecessor's."""
         g = self.group(axis)
         if g is None:
-            return torch.zeros_like(x)
+            return x if wrap else torch.zeros_like(x)
         import torch.distributed as dist
         c, n = self.coords[axis], self.shape[axis]
         x = x.contiguous()
+        has_prev = wrap or c > 0
         if self.backend != "nccl":
             full = self.all_gather(x[None], axis, dim=0)
-            return full[c - 1] if c > 0 else torch.zeros_like(x)
+            return full[(c - 1) % n] if has_prev else torch.zeros_like(x)
         out = torch.zeros_like(x)
+
+        def peer(j):
+            return coords_rank(self.spec, dict(self.coords, **{axis: j % n}))
+
         ops = []
-        if c + 1 < n:
-            ops.append(dist.P2POp(dist.isend, x, coords_rank(
-                self.spec, dict(self.coords, **{axis: c + 1})), group=g))
-        if c > 0:
-            ops.append(dist.P2POp(dist.irecv, out, coords_rank(
-                self.spec, dict(self.coords, **{axis: c - 1})), group=g))
+        if wrap or c + 1 < n:
+            ops.append(dist.P2POp(dist.isend, x, peer(c + 1), group=g))
+        if has_prev:
+            ops.append(dist.P2POp(dist.irecv, out, peer(c - 1), group=g))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return out

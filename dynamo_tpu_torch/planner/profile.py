@@ -219,12 +219,13 @@ async def profile_parallelism_sweep(args) -> Dict:
     ``profile_sla.py`` behavior of sweeping TP sizes for prefill/decode so
     the planner can pick a CONFIG, not just a count.
 
-    A (tp, 1) config runs on a rank group of tp processes over ``--device``
-    (None: the GPU; a rank per card, as the worker places them): this
-    process is rank 0 and profiles the engine, the other ranks follow its
-    steps (``parallel/multihost.py``). A config that needs more devices
-    than there are is skipped; sp > 1 is refused (ROADMAP A13b). Output
-    schema:
+    A (tp, sp) config runs on a rank group of tp x sp processes over
+    ``--device`` (None: the GPU; a rank per card, as the worker places
+    them) on the reference's ``MeshSpec(tp=tp, sp=sp)``: this process is
+    rank 0 and profiles the engine, the other ranks follow its steps
+    (``parallel/multihost.py``); under sp a prompt past the chunk budget
+    prefills in one ring step. A config that needs more devices than
+    there are is skipped. Output schema:
 
       {"configs": [{"tp": T, "sp": S, "chips": T*S,
                     "prefill": [...], "decode": [...]}, ...],
@@ -255,17 +256,13 @@ async def profile_parallelism_sweep(args) -> Dict:
             print(f"profile: skipping tp={tp} sp={sp} "
                   f"(needs {n} devices, have {have})")
             continue
-        if sp > 1:
-            raise SystemExit(
-                f"profile: tp={tp} sp={sp}: sequence parallelism is not "
-                "ported yet (ROADMAP A13b)")
         ecfg = TorchEngineConfig(
             num_pages=args.num_pages, page_size=args.page_size,
             max_num_seqs=max(args.concurrency),
             max_prefill_chunk=args.max_prefill_chunk,
             max_context=min(max(2 * max(args.isl), 4096),
                             cfg.max_position_embeddings))
-        group = _RankGroup(cfg, ecfg, tp, dev)
+        group = _RankGroup(cfg, ecfg, tp, sp, dev)
         try:
             prof = await profile_engine(
                 group.engine, isls=args.isl, concurrencies=args.concurrency,
@@ -289,33 +286,37 @@ async def profile_parallelism_sweep(args) -> Dict:
 
 
 class _RankGroup:
-    """A tp-way engine for the sweep: at tp 1 one engine in this process;
-    above, this process as rank 0 of a world of tp ranks, whose followers
-    are bare engine processes built from the same spec and seed."""
+    """A tp x sp engine for the sweep: at one rank one engine in this
+    process; above, this process as rank 0 of a world of tp x sp ranks on
+    ``MeshSpec(tp=tp, sp=sp)``, whose followers are bare engine processes
+    built from the same spec and seed."""
 
-    def __init__(self, cfg, ecfg, tp: int, dev):
+    def __init__(self, cfg, ecfg, tp: int, sp: int, dev):
         import os
         import sys
         import tempfile
 
         from dynamo_tpu_torch.engine.torch_engine import TorchEngine
         from dynamo_tpu_torch.parallel import multihost as mh
+        from dynamo_tpu_torch.parallel.mesh import MeshSpec
         self.world, self.procs, self.fanout = None, [], None
         self.spec_path = None
-        if tp == 1:
+        n = tp * sp
+        if n == 1:
             self.engine = TorchEngine.random_init(cfg, ecfg, device=dev)
             return
+        mesh = MeshSpec(tp=tp, sp=sp)
         address = mh.free_address()
         fd, self.spec_path = tempfile.mkstemp(suffix=".json")
         with os.fdopen(fd, "w") as f:
-            json.dump(mh.engine_spec(cfg, ecfg, address, tp, None,
-                                     dev.type), f)
+            json.dump(mh.engine_spec(cfg, ecfg, address, n, None,
+                                     dev.type, mesh), f)
         self.procs = mh.start_local_ranks(
             [sys.executable, "-m", "dynamo_tpu_torch.parallel.multihost",
-             "--engine-spec", self.spec_path], tp)
-        self.world = mh.initialize_distributed(address, 1, 0, tp,
+             "--engine-spec", self.spec_path], n)
+        self.world = mh.initialize_distributed(address, 1, 0, n,
                                                device=dev.type)
-        self.engine = mh.build_rank_engine(cfg, ecfg, self.world)
+        self.engine = mh.build_rank_engine(cfg, ecfg, self.world, mesh)
         self.fanout = mh.StepFanout(self.world.fanout)
         self.fanout.install(self.engine)
 

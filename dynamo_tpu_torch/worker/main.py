@@ -28,15 +28,18 @@ backend, as the reference's worker does. A ``--model-path`` ending in
 ``.gguf`` loads a GGUF file (``models/gguf.py``), as the reference's
 worker does.
 
-Tensor, data and pipeline parallelism over ranks (``parallel/``):
-``--tensor-parallel-size T``, ``--data-parallel-size D`` and
-``--pipeline-parallel-size P`` run a world of D x P x T ranks, one process
-per device, as one engine over the reference's dp x pp x tp mesh (each dp
-replica its rows of every batch, the page pool replicated over dp; each
-of the P stages its L / P layers, ``parallel/pipeline.py``).
+Tensor, data, pipeline and sequence parallelism over ranks
+(``parallel/``): ``--tensor-parallel-size T``, ``--data-parallel-size D``,
+``--pipeline-parallel-size P`` and ``--sequence-parallel-size S`` run a
+world of D x P x T x S ranks, one process per device, as one engine over
+the reference's dp x pp x tp x sp mesh (each dp replica its rows of every
+batch, the page pool replicated over dp and sp; each of the P stages its
+L / P layers, ``parallel/pipeline.py``; a prompt past the chunk budget
+prefilled in one ring step over the S ranks,
+``parallel/ring_prefill.py``).
 ``--num-nodes N --node-rank r`` keeps the reference's meaning,
 ``--local-devices`` is the number of ranks this node runs (default D x P
-x T / N), ``--jax-coordinator`` keeps
+x T x S / N), ``--jax-coordinator`` keeps
 its name as the ``torch.distributed`` rendezvous address (``host:port``;
 on one node the worker picks a free local port), and ``--dist-backend``
 names the model's collective backend (default ``nccl`` on the GPU,
@@ -57,8 +60,8 @@ The reference's own refusals under pipeline parallelism are mirrored in
 its words: with sequence parallelism, with ``--num-nodes`` > 1, a layer
 count the stages do not divide, and a family with no stage adapter
 (DeepSeek); with the MoE dispatch backend it warns that drops go
-uncounted. Flags whose paths are not ported exit non-zero naming their
-ROADMAP item: sequence parallelism, ROADMAP A13b item 4.
+uncounted. Under sequence parallelism the engine refuses the families
+the ring cannot serve (every one but the Llama tree's dense models).
 """
 
 from __future__ import annotations
@@ -123,8 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "--tensor-parallel-size x --data-parallel-size "
                         "ranks in all)")
     p.add_argument("--sequence-parallel-size", type=int, default=1,
-                   help="ring-attention sequence parallelism (not ported: "
-                        "ROADMAP A13b)")
+                   help="ring-attention sequence parallelism: prompts "
+                        "past --max-prefill-chunk prefill in one ring step "
+                        "over this many ranks")
     p.add_argument("--attn-impl", default="auto",
                    choices=["auto", "pallas", "pallas_unrolled", "scan",
                             "unrolled"],
@@ -222,10 +226,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def world_size(args: argparse.Namespace) -> int:
-    """Ranks of the world: the dp x pp x tp mesh (the reference's
+    """Ranks of the world: the dp x pp x tp x sp mesh (the reference's
     devices)."""
     return (args.data_parallel_size * args.pipeline_parallel_size
-            * args.tensor_parallel_size)
+            * args.tensor_parallel_size * args.sequence_parallel_size)
 
 
 def local_ranks(args: argparse.Namespace) -> int:
@@ -250,21 +254,20 @@ def refuse_unported(args: argparse.Namespace) -> None:
             raise SystemExit("--pipeline-parallel-size with --num-nodes>1 "
                              "is not wired yet (as in the reference, no "
                              "stage spans nodes)")
-    if args.sequence_parallel_size > 1:
-        raise SystemExit(f"--sequence-parallel-size "
-                         f"{args.sequence_parallel_size}: sequence "
-                         "parallelism is not ported yet (ROADMAP A13b)")
-    dp, pp, tp, nodes = (args.data_parallel_size,
-                         args.pipeline_parallel_size,
-                         args.tensor_parallel_size, args.num_nodes)
+    dp, pp, tp, sp, nodes = (args.data_parallel_size,
+                             args.pipeline_parallel_size,
+                             args.tensor_parallel_size,
+                             args.sequence_parallel_size, args.num_nodes)
     world = world_size(args)
     if world > 1 or nodes > 1:
         if nodes * local_ranks(args) != world:
             raise SystemExit(
                 f"--data-parallel-size {dp} x --pipeline-parallel-size "
-                f"{pp} x --tensor-parallel-size {tp} ({world} ranks) must "
+                f"{pp} x --tensor-parallel-size {tp} x "
+                f"--sequence-parallel-size {sp} ({world} ranks) must "
                 f"equal --num-nodes {nodes} x --local-devices "
-                f"{local_ranks(args)}: the world is one dp x pp x tp mesh")
+                f"{local_ranks(args)}: the world is one dp x pp x tp x sp "
+                f"mesh")
         if nodes > 1 and not args.jax_coordinator:
             raise SystemExit("--jax-coordinator required with --num-nodes>1")
     if (args.host_cache_bytes > 0 or args.disk_cache_bytes > 0) \
@@ -368,7 +371,8 @@ def build_engine(args: argparse.Namespace, world=None) -> TorchEngine:
             cfg, engine_cfg, world,
             MeshSpec(dp=args.data_parallel_size,
                      pp=args.pipeline_parallel_size,
-                     tp=args.tensor_parallel_size), params=params)
+                     tp=args.tensor_parallel_size,
+                     sp=args.sequence_parallel_size), params=params)
     return TorchEngine(cfg, params, engine_cfg, device=device)
 
 
@@ -753,7 +757,8 @@ async def _serve(args: argparse.Namespace, world) -> None:
            f", world {world.world}, backend {world.backend}, fused blocks "
            f"{engine.block_mode}, mesh dp {args.data_parallel_size} x pp "
            f"{args.pipeline_parallel_size} x tp "
-           f"{args.tensor_parallel_size}")
+           f"{args.tensor_parallel_size} x sp "
+           f"{args.sequence_parallel_size}")
     print(f"torch worker serving model {card.name} on {engine.device} "
           f"(disagg={args.disagg}{par})", flush=True)
     try:

@@ -15,9 +15,12 @@
   a peer (merged frames of the whole kv heads, the aggregated worker's
   blocks); SIGTERM on that world's leader drains it and releases its
   follower.
-- The flag the port does not serve exits naming ROADMAP A13b: sequence
-  parallelism, alone or beside the served axes (pipeline parallelism is
-  served: ``tests/test_torch_parallel_pp.py``).
+- ``--sequence-parallel-size 2``, alone and with ``--data-parallel-size
+  2``, makes a world of dp x sp ranks and ``build_engine`` builds the
+  engine the reference's ``build_engine`` builds on the same flags: its
+  mesh, ring threshold, bucket floors and sizes (sp worlds serve in
+  ``tests/test_torch_parallel_sp.py``; pipeline parallelism in
+  ``tests/test_torch_parallel_pp.py``).
 - The profiler's tp=2 sweep config runs over a rank group and writes the
   reference's schema.
 
@@ -25,6 +28,7 @@ Every process here is a subprocess: this process starts no process group.
 """
 
 import asyncio
+import dataclasses
 import json
 import os
 import signal
@@ -337,14 +341,58 @@ def test_sigterm_drains_a_world_leader_and_releases_its_follower(stacks):
     assert "torch follower rank 1 released: kernel launches" in log
 
 
-@pytest.mark.parametrize("flags", [
-    ["--sequence-parallel-size", "2", "--data-parallel-size", "2"],
-    ["--sequence-parallel-size", "2"],
-])
-def test_world_refusals_name_a13b(flags):
-    args = build_parser().parse_args(["--model-path", "m"] + flags)
-    with pytest.raises(SystemExit, match="ROADMAP A13b"):
-        refuse_unported(args)
+@pytest.mark.parametrize("flags,dp", [
+    (["--sequence-parallel-size", "2", "--data-parallel-size", "2"], 2),
+    (["--sequence-parallel-size", "2"], 1),
+], ids=["sp2-dp2", "sp2"])
+def test_sequence_parallel_flags_build_the_references_engine(
+        flags, dp, model_dir, monkeypatch):
+    """``--sequence-parallel-size`` is served: the world is dp x sp ranks,
+    and ``build_engine`` builds this rank's engine over ``MeshSpec(dp,
+    sp)`` with the reference's ring threshold, bucket floors and sizes
+    (the reference's ``build_engine`` on the same flags, on the
+    conftest's virtual devices; the port's rank engine is built over a
+    mesh without process groups, which construction does not use)."""
+    import types
+
+    import torch
+
+    from dynamo_tpu.worker import main as jmain
+    from dynamo_tpu_torch.engine.torch_engine import TorchEngine
+    from dynamo_tpu_torch.parallel import multihost as mh
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec, RankMesh
+    from dynamo_tpu_torch.parallel.sharding import ModelSharding
+    from dynamo_tpu_torch.worker import main as tmain
+    argv = ["--model-path", model_dir, "--random-weights", *ENGINE_FLAGS,
+            *flags]
+    args = build_parser().parse_args(argv + ["--device", "cpu"])
+    refuse_unported(args)
+    n = 2 * dp
+    assert tmain.world_size(args) == tmain.local_ranks(args) == n
+    built = {}
+
+    def rank_engine(cfg, ecfg, world, mesh_spec=None, params=None, **kw):
+        built["spec"], built["world"] = mesh_spec, world.world
+        shard = ModelSharding(cfg, RankMesh(mesh_spec, 0))
+        return TorchEngine(cfg, params, dataclasses.replace(
+            ecfg, mesh=shard.mesh, shard_params_fn=shard.shard_params,
+            shard_pages_fn=shard.shard_pages), device="cpu")
+    monkeypatch.setattr(mh, "build_rank_engine", rank_engine)
+    eng = tmain.build_engine(args, types.SimpleNamespace(
+        world=n, device=torch.device("cpu")))
+    jeng = jmain.build_engine(jmain.build_parser().parse_args(argv))
+    try:
+        assert built == {"spec": MeshSpec(dp=dp, sp=2), "world": n}
+        assert dict(jeng.cfg.mesh.shape) == built["spec"].shape()
+        assert (eng._sp, eng._dp) == (jeng._sp, jeng._dp) == (2, dp)
+        assert eng.scheduler.cfg.ring_threshold == \
+            jeng.scheduler.cfg.ring_threshold == 16
+        for k in ("num_pages", "page_size", "max_num_seqs",
+                  "max_prefill_chunk", "max_context", "min_decode_bucket",
+                  "min_prefill_seqs_bucket", "ring_threshold"):
+            assert getattr(eng.cfg, k) == getattr(jeng.cfg, k), k
+    finally:
+        eng._step_executor.shutdown()
 
 
 def test_tensor_parallel_world_must_span_the_nodes():

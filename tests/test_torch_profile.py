@@ -14,8 +14,9 @@ reference's, on the CPU.
   the GPU unless ``--device cpu`` is given (it raises here without one);
   the CLI writes JSON that the port's ``MultiPerfInterpolator`` loads.
 - ``--sweep``: (1, 1) runs, a config past the CPU's cores (its ranks'
-  devices) is skipped with the reference's message, and sp > 1 raises
-  naming ROADMAP A13b (tp = 2 runs in
+  devices, tp x sp) is skipped with the reference's message, and a (1, 2)
+  config profiles a rank group on ``MeshSpec(sp=2)`` and writes the rows
+  the reference's sweep writes (tp = 2 runs in
   ``tests/test_torch_parallel_worker.py``).
 - ``--engine mocker`` writes what the reference's mocker profile writes:
   the same rows (keys and x values) and the same meta.
@@ -244,14 +245,45 @@ def test_sweep_skips_configs_past_the_devices(tmp_path, capsys,
         [(1, 1, 1)]
     assert profile["meta"] == {"engine": "torch", "model": None, "osl": 4}
     assert MultiPerfInterpolator.from_file(str(out)).options[0]["chips"] == 1
-    # every config skipped: the reference's refusal
-    args.sweep = [(2 * have, 1)]
-    with pytest.raises(SystemExit, match="produced NO configs"):
-        asyncio.run(tprofile.amain(args))
-    # sequence parallelism over devices that exist: not ported yet
-    args.sweep = [(1, 2)]
-    with pytest.raises(SystemExit, match="ROADMAP A13b"):
-        asyncio.run(tprofile.amain(args))
+    # every config skipped: the reference's refusal; a config's devices
+    # are tp x sp
+    for sweep in ([(2 * have, 1)], [(1, 2 * have)]):
+        args.sweep = sweep
+        with pytest.raises(SystemExit, match="produced NO configs"):
+            asyncio.run(tprofile.amain(args))
+
+
+def test_sweep_profiles_an_sp_group_with_the_references_rows(tmp_path):
+    """A (1, 2) config profiles a world of two ranks on ``MeshSpec(sp=2)``
+    (its 40-token prompt past the chunk budget of 16 prefills in one ring
+    step) and writes the rows the reference's sweep writes for the same
+    config on the conftest's virtual devices: the same config keys, tp,
+    sp and chips, row keys and x values. No time is compared."""
+    flags = ["--sweep", "1,2", "--isl", "8,40", "--concurrency", "1,2",
+             "--osl", "4", "--num-pages", "64", "--page-size", "4",
+             "--max-prefill-chunk", "16", "--dtype", "float32"]
+    out = tmp_path / "sweep.json"
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu_torch.planner.profile", *flags,
+         "--device", "cpu", "--output", str(out)],
+        capture_output=True, text=True, timeout=180, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "profile: tp=1 sp=2 done (2+2 rows)" in proc.stdout
+    got = json.loads(out.read_text())
+    want = asyncio.run(jprofile.profile_parallelism_sweep(
+        jprofile.build_parser().parse_args(flags)))
+    assert got["meta"] == dict(want["meta"], engine="torch")
+    (g,), (w,) = got["configs"], want["configs"]
+    assert set(g) == set(w)
+    assert (g["tp"], g["sp"], g["chips"]) == (w["tp"], w["sp"],
+                                              w["chips"]) == (1, 2, 2)
+    for kind, x in (("prefill", "isl"), ("decode", "concurrency")):
+        assert [set(r) for r in g[kind]] == [set(r) for r in w[kind]]
+        assert [r[x] for r in g[kind]] == [r[x] for r in w[kind]]
+        assert all(r["tokens_per_s"] > 0 for r in g[kind])
+    assert MultiPerfInterpolator.from_file(str(out)).options[0][
+        "chips"] == 2
 
 
 def test_mocker_profile_matches_reference(tmp_path):

@@ -236,11 +236,11 @@ NAMED["planner/profile.py"] = [
      "the same sizes and weights, on the device"),
     (("async def profile_parallelism_sweep(args) -> Dict:\n",
       "\n\ndef _parse_sweep("), None,
-     "the sweep runs a (tp, 1) config on TorchEngine over a rank group of "
-     "tp processes (this one rank 0, bare engine followers the others: "
-     "_RankGroup), skips a config that needs more devices than there are "
-     "with the reference's message (CPU ranks: one per core) and refuses "
-     "sp > 1 (ROADMAP A13b); meta.engine is 'torch' "
+     "the sweep runs a (tp, sp) config on TorchEngine over a rank group "
+     "of tp x sp processes on MeshSpec(tp=tp, sp=sp) (this one rank 0, "
+     "bare engine followers the others: _RankGroup) and skips a config "
+     "that needs more devices than there are with the reference's "
+     "message (CPU ranks: one per core); meta.engine is 'torch' "
      "(tests/test_torch_profile.py, tests/test_torch_parallel_worker.py)"),
     ('p.add_argument("--engine", choices=["mocker", "jax"], default="mocker")',
      'p.add_argument("--engine", choices=["mocker", "torch"], '
@@ -305,9 +305,11 @@ NAMED["worker/main.py"] = [
      "eager)"),
     ('            raise SystemExit("--jax-coordinator required with '
      '--num-nodes>1")',
-     "not ported yet (ROADMAP A13b)",
-     "sequence parallelism exits naming ROADMAP A13b (dp, pp, the "
-     "disaggregated roles and the KVBM tiers serve at any world size)"),
+     'f"{local_ranks(args)}: the world is one dp x pp x tp x sp "',
+     "the world is one process per device of the reference's dp x pp x "
+     "tp x sp mesh, and its size must equal the nodes times their local "
+     "ranks (every axis, the disaggregated roles and the KVBM tiers serve "
+     "at any world size)"),
 ]
 
 NAMED["run.py"] = [
@@ -774,14 +776,19 @@ def test_processes_serve_over_http(model_dir, reference_texts, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    # tensor, data and pipeline parallelism are served
-    # (tests/test_torch_parallel_worker.py, test_torch_parallel_pp.py);
-    # sequence parallelism names ROADMAP A13b, with the served axes
-    # beside it too
-    (["--tensor-parallel-size", "2", "--sequence-parallel-size", "2"],
-     "A13"),
-    (["--data-parallel-size", "2", "--sequence-parallel-size", "2"], "A13"),
-    (["--sequence-parallel-size", "2"], "A13"),
+    # every axis is served (tests/test_torch_parallel_worker.py,
+    # test_torch_parallel_pp.py, test_torch_parallel_sp.py); what the
+    # worker still refuses with sp is the reference's pp + sp refusal, in
+    # its words, and a world its nodes' ranks do not make up
+    (["--pipeline-parallel-size", "2", "--sequence-parallel-size", "2"],
+     "--pipeline-parallel-size does not combine with sp yet"),
+    (["--tensor-parallel-size", "2", "--sequence-parallel-size", "2",
+      "--num-nodes", "2", "--local-devices", "1", "--jax-coordinator",
+      "127.0.0.1:1"],
+     "x --sequence-parallel-size 2 (4 ranks) must equal --num-nodes 2"),
+    (["--data-parallel-size", "2", "--sequence-parallel-size", "2",
+      "--local-devices", "3"],
+     "(4 ranks) must equal --num-nodes 1 x --local-devices 3"),
 ])
 def test_worker_refuses_unported_flags(model_dir, flags, item):
     proc = subprocess.run(
@@ -790,7 +797,7 @@ def test_worker_refuses_unported_flags(model_dir, flags, item):
          "--coordinator", f"127.0.0.1:{free_port()}"] + flags,
         capture_output=True, text=True, timeout=120, env=_env(), cwd=REPO)
     assert proc.returncode != 0
-    assert f"ROADMAP {item}" in proc.stderr, proc.stderr[-2000:]
+    assert item in proc.stderr, proc.stderr[-2000:]
 
 
 @pytest.mark.parametrize("flags", [

@@ -33,6 +33,17 @@ step (``DpRows``) and gathers the logits over ``dp``.
   its ``attn`` names (None: the plain paged attention; ``"decode"``: the
   decode kernel's wrapper); the logits (gathered over ``dp``), this
   rank's coordinates and its cache slab after the steps.
+- ``rotate``: ``RankMesh.rotate`` over the case's axis of a tensor
+  holding this rank's number; what came back and this rank's
+  coordinates.
+- ``ring_attention``: ``parallel/ring_attention.ring_self_attention`` on
+  the case's full arrays over the case's mesh (``head_axis`` as given):
+  the whole result (or its partials).
+- ``ring_prefill``: the case's steps on this rank's shards
+  (``ModelSharding`` over the case's mesh), each through
+  ``parallel/ring_prefill.ring_prefill`` when it is marked ``ring``, else
+  through the family's forward (a resident prefix); the logits of every
+  step, this rank's coordinates and its cache after the steps.
 
 The workloads are plain functions of (engine, request classes, and for
 the KV data plane a namespace of the package's modules), so the tests run
@@ -171,8 +182,9 @@ async def pp_workload(engine, Req, Samp, Stop) -> dict:
 
 
 async def ppkv_workload(engine, Req, Samp, Stop, ns) -> dict:
-    """The KV data plane of a layer-staged world and a one-rank engine of
-    the same tree (``ns["one"]()``): both serve prompt ``a`` and export its
+    """The KV data plane of a world (layer-staged, or sequence-parallel,
+    where ``a`` rides the ring) and a one-rank engine of the same tree
+    (``ns["one"]()``): both serve prompt ``a`` and export its
     blocks as merged frames; the world's frames are injected into the
     emptied one-rank engine and the one-rank engine's into the emptied
     world (each rank its slice of every scatter); both gather the blocks
@@ -215,6 +227,26 @@ async def ppkv_workload(engine, Req, Samp, Stop, ns) -> dict:
     out["back"] = await inject(engine, out["one_frames"])
     out["b"] = await _stream(engine, _req(Req, Samp, Stop, "b", pa + tail,
                                           4, **greedy))
+    return out
+
+
+async def ring_workload(engine, Req, Samp, Stop) -> dict:
+    """Sequence parallelism's ring step, one request at a time: a long
+    novel prompt (one ring step), a short one (chunked: under the
+    threshold), a prompt sharing the first's 24-token head whose long
+    tail rides the ring over the cached prefix, and a seeded draw on a
+    long novel prompt. Records the engine's ring steps after each."""
+    head, tail_a, tail_b, long_s = _prompts(53, [24, 40, 40, 36])
+    short = _prompts(59, [9])[0]
+    reqs = [("r1", head + tail_a, dict(temperature=0.0)),
+            ("short", short, dict(temperature=0.0)),
+            ("r2", head + tail_b, dict(temperature=0.0)),
+            ("r3", long_s, dict(temperature=0.8, seed=5))]
+    out = {}
+    for rid, prompt, kw in reqs:
+        out[rid] = await _stream(engine, _req(Req, Samp, Stop, rid, prompt,
+                                              6, **kw))
+        out[rid]["ring_steps"] = engine.ring_steps
     return out
 
 
@@ -439,6 +471,7 @@ async def kvbm_sampled_workload(engine, Req, Samp, Stop, ns,
 WORKLOADS = {"serve": serve_workload, "spec": spec_workload,
              "moe": moe_workload, "fail": fail_workload, "dp": dp_workload,
              "pp": pp_workload, "ppkv": ppkv_workload,
+             "ring": ring_workload, "spkv": ppkv_workload,
              "kv": kv_workload, "kvbm": kvbm_workload,
              "kvbm_sampled": kvbm_sampled_workload,
              "kvfail": kvfail_workload}
@@ -533,6 +566,69 @@ def run_pipeline(case: dict, world) -> dict:
             "cache": pages.numpy().copy()}
 
 
+_MESHES: dict = {}
+
+
+def _mesh(spec: dict):
+    """One mesh per shape a world's cases use, made on first use (every
+    rank runs the cases in one order, so the groups are made in one
+    order)."""
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    key = tuple(sorted(spec.items()))
+    if key not in _MESHES:
+        _MESHES[key] = make_mesh(MeshSpec(**spec))
+    return _MESHES[key]
+
+
+def run_rotate(case: dict, world) -> dict:
+    mesh = _mesh(case["mesh"])
+    x = torch.full((3,), float(world.rank))
+    return {"got": mesh.rotate(x, case["axis"]).numpy(),
+            "coords": dict(mesh.coords)}
+
+
+def run_ring_attention(case: dict, world) -> dict:
+    from dynamo_tpu_torch.parallel.ring_attention import ring_self_attention
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in case["inputs"].items()}
+    out = ring_self_attention(
+        _mesh(case["mesh"]), t["q"], t["k"], t["v"], t["pos"],
+        kv_valid=t["valid"], head_axis=case.get("head_axis"),
+        return_partials=case["partials"])
+    if case["partials"]:
+        return {"out": [x.numpy() for x in out]}
+    return {"out": out.numpy()}
+
+
+def run_ring_prefill(case: dict, world) -> dict:
+    from dynamo_tpu_torch.models import get_family
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.parallel.ring_prefill import ring_prefill
+    from dynamo_tpu_torch.parallel.sharding import (ModelSharding,
+                                                    local_config)
+    cfg = ModelConfig(**case["cfg"])
+    fam = get_family(cfg)
+    mesh = _mesh(case["mesh"])
+    shard = ModelSharding(cfg, mesh)
+    params = shard.shard_params(_params(cfg, case["tree"]))
+    pages = shard.shard_pages(fam.make_pages(cfg, case["num_pages"],
+                                             case["page_size"]))
+    lcfg = local_config(cfg, mesh)
+    logits = []
+    with torch.no_grad():
+        for st in case["steps"]:
+            t = {k: torch.from_numpy(np.asarray(v)) for k, v in st.items()
+                 if k != "ring"}
+            args = (t["tokens"], t["positions"], pages, t["table"],
+                    t["total"], t["new"])
+            if st["ring"]:
+                lg, _ = ring_prefill(params, cfg, *args, mesh=mesh)
+            else:
+                lg = fam.forward(params, lcfg, *args, mesh=mesh)[0]
+            logits.append(lg.numpy())
+    return {"logits": logits, "coords": dict(mesh.coords),
+            "cache": pages.numpy().copy()}
+
+
 def _record_steps(engine) -> list:
     """Record every step and fused block this rank runs, as (kind, step
     id, packed output): a world's ranks must run each under one id and
@@ -619,9 +715,10 @@ def run_engine(case: dict, world) -> dict:
     engine.step_tap = tap_on
     work = WORKLOADS[case["workload"]]
     extra = {}
-    if case["workload"] in ("kv", "kvbm", "kvbm_sampled", "kvfail", "ppkv"):
+    if case["workload"] in ("kv", "kvbm", "kvbm_sampled", "kvfail", "ppkv",
+                            "spkv"):
         extra["ns"] = port_ns()
-    if case["workload"] == "ppkv":
+    if case["workload"] in ("ppkv", "spkv"):
         from dynamo_tpu_torch.engine.torch_engine import TorchEngine
         extra["ns"]["one"] = lambda: TorchEngine(
             cfg, _params(cfg, case["tree"]),
@@ -658,6 +755,7 @@ def run_engine(case: dict, world) -> dict:
                        "chained": engine.chained_steps,
                        "decode_dispatches": engine.decode_dispatches,
                        "dp_splits": engine.dp_splits,
+                       "ring_steps": engine.ring_steps,
                        "block_mode": engine.block_mode}
     out["launches"] = dict(engine.kernel_launches)
     out["tap_threads"] = len(threads)
@@ -692,7 +790,9 @@ def main(argv) -> int:
                                               seconds=120))
         for case in spec["cases"]:
             run = {"forward": run_forward, "pipeline": run_pipeline,
-                   "engine": run_engine}[case["kind"]]
+                   "engine": run_engine, "rotate": run_rotate,
+                   "ring_attention": run_ring_attention,
+                   "ring_prefill": run_ring_prefill}[case["kind"]]
             results[case["name"]] = run(case, world)
     except Exception:  # noqa: BLE001 — reported through the results file
         results["error"] = traceback.format_exc()
